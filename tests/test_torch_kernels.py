@@ -1,0 +1,229 @@
+"""Differential tests of the port's kernel modules on the CPU.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds each
+against its plain version there). Here the *plain PyTorch versions* and the
+``ops.py`` wrappers — which a CPU tensor reaches — get the same seeded numpy
+inputs as the reference's ``gf_matmul`` / ``gf_matmul_batched`` /
+``butterfly_mac``, run as the reference's own tests run them on the CPU (the
+Pallas kernels with ``interpret=True``), and as the host oracle
+``gf_matmul_host``. Equality is exact (``np.array_equal``, tolerance 0).
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro.core.field import M31, NTT, Field, shoup_precompute
+from repro.kernels.butterfly.ops import butterfly_mac as ref_butterfly_mac
+from repro.kernels.gf_matmul.ops import gf_matmul as ref_gf_matmul
+from repro.kernels.gf_matmul.ops import gf_matmul_batched as ref_gf_matmul_batched
+from repro.kernels.gf_matmul.ref import gf_matmul_host
+from repro_torch.convert import to_numpy, to_tensor
+from repro_torch.dist.collectives import ir_encode
+from repro_torch.core.schedule import plan_prepare_shoot
+from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain
+from repro_torch.kernels.butterfly.ops import butterfly_mac, butterfly_mac_reference
+from repro_torch.kernels.butterfly.ref import butterfly_mac_ref
+from repro_torch.kernels.gf_matmul.kernel import gf_matmul_cuda, gf_matmul_plain
+from repro_torch.kernels.gf_matmul.ops import (
+    encode_direct,
+    gf_matmul,
+    gf_matmul_batched,
+    gf_matmul_reference,
+)
+from repro_torch.kernels.gf_matmul.ref import gf_matmul_host as port_gf_matmul_host
+from repro_torch.kernels.gf_matmul.ref import gf_matmul_ref
+
+
+def rand_u32(shape, q, seed):
+    return np.random.default_rng(seed).integers(0, q, size=shape, dtype=np.uint32)
+
+
+def t(a):
+    return to_tensor(a, "cpu")
+
+
+GRID = [
+    (8, 8, 128),  # single small block
+    (128, 512, 128),  # exactly one default block of the reference
+    (256, 1024, 256),  # multi-block in every dim
+    (130, 70, 200),  # ragged
+    (1, 16, 1),  # degenerate
+    (13, 21, 130),
+    (40, 100, 257),
+]
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+@pytest.mark.parametrize("M,K,N", GRID)
+def test_gf_matmul_vs_pallas_interpret_and_host(q, M, K, N):
+    a = rand_u32((M, K), q, seed=M + K)
+    b = rand_u32((K, N), q, seed=N + K)
+    got = to_numpy(gf_matmul(t(a), t(b), q=q))
+    want = np.asarray(ref_gf_matmul(jnp.asarray(a), jnp.asarray(b), q=q, interpret=True))
+    assert got.dtype == want.dtype == np.uint32
+    assert np.array_equal(got, want)
+    assert np.array_equal(got.astype(np.uint64), gf_matmul_host(a, b, q))
+    assert np.array_equal(port_gf_matmul_host(a, b, q), gf_matmul_host(a, b, q))
+
+
+@pytest.mark.parametrize("q", [65537, 97])
+@pytest.mark.parametrize("M,K,N", [(8, 8, 128), (130, 70, 200), (1, 16, 1)])
+def test_gf_matmul_small_primes(q, M, K, N):
+    a = rand_u32((M, K), q, seed=M + K)
+    b = rand_u32((K, N), q, seed=N + K)
+    got = to_numpy(gf_matmul(t(a), t(b), q=q))
+    want = np.asarray(ref_gf_matmul(jnp.asarray(a), jnp.asarray(b), q=q, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got.astype(np.uint64), gf_matmul_host(a, b, q))
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+def test_gf_matmul_vs_field_tier_ref(q):
+    a = rand_u32((16, 24), q, seed=0)
+    b = rand_u32((24, 8), q, seed=1)
+    out = gf_matmul(t(a), t(b), q=q)
+    assert torch.equal(out, gf_matmul_ref(t(a), t(b), q))
+    assert torch.equal(out, gf_matmul_reference(t(a), t(b), q=q))
+    assert np.array_equal(to_numpy(out).astype(np.uint64), gf_matmul_host(a, b, q))
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+def test_gf_matmul_extreme_values(q):
+    """q-1 everywhere: the worst case of every accumulator."""
+    a = np.full((64, 512), q - 1, dtype=np.uint32)
+    b = np.full((512, 128), q - 1, dtype=np.uint32)
+    got = to_numpy(gf_matmul(t(a), t(b), q=q))
+    want = np.asarray(ref_gf_matmul(jnp.asarray(a), jnp.asarray(b), q=q, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got.astype(np.uint64), gf_matmul_host(a, b, q))
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+def test_gf_matmul_batched_vs_pallas_interpret(q):
+    a = rand_u32((6, 9, 17), q, seed=3)
+    b = rand_u32((6, 17, 5), q, seed=4)
+    got = to_numpy(gf_matmul_batched(t(a), t(b), q=q))
+    want = np.asarray(ref_gf_matmul_batched(jnp.asarray(a), jnp.asarray(b), q=q, interpret=True))
+    assert np.array_equal(got, want)
+    for i in range(6):
+        assert np.array_equal(got[i].astype(np.uint64), gf_matmul_host(a[i], b[i], q))
+
+
+def test_gf_matmul_plain_chunking_is_invisible():
+    """Tiny chunks (the full-width comparison walks the payload in chunks)."""
+    q = NTT
+    a = rand_u32((3, 5, 7), q, seed=5)
+    b = rand_u32((3, 7, 1001), q, seed=6)
+    whole = gf_matmul_plain(t(a), t(b), q)
+    chunked = gf_matmul_plain(t(a), t(b), q, chunk_bytes=8 * 3 * 5 * 17)
+    assert torch.equal(whole, chunked)
+
+
+@pytest.mark.parametrize("M,K,N", [(0, 8, 8), (8, 0, 8), (8, 8, 0), (0, 0, 0)])
+def test_gf_matmul_zero_size_guard(M, K, N):
+    q = M31
+    out = gf_matmul(torch.zeros((M, K), dtype=torch.int32), torch.zeros((K, N), dtype=torch.int32), q=q)
+    want = np.asarray(ref_gf_matmul(jnp.zeros((M, K), jnp.uint32), jnp.zeros((K, N), jnp.uint32), q=q))
+    assert tuple(out.shape) == want.shape == (M, N) and out.dtype == torch.int32
+    assert np.array_equal(to_numpy(out), want)
+
+
+def test_gf_matmul_batched_zero_size_guard():
+    q = M31
+    out = gf_matmul_batched(torch.zeros((3, 0, 7), dtype=torch.int32), torch.zeros((3, 7, 5), dtype=torch.int32), q=q)
+    assert tuple(out.shape) == (3, 0, 5)
+    out = gf_matmul_batched(torch.zeros((2, 4, 0), dtype=torch.int32), torch.zeros((2, 0, 5), dtype=torch.int32), q=q)
+    assert tuple(out.shape) == (2, 4, 5) and not out.any()
+
+
+def test_encode_direct_on_the_cpu():
+    q = M31
+    x = rand_u32((33, 8), q, seed=7)
+    G = rand_u32((8, 12), q, seed=8)
+    got = to_numpy(encode_direct(x, G, q=q, device="cpu"))
+    assert np.array_equal(got.astype(np.uint64), gf_matmul_host(x, G, q))
+    got2 = to_numpy(encode_direct(t(x), t(G), q=q, device="cpu"))
+    assert np.array_equal(got, got2)
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+@pytest.mark.parametrize(
+    "radix,B,P",
+    [(2, 8, 16), (2, 256, 512), (3, 9, 100), (4, 64, 1000), (2, 1, 1), (3, 7, 100), (2, 8, 128), (3, 9, 513), (1, 5, 33)],
+)
+def test_butterfly_mac_vs_pallas_interpret_and_host(q, radix, B, P):
+    rng = np.random.default_rng(B + P)
+    parts = rng.integers(0, q, size=(radix, B, P), dtype=np.uint32)
+    tw = rng.integers(0, q, size=(B, radix), dtype=np.uint32)
+    tw[0, 0] = q - 1  # a Shoup dual just below 2^32
+    tw_sh = np.asarray(shoup_precompute(tw, q))
+    got = to_numpy(butterfly_mac(t(parts), t(tw), t(tw_sh), q=q))
+    want = np.asarray(
+        ref_butterfly_mac(jnp.asarray(parts), jnp.asarray(tw), jnp.asarray(tw_sh), q=q, interpret=True)
+    )
+    assert got.dtype == want.dtype == np.uint32
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, to_numpy(butterfly_mac_ref(t(parts), t(tw), t(tw_sh), q)))
+    assert np.array_equal(got, to_numpy(butterfly_mac_reference(t(parts), t(tw), t(tw_sh), q=q)))
+    f = Field(q)
+    host = np.zeros((B, P), dtype=np.uint64)
+    for r in range(radix):
+        host = f.add(host, f.mul(parts[r], tw[:, r : r + 1]))
+    assert np.array_equal(got.astype(np.uint64), host)
+    # the plain version's column chunks are invisible
+    chunked = butterfly_mac_plain(t(parts), t(tw), t(tw_sh), q, chunk_bytes=8 * B * 13)
+    assert np.array_equal(got, to_numpy(chunked))
+
+
+def test_butterfly_mac_payload_dims_and_empty():
+    q = NTT
+    rng = np.random.default_rng(0)
+    parts = rng.integers(0, q, size=(2, 16, 3, 5, 7), dtype=np.uint32)
+    tw = rng.integers(0, q, size=(16, 2), dtype=np.uint32)
+    tw_sh = np.asarray(shoup_precompute(tw, q))
+    out = butterfly_mac(t(parts), t(tw), t(tw_sh), q=q)
+    assert tuple(out.shape) == (16, 3, 5, 7)
+    want = np.asarray(ref_butterfly_mac(jnp.asarray(parts), jnp.asarray(tw), jnp.asarray(tw_sh), q=q))
+    assert np.array_equal(to_numpy(out), want)
+    empty = butterfly_mac(torch.zeros((2, 16, 0, 4), dtype=torch.int32), t(tw), t(tw_sh), q=q)
+    assert tuple(empty.shape) == (16, 0, 4)
+
+
+def test_cuda_only_doors_raise_on_the_cpu():
+    """A CPU tensor never reaches a kernel, and asking for the kernels on the
+    CPU raises instead of running something else."""
+    q = M31
+    a, b = t(rand_u32((2, 4, 4), q, 1)), t(rand_u32((2, 4, 8), q, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        gf_matmul_cuda(a, b, q)
+    parts, tw = t(rand_u32((2, 4, 8), q, 3)), t(rand_u32((4, 2), q, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        butterfly_mac_cuda(parts, tw, tw, q)
+    assert gf_matmul_cuda.launches == 0 and butterfly_mac_cuda.launches == 0
+    A = rand_u32((8, 8), q, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ir_encode(plan_prepare_shoot(8, 1).to_ir(A, q=q), q=q, device="cpu", kernels="cuda")
+    with pytest.raises(ValueError, match="kernels must be"):
+        ir_encode(plan_prepare_shoot(8, 1).to_ir(A, q=q), q=q, device="cpu", kernels="pallas")
+
+
+def test_wrappers_refuse_wrong_operands():
+    q = M31
+    with pytest.raises(TypeError):
+        gf_matmul_plain(torch.zeros((1, 2, 2), dtype=torch.int64), torch.zeros((1, 2, 2), dtype=torch.int32), q)
+    with pytest.raises(ValueError):
+        gf_matmul_plain(torch.zeros((1, 2, 3), dtype=torch.int32), torch.zeros((1, 2, 2), dtype=torch.int32), q)
+    with pytest.raises(ValueError):
+        gf_matmul(torch.zeros((2, 2, 2), dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32), q=q)
+    with pytest.raises(ValueError):
+        butterfly_mac_plain(
+            torch.zeros((2, 4, 8), dtype=torch.int32),
+            torch.zeros((4, 3), dtype=torch.int32),
+            torch.zeros((4, 3), dtype=torch.int32),
+            q,
+        )
+    with pytest.raises(ValueError, match="odd"):
+        gf_matmul_plain(torch.zeros((1, 2, 2), dtype=torch.int32), torch.zeros((1, 2, 2), dtype=torch.int32), 1 << 20)
