@@ -12,25 +12,28 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 2. ``build``    builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc.
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
-                ragged, tiny, extreme-valued and main-path shapes, and its
-                time at the main-path shape beside its bound.
+                ragged, tiny and extreme-valued shapes and at every shape
+                that phase 4 hands it, with its time, its plain version's
+                time and its bound at each of those.
 4. ``universal`` (K=64, M31), ``dft`` (K=64, NTT), ``draw_loose`` (K=48, NTT),
                 each with 2^20 payload elements a processor, through
                 ``a2a_encode`` and through ``ir_encode(kernels="cuda")``: both
                 equal, equal to a plain ``x @ A mod q`` on the card and to the
                 host oracle on sampled columns, decodes invert, the kernels'
                 launch counters and the executor's permutation counter hold
-                the expected numbers.
+                the expected numbers. Then each encode's median wall time and,
+                under ``torch.profiler``, its device-busy time, idle share and
+                busiest device kernels by name.
 5. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, error, time, bound and plain time; the card's name and power limit;
    and last ``{"ok": true, "device": {...}}``.
 
-Without a CUDA device it exits non-zero and prints no result.
+The widths, repeat counts and seed are the constants below: the script takes
+no arguments. Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -64,6 +67,12 @@ from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # no
 # as half the 67 TFLOP/s float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
+
+PAYLOAD = 1 << 20  # elements a processor: 4 MiB packets
+KERNEL_REPS = 12  # timed runs of each kernel (median)
+ENCODE_REPS = 3  # timed runs of each encode (median), and encodes a profile
+SAMPLE_COLS = 4096  # payload columns held against the host oracle
+SEED = 0
 
 KERNEL_SOURCES = {
     "gf_matmul": {
@@ -152,11 +161,126 @@ def nvidia_smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
+# the three configurations of the main path, and the shapes they hand the kernels
+# ---------------------------------------------------------------------------
+
+
+def make_configs() -> list[dict]:
+    """Plans, IRs and target matrices of the three full-width encodes
+    (host-side work only)."""
+    configs = []
+    for name, kind, K, q, seed in (
+        ("universal", "general", 64, M31, SEED + 100),
+        ("dft", "dft", 64, NTT, SEED + 200),
+        ("draw_loose", "vandermonde", 48, NTT, SEED + 300),
+    ):
+        f = Field(q)
+        cfg = {"name": name, "kind": kind, "K": K, "q": q, "seed": seed, "A": None}
+        if kind == "general":
+            cfg["A"] = random_matrix(f, K, seed=seed + 1)
+            plan = plan_for("general", K, 1, q)
+            cfg.update(plan=plan, ir=plan.to_ir(cfg["A"], q=q), target=np.asarray(cfg["A"]),
+                       budget=expected_permute_count(plan))
+        elif kind == "dft":
+            plan = plan_for("dft", K, 1, q)
+            cfg.update(plan=plan, ir=plan.to_ir(), target=butterfly_target_matrix(f, K, 2),
+                       budget=plan.H * plan.p)
+        else:
+            plan = plan_for("vandermonde", K, 1, q, seed=seed + 1)
+            ir = plan.to_ir()
+            cfg.update(plan=plan, ir=ir, target=draw_loose_target_matrix(plan), budget=ir_permute_count(ir))
+        configs.append(cfg)
+    return configs
+
+
+def a2a_kernel_calls(cfg: dict, P: int) -> list[tuple]:
+    """The kernel calls ``a2a_encode`` makes for one configuration, in order:
+    ``("gf_matmul", (batch, M, K, N))`` or ``("butterfly_mac", (radix, B, P))``."""
+    plan, K = cfg["plan"], cfg["K"]
+    if cfg["kind"] == "general":  # shoot_init: w[k] = coefT[k] @ buf[k]
+        return [("gf_matmul", (K, plan.n, plan.m, P))]
+    if cfg["kind"] == "dft":  # one launch a butterfly round
+        return [("butterfly_mac", (plan.radix, K, P))] * plan.H
+    calls = []
+    if plan.draw_plan is not None:  # M processors, (Z, P) as their payload
+        d = plan.draw_plan
+        calls.append(("gf_matmul", (plan.M, d.n, d.m, plan.Z * P)))
+    if plan.loose_plan is not None:  # Z processors, (M, P) as their payload
+        lp = plan.loose_plan
+        calls += [("butterfly_mac", (lp.radix, plan.Z, plan.M * P))] * lp.H
+    return calls
+
+
+def ir_kernel_calls(ir, P: int) -> list[tuple]:
+    """The kernel calls ``ir_encode(kernels="cuda")`` makes for ``ir``: a
+    LocalOp with one general row (not uniformly 0 or 1 across processors) is
+    one butterfly_mac over its input slots, with several one gf_matmul_batched."""
+    calls = []
+    for step in ir.steps:
+        if not isinstance(step, LocalOp):
+            continue
+        c = np.asarray(step.coeffs)  # (K, n_out, n_in)
+        general = sum(
+            1
+            for i in range(c.shape[1])
+            if not (np.all(c[:, i] == 0, axis=0) | np.all(c[:, i] == 1, axis=0)).all()
+        )
+        if general == 1:
+            calls.append(("butterfly_mac", (c.shape[2], ir.K, P)))
+        elif general > 1:
+            calls.append(("gf_matmul", (ir.K, general, c.shape[2], P)))
+    return calls
+
+
+def count_calls(calls: list[tuple]) -> tuple[int, int]:
+    """(gf_matmul, butterfly_mac) launches in a list of kernel calls."""
+    return (sum(1 for k, _ in calls if k == "gf_matmul"),
+            sum(1 for k, _ in calls if k == "butterfly_mac"))
+
+
+def path_shapes(configs: list[dict], P: int) -> dict[str, list]:
+    """kernel name → [(shape, q, [who calls it so])], each shape once, in the
+    order the main path meets them (the first is the shape the kernels' line
+    reports)."""
+    seen: dict[str, dict] = {"gf_matmul": {}, "butterfly_mac": {}}
+    for cfg in configs:
+        for entry, calls in (("a2a_encode", a2a_kernel_calls(cfg, P)),
+                             ("ir_encode", ir_kernel_calls(cfg["ir"], P))):
+            for kernel, shape in calls:
+                who = seen[kernel].setdefault((shape, cfg["q"]), [])
+                if f"{cfg['name']}/{entry}" not in who:
+                    who.append(f"{cfg['name']}/{entry}")
+    return {k: [(shape, q, who) for (shape, q), who in v.items()] for k, v in seen.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
 
-def check_gf_matmul(dev, K_main: int, m_main: int, n_main: int, P: int, reps: int) -> dict:
+def bound(nbytes: int, ops: int) -> dict:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def kernel_row(name: str, cases: int, worst: int, at_shapes: list[dict]) -> dict:
+    """The kernel's line: its numbers at the first main-path shape, and every
+    main-path shape's numbers under ``shapes``."""
+    first = at_shapes[0]
+    return {
+        "name": name,
+        "route": "cuda",
+        **KERNEL_SOURCES[name],
+        "shape": first["shape"],
+        "cases": cases + len(at_shapes),
+        "max_abs_err": max([worst] + [r["max_abs_err"] for r in at_shapes]),
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": LIBRARY_MS,
+        "shapes": at_shapes,
+    }
+
+
+def check_gf_matmul(dev, shapes: list) -> dict:
     worst = 0
     cases = 0
     # the reference tests' shape grid: one block, multi-block, ragged, degenerate
@@ -201,37 +325,27 @@ def check_gf_matmul(dev, K_main: int, m_main: int, n_main: int, P: int, reps: in
         check(z.shape == (M, N) and not z.any(), f"zero-size guard at {(M, K, N)}")
     check(gf_matmul_cuda.launches == before, "zero-size operands must not launch")
 
-    # the main-path shape: batch K x (n x m) . (m x P)
-    q = M31
-    a = rand_residues((K_main, n_main, m_main), q, dev, seed=11)
-    b = rand_residues((K_main, m_main, P), q, dev, seed=12)
-    got = gf_matmul_batched(a, b, q=q)
-    want = gf_matmul_plain(a, b, q)
-    err = max_abs_err(got, want)
-    worst = max(worst, err)
-    check(same(got, want), "gf_matmul_batched != plain at the main-path shape")
-    del got, want
-    ms = cuda_ms(lambda: gf_matmul_cuda(a, b, q), reps)
-    plain_ms = cuda_ms(lambda: gf_matmul_plain(a, b, q), max(3, reps // 4), warmup=1)
-    nbytes = 4 * (a.numel() + b.numel() + K_main * n_main * P)
-    ops = 2 * K_main * n_main * m_main * P
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return {
-        "name": "gf_matmul",
-        "route": "cuda",
-        **KERNEL_SOURCES["gf_matmul"],
-        "shape": f"batch {K_main} x ({n_main}x{m_main}).({m_main}x{P})",
-        "cases": cases + 1,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(by_bytes, by_ops),
-        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": LIBRARY_MS,
-    }
+    # every shape the main path hands the kernel: batch x (M x K) . (K x N)
+    at_shapes = []
+    for i, ((B, M, K, N), q, who) in enumerate(shapes):
+        a = rand_residues((B, M, K), q, dev, seed=11 + 2 * i)
+        b = rand_residues((B, K, N), q, dev, seed=12 + 2 * i)
+        got = gf_matmul_batched(a, b, q=q)
+        want = gf_matmul_plain(a, b, q)
+        err = max_abs_err(got, want)
+        check(same(got, want), f"gf_matmul_batched != plain at the main-path shape {(B, M, K, N)}, q={q}")
+        del got, want
+        at_shapes.append({
+            "shape": f"batch {B} x ({M}x{K}).({K}x{N})", "q": q, "from": who, "max_abs_err": err,
+            "ms": cuda_ms(lambda: gf_matmul_cuda(a, b, q), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: gf_matmul_plain(a, b, q), max(3, KERNEL_REPS // 4), warmup=1),
+            **bound(4 * (a.numel() + b.numel() + B * M * N), 2 * B * M * K * N),
+        })
+        del a, b
+    return kernel_row("gf_matmul", cases, worst, at_shapes)
 
 
-def check_butterfly_mac(dev, K_main: int, P: int, reps: int) -> dict:
+def check_butterfly_mac(dev, shapes: list) -> dict:
     worst = 0
     cases = 0
     grid = [(2, 8, 16), (2, 256, 512), (3, 9, 100), (4, 64, 1000), (1, 5, 64),
@@ -274,62 +388,31 @@ def check_butterfly_mac(dev, K_main: int, P: int, reps: int) -> dict:
     )
     check(z.shape == (4, 0) and butterfly_mac_cuda.launches == before, "zero-size guard of butterfly_mac")
 
-    # the main-path shape: one radix-2 round over all K processors
-    q = NTT
-    radix = 2
-    parts = rand_residues((radix, K_main, P), q, dev, seed=21)
-    tw_np = np.random.default_rng(22).integers(0, q, size=(K_main, radix), dtype=np.uint32)
-    tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, q), dev)
-    got = butterfly_mac(parts, tw, tw_sh, q=q)
-    want = butterfly_mac_plain(parts, tw, tw_sh, q)
-    err = max_abs_err(got, want)
-    worst = max(worst, err)
-    check(same(got, want), "butterfly_mac != plain at the main-path shape")
-    del got, want
-    ms = cuda_ms(lambda: butterfly_mac_cuda(parts, tw, tw_sh, q), reps)
-    plain_ms = cuda_ms(lambda: butterfly_mac_plain(parts, tw, tw_sh, q), max(3, reps // 4), warmup=1)
-    nbytes = 4 * (parts.numel() + 2 * tw.numel() + K_main * P)
-    ops = 2 * radix * K_main * P
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return {
-        "name": "butterfly_mac",
-        "route": "cuda",
-        **KERNEL_SOURCES["butterfly_mac"],
-        "shape": f"({radix}, {K_main}, {P})",
-        "cases": cases + 1,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(by_bytes, by_ops),
-        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": LIBRARY_MS,
-    }
+    # every shape the main path hands the kernel: one round over B processors
+    at_shapes = []
+    for i, ((radix, B, Pn), q, who) in enumerate(shapes):
+        parts = rand_residues((radix, B, Pn), q, dev, seed=21 + 2 * i)
+        tw_np = np.random.default_rng(22 + 2 * i).integers(0, q, size=(B, radix), dtype=np.uint32)
+        tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, q), dev)
+        got = butterfly_mac(parts, tw, tw_sh, q=q)
+        want = butterfly_mac_plain(parts, tw, tw_sh, q)
+        err = max_abs_err(got, want)
+        check(same(got, want), f"butterfly_mac != plain at the main-path shape {(radix, B, Pn)}, q={q}")
+        del got, want
+        at_shapes.append({
+            "shape": f"({radix}, {B}, {Pn})", "q": q, "from": who, "max_abs_err": err,
+            "ms": cuda_ms(lambda: butterfly_mac_cuda(parts, tw, tw_sh, q), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: butterfly_mac_plain(parts, tw, tw_sh, q),
+                                max(3, KERNEL_REPS // 4), warmup=1),
+            **bound(4 * (parts.numel() + 2 * tw.numel() + B * Pn), 2 * radix * B * Pn),
+        })
+        del parts
+    return kernel_row("butterfly_mac", cases, worst, at_shapes)
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-
-
-def expected_ir_launches(ir) -> tuple[int, int]:
-    """(gf_matmul, butterfly_mac) launches ``ir_encode(kernels="cuda")`` makes
-    for ``ir``: a LocalOp with one general row (not uniformly 0 or 1 across
-    processors) is one butterfly_mac, with several one gf_matmul_batched."""
-    gf = bf = 0
-    for step in ir.steps:
-        if not isinstance(step, LocalOp):
-            continue
-        c = np.asarray(step.coeffs)
-        general = sum(
-            1
-            for i in range(c.shape[1])
-            if not (np.all(c[:, i] == 0, axis=0) | np.all(c[:, i] == 1, axis=0)).all()
-        )
-        if general == 1:
-            bf += 1
-        elif general > 1:
-            gf += 1
-    return gf, bf
 
 
 def plain_matrix_encode(x: torch.Tensor, G: np.ndarray, q: int) -> torch.Tensor:
@@ -340,37 +423,14 @@ def plain_matrix_encode(x: torch.Tensor, G: np.ndarray, q: int) -> torch.Tensor:
     return gf_matmul_plain(gt[None], x.reshape(1, K, -1), q)[0].reshape(x.shape)
 
 
-def drive_encode(name, dev, *, K, q, P, kind, seed, sample_cols):
+def drive_encode(cfg: dict, dev, P: int):
     """One configuration through both entry points, counted and checked.
     Returns (record, timers) where timers re-run the two encodes for timing."""
-    f = Field(q)
+    name, kind, K, q, seed = cfg["name"], cfg["kind"], cfg["K"], cfg["q"], cfg["seed"]
+    plan, ir, target, budget, A = cfg["plan"], cfg["ir"], cfg["target"], cfg["budget"], cfg["A"]
     x = rand_residues((K, P), q, dev, seed=seed)
     torch.cuda.reset_peak_memory_stats()
-    if kind == "general":
-        A = random_matrix(f, K, seed=seed + 1)
-        plan = plan_for("general", K, 1, q)
-        target = np.asarray(A)
-        ir = plan.to_ir(A, q=q)
-        run_a2a = lambda: a2a_encode(x, A, plan=plan, q=q)[0]  # noqa: E731
-        budget = expected_permute_count(plan)
-        a2a_expect = (1, 0)  # one gf_matmul_batched for shoot_init
-    elif kind == "dft":
-        plan = plan_for("dft", K, 1, q)
-        target = butterfly_target_matrix(f, K, 2)
-        ir = plan.to_ir()
-        run_a2a = lambda: a2a_encode(x, plan=plan, q=q)[0]  # noqa: E731
-        budget = plan.H * plan.p
-        a2a_expect = (0, plan.H)  # one butterfly_mac a round
-    else:
-        plan = plan_for("vandermonde", K, 1, q, seed=seed + 1)
-        target = draw_loose_target_matrix(plan)
-        ir = plan.to_ir()
-        run_a2a = lambda: a2a_encode(x, plan=plan, q=q)[0]  # noqa: E731
-        budget = ir_permute_count(ir)
-        a2a_expect = (
-            1 if plan.draw_plan is not None else 0,
-            plan.loose_plan.H if plan.loose_plan is not None else 0,
-        )
+    run_a2a = lambda: a2a_encode(x, A, plan=plan, q=q)[0]  # noqa: E731
     fn = ir_encode(ir, q=q, kernels="cuda")
 
     g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
@@ -382,9 +442,10 @@ def drive_encode(name, dev, *, K, q, P, kind, seed, sample_cols):
     g2, b2 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
     peak = torch.cuda.max_memory_allocated()
 
+    a2a_expect = count_calls(a2a_kernel_calls(cfg, P))
     check((g1 - g0, b1 - b0) == a2a_expect,
           f"{name}: a2a_encode launched (gf, bf)={(g1 - g0, b1 - b0)}, expected {a2a_expect}")
-    ir_expect = expected_ir_launches(ir)
+    ir_expect = count_calls(ir_kernel_calls(ir, P))
     check((g2 - g1, b2 - b1) == ir_expect,
           f"{name}: ir_encode launched (gf, bf)={(g2 - g1, b2 - b1)}, expected {ir_expect}")
     check(fn.permutes_run == fn.permute_count == ir_permute_count(ir),
@@ -399,7 +460,7 @@ def drive_encode(name, dev, *, K, q, P, kind, seed, sample_cols):
     want = plain_matrix_encode(x, target, q)
     check(same(out_a2a, want), f"{name}: encode != plain x @ G mod q on the card")
     del want
-    cols = np.sort(np.random.default_rng(seed + 2).choice(P, size=min(sample_cols, P), replace=False))
+    cols = np.sort(np.random.default_rng(seed + 2).choice(P, size=min(SAMPLE_COLS, P), replace=False))
     cols_t = torch.as_tensor(cols, device=dev)
     host = encode_oracle(to_numpy(x.index_select(1, cols_t)), target, q).astype(np.uint32)
     check(np.array_equal(to_numpy(out_a2a.index_select(1, cols_t)), host),
@@ -420,14 +481,43 @@ def drive_encode(name, dev, *, K, q, P, kind, seed, sample_cols):
     return record, (run_a2a, lambda: fn(x))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--payload-log2", type=int, default=20, help="payload elements a processor, log2")
-    ap.add_argument("--reps", type=int, default=12, help="timed runs of each kernel (median)")
-    ap.add_argument("--encode-reps", type=int, default=3, help="timed runs of each encode (median)")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def profile_encode(name: str, fn, reps: int, top: int = 6) -> dict:
+    """``reps`` encodes under ``torch.profiler``: wall and device-busy ms an
+    encode, the idle share, and the busiest device kernels by name. The
+    encodes run on one stream, so the device cannot be busy for longer than
+    the wall time: a larger sum means rows were counted twice, and fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # an operator's row repeats the time of the kernels it launched
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3 / reps, ev.count / reps))
+    check(bool(rows), f"{name}: the profiler saw no device kernel")
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    check(busy <= wall, f"{name}: device busy {busy:.3f} ms exceeds the wall time {wall:.3f} ms")
+    return {
+        "wall_ms": wall,
+        "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall,
+        "device_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:top]],
+    }
+
+
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
               file=sys.stderr)
@@ -435,7 +525,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    P = 1 << args.payload_log2
+    P = PAYLOAD
     smi = nvidia_smi_line()
     say("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -449,11 +539,12 @@ def main(argv=None) -> int:
                      "ptxas": [ln for ln in v["log"].splitlines() if "registers" in ln or "spill" in ln]}
                  for k, v in _build.build_report["sources"].items()})
 
-    # phase 3: kernels against their plain versions, and their times
-    plan64 = plan_for("general", 64, 1, M31)
+    # phase 3: kernels against their plain versions, at every shape phase 4 gives them
+    configs = make_configs()
+    shapes = path_shapes(configs, P)
     rows = [
-        check_gf_matmul(dev, 64, plan64.m, plan64.n, P, args.reps),
-        check_butterfly_mac(dev, 64, P, args.reps),
+        check_gf_matmul(dev, shapes["gf_matmul"]),
+        check_butterfly_mac(dev, shapes["butterfly_mac"]),
     ]
     say("kernels", card=smi, kernels=rows)
     torch.cuda.empty_cache()
@@ -461,14 +552,9 @@ def main(argv=None) -> int:
     # phase 4: the main path, with every count set to 0 just before it
     gf_matmul_cuda.launches = 0
     butterfly_mac_cuda.launches = 0
-    configs = [
-        ("universal", dict(K=64, q=M31, kind="general", seed=args.seed + 100)),
-        ("dft", dict(K=64, q=NTT, kind="dft", seed=args.seed + 200)),
-        ("draw_loose", dict(K=48, q=NTT, kind="vandermonde", seed=args.seed + 300)),
-    ]
     records, timers = {}, {}
-    for name, cfg in configs:
-        records[name], timers[name] = drive_encode(name, dev, P=P, sample_cols=4096, **cfg)
+    for cfg in configs:
+        records[cfg["name"]], timers[cfg["name"]] = drive_encode(cfg, dev, P)
         torch.cuda.empty_cache()
     main_path_launches = {
         "gf_matmul": gf_matmul_cuda.launches,
@@ -478,12 +564,18 @@ def main(argv=None) -> int:
         check(n > 0, f"the main path never launched {k}")
 
     # times of the encodes (these repeats are not part of the counted run)
-    for name, _ in configs:
-        run_a2a, run_ir = timers[name]
-        run_a2a(), run_ir()
-        records[name]["a2a_encode_ms"] = wall_ms(run_a2a, args.encode_reps)
-        records[name]["ir_encode_ms"] = wall_ms(run_ir, args.encode_reps)
-        say(name, card=smi, **records[name])
+    for cfg in configs:
+        name = cfg["name"]
+        record = records[name]
+        entries = dict(zip(("a2a_encode", "ir_encode"), timers[name]))
+        for entry, run in entries.items():
+            run()
+            record[f"{entry}_ms"] = wall_ms(run, ENCODE_REPS)
+        record["profile"] = {
+            entry: profile_encode(f"{name}/{entry}", run, ENCODE_REPS) for entry, run in entries.items()
+        }
+        say(name, card=smi, **record)
+        del entries
         timers[name] = None
         torch.cuda.empty_cache()
 

@@ -29,12 +29,39 @@ from .schedule import (
     DrawLoosePlan,
     butterfly_group_perms,
     plan_butterfly,
+    plan_constants,
     plan_draw_loose,
 )
 
 
 def _bcast(coef, npay):
     return coef.reshape(coef.shape + (1,) * npay)
+
+
+def _butterfly_constants(plan: ButterflyPlan, inverse: bool, dev: torch.device):
+    """Per round t: (twiddles, their Shoup duals, gather index) on ``dev``.
+    ``src[rho, k]`` is k with digit_t replaced by rho. Uploaded once for each
+    (plan, direction, device), see ``schedule.plan_constants``."""
+
+    def make():
+        k = np.arange(plan.K)
+        consts = []
+        for t in range(plan.H):
+            step = plan.radix**t
+            digit = (k // step) % plan.radix
+            src = np.stack([k + (rho - digit) * step for rho in range(plan.radix)])
+            consts.append(
+                (
+                    to_tensor(plan.inv_twiddles[t] if inverse else plan.twiddles[t], dev),
+                    to_tensor(
+                        plan.inv_twiddles_shoup[t] if inverse else plan.twiddles_shoup[t], dev
+                    ),
+                    torch.as_tensor(src, device=dev),
+                )
+            )
+        return consts
+
+    return plan_constants(plan, ("butterfly", inverse, dev), make)
 
 
 def butterfly_apply(
@@ -44,34 +71,23 @@ def butterfly_apply(
 
     Round t: out[k] = Σ_ρ tw[k, ρ] · v[k with digit_t = ρ]  (Eq. 9/10).
     """
-    K, radix, H, q = plan.K, plan.radix, plan.H, plan.q
+    radix, H, q = plan.radix, plan.H, plan.q
     npay = v.ndim - 1
-    dev = v.device
-    rounds = range(H - 1, -1, -1) if inverse else range(H)
-    step_pow = [radix**t for t in range(H)]
-    k = np.arange(K)
+    consts = _butterfly_constants(plan, inverse, v.device)
     if v.is_cuda:
         # imported here: the kernel package itself imports core.field
         from ..kernels.butterfly.ops import butterfly_mac
-    for t in rounds:
-        tw = to_tensor(plan.inv_twiddles[t] if inverse else plan.twiddles[t], dev)
-        tw_sh = to_tensor(
-            plan.inv_twiddles_shoup[t] if inverse else plan.twiddles_shoup[t], dev
-        )
-        step = step_pow[t]
-        digit = (k // step) % radix
-        # src[rho] = k with digit_t replaced by rho
-        srcs = [torch.as_tensor(k + (rho - digit) * step, device=dev) for rho in range(radix)]
+    for t in range(H - 1, -1, -1) if inverse else range(H):
+        tw, tw_sh, src = consts[t]
         if v.is_cuda:
-            parts = torch.empty((radix, *v.shape), dtype=v.dtype, device=dev)
-            for rho in range(radix):
-                torch.index_select(v, 0, srcs[rho], out=parts[rho])
+            # one gather for all radix parts, then one kernel launch
+            parts = v.index_select(0, src.reshape(-1)).reshape(radix, *v.shape)
             v = butterfly_mac(parts, tw, tw_sh, q=q)
             continue
         acc = None
         for rho in range(radix):
             term = shoup_mul(
-                v.index_select(0, srcs[rho]),
+                v.index_select(0, src[rho]),
                 _bcast(tw[:, rho], npay),
                 _bcast(tw_sh[:, rho], npay),
                 q,
@@ -91,16 +107,22 @@ def decode_dft(y: torch.Tensor, plan: ButterflyPlan) -> torch.Tensor:
     return butterfly_apply(y, plan, inverse=True)
 
 
-def _scale(v: torch.Tensor, scale: np.ndarray, q: int, M: int, Z: int) -> torch.Tensor:
-    """v[i, j] · scale[i, j] for a (K,) host constant laid out as (M, Z)."""
+def _scale(v: torch.Tensor, plan: DrawLoosePlan, inverse: bool = False) -> torch.Tensor:
+    """v[i, j] · local_scale[i, j] (or its inverse): a (K,) host constant laid
+    out as (M, Z), uploaded with its Shoup dual once for each (plan,
+    direction, device)."""
+    q = plan.q
+
+    def make():
+        scale = plan.local_scale
+        if inverse:
+            scale = Field(q).inv(scale.astype(np.uint64))
+        scale = np.asarray(scale).astype(np.uint32).reshape(plan.M, plan.Z)
+        return to_tensor(scale, v.device), to_tensor(shoup_precompute(scale, q), v.device)
+
+    c, c_sh = plan_constants(plan, ("scale", inverse, v.device), make)
     npay = v.ndim - 2
-    scale = np.asarray(scale).astype(np.uint32).reshape(M, Z)
-    return shoup_mul(
-        v,
-        _bcast(to_tensor(scale, v.device), npay),
-        _bcast(to_tensor(shoup_precompute(scale, q), v.device), npay),
-        q,
-    )
+    return shoup_mul(v, _bcast(c, npay), _bcast(c_sh, npay), q)
 
 
 def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
@@ -117,7 +139,7 @@ def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
     else:
         F = v
     # local scale α_i^{rev(j)} (no communication)
-    F = _scale(F, plan.local_scale, q, M, Z)
+    F = _scale(F, plan)
 
     # ---- loose: M parallel Z-point butterflies (batched over i) -----------
     if plan.loose_plan is not None:
@@ -134,16 +156,16 @@ def decode_draw_loose(y: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
     local scale, then prepare-and-shoot with the INVERSE draw matrix."""
     K, M, Z, q = plan.K, plan.M, plan.Z, plan.q
     payload = y.shape[1:]
-    f = Field(q)
     v = y.reshape(M, Z, *payload)
     if plan.loose_plan is not None:
         vt = torch.movedim(v, 0, 1)
         vt = butterfly_apply(vt, plan.loose_plan, inverse=True)
         v = torch.movedim(vt, 1, 0)
-    inv_scale = f.inv(plan.local_scale.astype(np.uint64)).astype(np.uint32)
-    v = _scale(v, inv_scale, q, M, Z)
+    v = _scale(v, plan, inverse=True)
     if plan.draw_plan is not None:
-        Vinv = f.inv_matrix(plan.draw_matrix)
+        Vinv = plan_constants(
+            plan, "inv_draw_matrix", lambda: Field(q).inv_matrix(plan.draw_matrix)
+        )
         v = encode_universal(v, Vinv, p=plan.p, q=q, plan=plan.draw_plan)
     return v.reshape(K, *payload)
 

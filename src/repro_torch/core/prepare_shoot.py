@@ -19,8 +19,9 @@ Two coefficient paths:
 
 * ``A`` as a tensor (any matrix, the *universal* promise): the coefficient
   tensor is gathered from A on the device.
-* ``A`` as a host numpy array: coefficients (and, on the CPU, their Shoup
-  duals) are baked in as constants.
+* ``A`` as a host numpy array: coefficients and their Shoup duals are baked
+  in as constants, uploaded at the first call with this plan and matrix and
+  kept on the device after it.
 
 Where the contraction runs: on a CUDA device both paths hand
 ``w[k] = coefᵀ[k] @ buf[k]`` to the hand-written ``gf_matmul`` kernel
@@ -41,6 +42,7 @@ from .field import M31, Field, madd, mmul, shoup_mul, shoup_precompute, to_tenso
 from .schedule import (
     PrepareShootPlan,
     coeff_mask,
+    plan_constants,
     plan_prepare_shoot,
     shoot_coeff_indices,
     shoot_coeff_tensor,
@@ -68,6 +70,35 @@ def prepare_phase(x: torch.Tensor, plan: PrepareShootPlan) -> torch.Tensor:
     return buf
 
 
+def _shoot_coefficients(plan: PrepareShootPlan, A, q: int, dev: torch.device):
+    """(coef, coef_sh): the masked (K, m, n) coefficient tensor of
+    ``shoot_init`` on ``dev``, and for a host ``A`` its Shoup duals.
+
+    A host ``A`` is baked once: the tensors are kept with the plan
+    (``schedule.plan_constants``) beside a copy of the matrix they were made
+    from, and made anew only when a call brings another matrix. A tensor
+    ``A`` is gathered on the device through indices uploaded once.
+    """
+    if isinstance(A, np.ndarray):
+        slot = plan_constants(plan, ("shoot_coef", q, dev), dict)
+        if "A" not in slot or slot["A"].shape != A.shape or not np.array_equal(slot["A"], A):
+            coef_np = (shoot_coeff_tensor(plan, A) * coeff_mask(plan)[None, :, :]).astype(np.uint32)
+            slot["A"] = A.copy()
+            slot["coef"] = to_tensor(coef_np, dev), to_tensor(shoup_precompute(coef_np, q), dev)
+        return slot["coef"]
+
+    def make():
+        rows, cols = shoot_coeff_indices(plan)
+        return (
+            torch.as_tensor(rows, device=dev),
+            torch.as_tensor(cols, device=dev),
+            torch.as_tensor(coeff_mask(plan), device=dev)[None, :, :],
+        )
+
+    rows, cols, mask = plan_constants(plan, ("shoot_index", dev), make)
+    return torch.where(mask, to_tensor(A, dev)[rows, cols], 0), None
+
+
 def shoot_init(
     buf: torch.Tensor,
     plan: PrepareShootPlan,
@@ -79,19 +110,8 @@ def shoot_init(
     This modular contraction is the gf_matmul hot spot: a CUDA ``buf`` sends
     it to the kernel, a CPU ``buf`` runs the chains (see the module doc).
     """
-    mask = coeff_mask(plan)  # (m, n) bool
     npay = buf.ndim - 2
-    dev = buf.device
-    host = isinstance(A, np.ndarray)
-    if host:
-        coef_np = (shoot_coeff_tensor(plan, A) * mask[None, :, :]).astype(np.uint32)
-        coef = to_tensor(coef_np, dev)
-    else:
-        rows, cols = shoot_coeff_indices(plan)
-        coef = to_tensor(A, dev)[
-            torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
-        ]
-        coef = torch.where(torch.as_tensor(mask, device=dev)[None, :, :], coef, 0)
+    coef, coef_sh = _shoot_coefficients(plan, A, q, buf.device)
 
     m, n = plan.m, plan.n
     if buf.is_cuda:
@@ -103,8 +123,7 @@ def shoot_init(
         w = gf_matmul_batched(coef.transpose(1, 2).contiguous(), flat, q=q)
         return w.reshape(K, n, *buf.shape[2:])
 
-    if host:  # constants + Shoup
-        coef_sh = to_tensor(shoup_precompute(coef_np, q), dev)
+    if coef_sh is not None:  # host constants + Shoup
 
         def prods(u, l):
             return shoup_mul(
@@ -129,30 +148,24 @@ def shoot_rounds(w: torch.Tensor, plan: PrepareShootPlan, q: int) -> torch.Tenso
     """Tree-reduce toward w[:, 0] (Algorithm 1 lines 2-10).
 
     Round t, port ρ: the live targets l (digit_t = 0, lower digits 0) absorb
-    slot l + ρ·(p+1)^{t-1} of the processor ``shift`` places back. Only those
-    target columns are touched; every other column would add a zero, which
-    leaves a canonical residue as it is. ``w`` itself is not modified.
+    slot l + ρ·(p+1)^{t-1} of the processor ``shift`` places back. Targets are
+    the multiples of (p+1)^t and their sources lie one port offset further,
+    so both are strided slices of dim 1 and no index tensor is needed. Only
+    the target columns are touched; every other column would add a zero,
+    which leaves a canonical residue as it is. ``w`` itself is not modified.
     """
     K, p = plan.K, plan.p
     radix = p + 1
     n = plan.n
-    dev = w.device
     for t, shifts in enumerate(plan.shoot_shifts, start=1):
         stride = radix ** (t - 1)
         acc = w.clone()
         for rho, s in enumerate(shifts, start=1):
-            src_l = np.arange(n) + rho * stride
-            valid = (
-                (src_l < n)
-                & ((np.arange(n) // stride) % radix == 0)
-                & (np.arange(n) % stride == 0)
-            )
-            if not valid.any():
+            src = w[:, rho * stride : n : stride * radix]
+            if src.shape[1] == 0:
                 continue
-            tgt = torch.as_tensor(np.nonzero(valid)[0], device=dev)
-            src = torch.as_tensor(src_l[valid], device=dev)
-            contrib = torch.roll(w.index_select(1, src), s % K, dims=0)  # from k - s
-            acc[:, tgt] = madd(acc.index_select(1, tgt), contrib, q)
+            tgt = acc[:, 0 : n : stride * radix][:, : src.shape[1]]
+            tgt.copy_(madd(tgt, torch.roll(src, s % K, dims=0), q))  # from k - s
         w = acc
     return w
 

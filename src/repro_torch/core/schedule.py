@@ -22,6 +22,22 @@ from .field import M31, Field, shoup_precompute
 from .matrices import digit_reversal_permutation
 
 
+def plan_constants(plan, key, make):
+    """``make()`` once for each ``(plan, key)``: the constants an executor
+    bakes from a plan (twiddles, Shoup duals, gather indices as tensors on one
+    device) are built and uploaded at the first call and reused after it.
+
+    They are kept in the plan's instance dict, which a frozen dataclass
+    leaves writable (``functools.cached_property`` relies on the same), so
+    they live exactly as long as the plan, are no field of it (equality and
+    ``dataclasses.asdict`` do not see them), and no module holds state.
+    """
+    cache = plan.__dict__.setdefault("_constants", {})
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
 # ---------------------------------------------------------------------------
 # prepare-and-shoot schedule (§IV)
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ interface (no PyTorch headers, so ``nvcc`` needs seconds), loaded with
 ``ctypes``. The libraries are built at first use — when a CUDA tensor first
 reaches a kernel wrapper, never at import — all sources at once, one ``nvcc``
 process each, started together. They go to ``build/repro_torch/`` at the root
-of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides the place) under a name
+of the checkout under a name
 keyed by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is not. A failed build raises with the compiler's
 output; nothing falls back to another implementation.
@@ -43,9 +43,6 @@ build_report: dict = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     # src/repro_torch/kernels/_build.py -> the checkout's root
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 

@@ -143,3 +143,23 @@ def test_default_q_and_rs_generator(K, p):
     assert penc.default_q_for(K, p) == renc.default_q_for(K, p)
     f = Field(M31)
     assert np.array_equal(penc.rs_generator(f, 4, K + 2, seed=1), renc.rs_generator(f, 4, K + 2, seed=1))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_plan_constants_are_baked_once(inverse):
+    """The executors upload a plan's twiddles, duals and gather indices at
+    the first call and reuse the same tensors after it; the constants are no
+    field of the plan, so equality of plans does not see them."""
+    K, p, q = 48, 1, NTT
+    x = t32(random_vector(Field(q), (K, 2), seed=3))
+    plan, fresh = psch.plan_draw_loose(K, p, q, seed=7), psch.plan_draw_loose(K, p, q, seed=7)
+    run = pdl.decode_draw_loose if inverse else pdl.encode_draw_loose
+    first = run(x, plan)
+    loose = pdl._butterfly_constants(plan.loose_plan, inverse, x.device)
+    scale = plan.__dict__["_constants"][("scale", inverse, x.device)]
+    assert torch.equal(run(x, plan), first)
+    assert pdl._butterfly_constants(plan.loose_plan, inverse, x.device) is loose
+    assert plan.__dict__["_constants"][("scale", inverse, x.device)] is scale
+    assert "_constants" not in fresh.__dict__
+    assert dataclasses.asdict(plan).keys() == dataclasses.asdict(fresh).keys()
+    assert torch.equal(run(x, fresh), first)

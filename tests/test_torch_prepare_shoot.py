@@ -74,3 +74,28 @@ def test_universal_odd_payload_shapes(payload, q):
     want = rps.encode_universal(j32(x), np.asarray(A), p=p, q=q)
     assert tuple(out.shape) == (K, *payload)
     assert np.array_equal(to_numpy(out), jnp_u32(want))
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+def test_baked_coefficients_follow_the_matrix(q):
+    """One plan serves many matrices: the coefficient tensors kept with the
+    plan are reused for an equal matrix and made anew for another one, also
+    when the caller's array was changed in place."""
+    K, p = 9, 1
+    f = Field(q)
+    plan = psch.plan_prepare_shoot(K, p)
+    x = random_vector(f, (K, 5), seed=1)
+    A = np.asarray(random_matrix(f, K, seed=2)).copy()
+    B = np.asarray(random_matrix(f, K, seed=3))
+
+    def encode(M):
+        return to_numpy(pps.encode_universal(t32(x), M, p=p, q=q, plan=plan)).astype(np.uint64)
+
+    assert np.array_equal(encode(A), rps.encode_oracle(x, A, q))
+    baked = pps._shoot_coefficients(plan, A, q, t32(x).device)
+    assert np.array_equal(encode(A.copy()), rps.encode_oracle(x, A, q))
+    assert pps._shoot_coefficients(plan, A.copy(), q, t32(x).device)[0] is baked[0]
+    assert np.array_equal(encode(B), rps.encode_oracle(x, B, q))
+    A[0, 0] = (int(A[0, 0]) + 1) % q
+    assert np.array_equal(encode(A), rps.encode_oracle(x, A, q))
+    assert pps._shoot_coefficients(plan, A, q, t32(x).device)[0] is not baked[0]
