@@ -21,10 +21,25 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 equal, equal to a plain ``x @ A mod q`` on the card and to the
                 host oracle on sampled columns, decodes invert, the kernels'
                 launch counters and the executor's permutation counter hold
-                the expected numbers. Then each encode's median wall time and,
-                under ``torch.profiler``, its device-busy time, idle share and
-                busiest device kernels by name.
-5. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+                the expected numbers. Then the topology-aligned encodes at K=64
+                and 2^20 elements, each through its own entry point:
+                ``hierarchical`` (``hierarchical_encode(A, k_intra=8)``, M31),
+                ``multilevel`` (``multilevel_encode(A, (4, 4, 4))``, M31),
+                ``pipelined`` (``ps_encode(A, pipeline="pipeline")``, M31, the
+                universal A) and ``two_level_dft`` (``ir_encode`` of
+                ``plan_two_level_dft(64, 1, NTT, 8)``), with the same checks
+                and the permutation count equal to the budget function. Then
+                each encode's median wall time and, under ``torch.profiler``,
+                its device-busy time, idle share, time by kind of kernel and
+                busiest device kernels by name; ``pipelined`` is also timed
+                beside the same IR with its overlap LocalOps run in order.
+5. ``traced``   ``multilevel`` through ``ir_encode(tracer=Tracer(),
+                topo=Hierarchy(levels=(4, 4, 4)))`` twice: bit-equal to the
+                untraced encode, one root span and one span a round (levels
+                0,0,1,1,2,2), permutations and registry counters as budgeted;
+                then the calibration feed into a temporary file, its fitted
+                α/β and drift rows (one card's gathers in HBM, not links).
+6. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, error, time, bound and plain time; the card's name and power limit;
    and last ``{"ok": true, "device": {...}}``.
 
@@ -34,11 +49,13 @@ no arguments. Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -54,12 +71,30 @@ from repro_torch.core.ir import LocalOp, ir_permute_count  # noqa: E402
 from repro_torch.core.matrices import butterfly_target_matrix, random_matrix  # noqa: E402
 from repro_torch.core.prepare_shoot import encode_oracle  # noqa: E402
 from repro_torch.core.schedule import draw_loose_target_matrix  # noqa: E402
-from repro_torch.dist.collectives import expected_permute_count, ir_encode  # noqa: E402
+from repro_torch.dist.collectives import (  # noqa: E402
+    expected_hier_permute_count,
+    expected_multilevel_permute_count,
+    expected_permute_count,
+    hierarchical_encode,
+    ir_encode,
+    multilevel_encode,
+    ps_encode,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain  # noqa: E402
 from repro_torch.kernels.butterfly.ops import butterfly_mac  # noqa: E402
 from repro_torch.kernels.gf_matmul.kernel import gf_matmul_cuda, gf_matmul_plain  # noqa: E402
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
+from repro_torch.obs import Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
+from repro_torch.topo import (  # noqa: E402
+    FullyConnected,
+    Hierarchy,
+    plan_hierarchical,
+    plan_multilevel,
+    plan_two_level_dft,
+    two_level_dft_matrix,
+)
+from repro_torch.topo.passes import PIPELINES  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the yardsticks of
 # ``bound_ms``. 32-bit integer multiply-adds run outside the tensor cores on
@@ -166,8 +201,10 @@ def nvidia_smi_line() -> str:
 
 
 def make_configs() -> list[dict]:
-    """Plans, IRs and target matrices of the three full-width encodes
-    (host-side work only)."""
+    """Plans, IRs and target matrices of the full-width encodes (host-side
+    work only). The first three run through ``a2a_encode`` and
+    ``ir_encode``; each topology-aligned one runs through its own entry point
+    (``entry``), built on the card by ``make`` and run on the IR ``ir``."""
     configs = []
     for name, kind, K, q, seed in (
         ("universal", "general", 64, M31, SEED + 100),
@@ -175,7 +212,8 @@ def make_configs() -> list[dict]:
         ("draw_loose", "vandermonde", 48, NTT, SEED + 300),
     ):
         f = Field(q)
-        cfg = {"name": name, "kind": kind, "K": K, "q": q, "seed": seed, "A": None}
+        cfg = {"name": name, "kind": kind, "K": K, "q": q, "seed": seed, "A": None,
+               "entries": ("a2a_encode", "ir_encode")}
         if kind == "general":
             cfg["A"] = random_matrix(f, K, seed=seed + 1)
             plan = plan_for("general", K, 1, q)
@@ -190,6 +228,35 @@ def make_configs() -> list[dict]:
             ir = plan.to_ir()
             cfg.update(plan=plan, ir=ir, target=draw_loose_target_matrix(plan), budget=ir_permute_count(ir))
         configs.append(cfg)
+
+    K, f = 64, Field(M31)
+    A_univ = np.asarray(configs[0]["A"])
+    A_hier = np.asarray(random_matrix(f, K, seed=SEED + 401))
+    A_multi = np.asarray(random_matrix(f, K, seed=SEED + 501))
+    hp = plan_hierarchical(K, 1, 8)
+    mp = plan_multilevel(K, 1, (4, 4, 4))  # levels innermost first: sizes (4, 4, 4) reversed
+    pp = plan_for("general", K, 1, M31)
+    # the rewrite the dispatch applies: priced on the flat fabric at 2^16 elements
+    pipelined_ir = PIPELINES["pipeline"].apply(pp.to_ir(A_univ, q=M31), FullyConnected(K), 1 << 16)
+    tp = plan_two_level_dft(K, 1, NTT, 8)
+    tp_ir = tp.to_ir()
+    for name, q, seed, plan, ir, target, budget, entry, make in (
+        ("hierarchical", M31, SEED + 400, hp, hp.to_ir(A_hier, q=M31), A_hier,
+         expected_hier_permute_count(hp), "hierarchical_encode",
+         lambda: hierarchical_encode(A_hier, k_intra=8)[0]),
+        ("multilevel", M31, SEED + 500, mp, mp.to_ir(A_multi, q=M31), A_multi,
+         expected_multilevel_permute_count(mp), "multilevel_encode",
+         lambda: multilevel_encode(A_multi, (4, 4, 4))[0]),
+        ("pipelined", M31, SEED + 100, pp, pipelined_ir, A_univ,
+         expected_permute_count(pp), "ps_encode",
+         lambda: ps_encode(A_univ, pipeline="pipeline")[0]),
+        ("two_level_dft", NTT, SEED + 600, tp, tp_ir, two_level_dft_matrix(tp),
+         ir_permute_count(tp_ir), "ir_encode",
+         lambda: ir_encode(tp_ir, q=NTT)),
+    ):
+        configs.append({"name": name, "kind": "topology", "K": K, "q": q, "seed": seed, "A": None,
+                        "plan": plan, "ir": ir, "target": np.asarray(target), "budget": budget,
+                        "entries": (entry,), "make": make})
     return configs
 
 
@@ -244,8 +311,11 @@ def path_shapes(configs: list[dict], P: int) -> dict[str, list]:
     reports)."""
     seen: dict[str, dict] = {"gf_matmul": {}, "butterfly_mac": {}}
     for cfg in configs:
-        for entry, calls in (("a2a_encode", a2a_kernel_calls(cfg, P)),
-                             ("ir_encode", ir_kernel_calls(cfg["ir"], P))):
+        if cfg["kind"] == "topology":
+            runs = ((cfg["entries"][0], ir_kernel_calls(cfg["ir"], P)),)
+        else:
+            runs = (("a2a_encode", a2a_kernel_calls(cfg, P)), ("ir_encode", ir_kernel_calls(cfg["ir"], P)))
+        for entry, calls in runs:
             for kernel, shape in calls:
                 who = seen[kernel].setdefault((shape, cfg["q"]), [])
                 if f"{cfg['name']}/{entry}" not in who:
@@ -454,17 +524,8 @@ def drive_encode(cfg: dict, dev, P: int):
     if kind == "general":
         check(fn.permutes_run == budget, f"{name}: {fn.permutes_run} permutations, expected {budget}")
 
-    check(out_a2a.shape == (K, P) and out_a2a.dtype == torch.int32, f"{name}: a2a_encode output shape/dtype")
     check(same(out_a2a, out_ir), f"{name}: a2a_encode and ir_encode(kernels='cuda') differ")
-    check(bool(((out_a2a >= 0) & (out_a2a < q)).all()), f"{name}: output not canonical")
-    want = plain_matrix_encode(x, target, q)
-    check(same(out_a2a, want), f"{name}: encode != plain x @ G mod q on the card")
-    del want
-    cols = np.sort(np.random.default_rng(seed + 2).choice(P, size=min(SAMPLE_COLS, P), replace=False))
-    cols_t = torch.as_tensor(cols, device=dev)
-    host = encode_oracle(to_numpy(x.index_select(1, cols_t)), target, q).astype(np.uint32)
-    check(np.array_equal(to_numpy(out_a2a.index_select(1, cols_t)), host),
-          f"{name}: encode != host oracle on {len(cols)} sampled columns")
+    n_cols = check_output(name, out_a2a, x, target, q, seed)
     if kind == "dft":
         check(same(decode_dft(out_a2a, plan), x), f"{name}: decode_dft(encode_dft(x)) != x")
     elif kind == "vandermonde":
@@ -476,16 +537,92 @@ def drive_encode(cfg: dict, dev, P: int):
         "launches_a2a": {"gf_matmul": g1 - g0, "butterfly_mac": b1 - b0},
         "launches_ir": {"gf_matmul": g2 - g1, "butterfly_mac": b2 - b1},
         "permutes": fn.permutes_run, "permute_budget": budget,
-        "peak_bytes": peak, "checked_columns": {"plain_on_card": P, "host_oracle": len(cols)},
+        "peak_bytes": peak, "checked_columns": {"plain_on_card": P, "host_oracle": n_cols},
     }
     return record, (run_a2a, lambda: fn(x))
 
 
+def check_output(name: str, out: torch.Tensor, x: torch.Tensor, target: np.ndarray, q: int, seed: int) -> int:
+    """``out`` is canonical, equals a plain ``x @ target mod q`` on the card
+    over the whole payload and the host oracle on sampled columns; returns
+    the number of sampled columns."""
+    K, P = x.shape
+    check(out.shape == (K, P) and out.dtype == torch.int32, f"{name}: output shape/dtype")
+    check(bool(((out >= 0) & (out < q)).all()), f"{name}: output not canonical")
+    want = plain_matrix_encode(x, target, q)
+    check(same(out, want), f"{name}: encode != plain x @ G mod q on the card")
+    del want
+    cols = np.sort(np.random.default_rng(seed + 2).choice(P, size=min(SAMPLE_COLS, P), replace=False))
+    cols_t = torch.as_tensor(cols, device=x.device)
+    host = encode_oracle(to_numpy(x.index_select(1, cols_t)), target, q).astype(np.uint32)
+    check(np.array_equal(to_numpy(out.index_select(1, cols_t)), host),
+          f"{name}: encode != host oracle on {len(cols)} sampled columns")
+    return len(cols)
+
+
+def drive_entry(cfg: dict, dev, P: int):
+    """One topology-aligned configuration through its own entry point,
+    counted and checked. Returns (record, executor, input)."""
+    name, K, q, seed = cfg["name"], cfg["K"], cfg["q"], cfg["seed"]
+    x = rand_residues((K, P), q, dev, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    fn = cfg["make"]()
+    check(fn.device.type == "cuda" and fn.kernels == "cuda", f"{name}: the entry point did not run on the card")
+    calls = ir_kernel_calls(fn.ir, P)
+    check(calls == ir_kernel_calls(cfg["ir"], P),
+          f"{name}: the entry point runs other kernel shapes than phase 3 held")
+    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    out = fn(x)
+    torch.cuda.synchronize()
+    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    expect = count_calls(calls)
+    check((g1 - g0, b1 - b0) == expect,
+          f"{name}: {cfg['entries'][0]} launched (gf, bf)={(g1 - g0, b1 - b0)}, expected {expect}")
+    check(fn.permutes_run == fn.permute_count == ir_permute_count(fn.ir) == cfg["budget"],
+          f"{name}: executor ran {fn.permutes_run} permutations, the budget is {cfg['budget']}")
+    n_cols = check_output(name, out, x, cfg["target"], q, seed)
+    del out
+    overlap = sum(1 for s in fn.ir.steps if isinstance(s, LocalOp) and s.overlap)
+    record = {
+        "K": K, "p": 1, "q": q, "payload_elems": P, "entry": cfg["entries"][0], "algorithm": fn.ir.algorithm,
+        "c1": cfg["plan"].c1, "c2": cfg["plan"].c2, "overlap_local_ops": overlap,
+        "kernel_calls": [f"{k} {s}" for k, s in calls],
+        "launches": {"gf_matmul": g1 - g0, "butterfly_mac": b1 - b0},
+        "receive_coefficient_transfers": sum(
+            1 for r in fn.ir.rounds() for tr in r.transfers if tr.coeffs is not None),
+        "permutes": fn.permutes_run, "permute_budget": cfg["budget"],
+        "peak_bytes": peak, "checked_columns": {"plain_on_card": P, "host_oracle": n_cols},
+    }
+    return record, fn, x
+
+
+def in_order(ir):
+    """The same IR with every LocalOp's overlap flag cleared: the executor
+    then runs each contraction on the main stream, in order."""
+    steps = tuple(dataclasses.replace(s, overlap=False) if isinstance(s, LocalOp) else s for s in ir.steps)
+    return dataclasses.replace(ir, steps=steps)
+
+
+def kernel_kind(key: str) -> str:
+    """The kind of a device kernel, by the name the profiler gives it."""
+    k = key.lower()
+    if "gf_matmul" in k or "butterfly_mac" in k:
+        return "hand_kernels"
+    if "index" in k or "gather" in k:
+        return "gathers"
+    if "cat" in k or "copy" in k or "memcpy" in k or "memset" in k:
+        return "copies"
+    return "elementwise"
+
+
 def profile_encode(name: str, fn, reps: int, top: int = 6) -> dict:
     """``reps`` encodes under ``torch.profiler``: wall and device-busy ms an
-    encode, the idle share, and the busiest device kernels by name. The
-    encodes run on one stream, so the device cannot be busy for longer than
-    the wall time: a larger sum means rows were counted twice, and fails."""
+    encode, the idle share, device time by kind of kernel, and the busiest
+    device kernels by name. Busy time is the union of the device intervals,
+    so kernels that ran at once on two streams count once; it can exceed
+    neither the kernels' sum nor the wall time, and the run fails if it
+    does (rows counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -507,13 +644,94 @@ def profile_encode(name: str, fn, reps: int, top: int = 6) -> dict:
             rows.append((ev.key, dev_us / 1e3 / reps, ev.count / reps))
     check(bool(rows), f"{name}: the profiler saw no device kernel")
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    kernel_sum = sum(r[1] for r in rows)
+    # busy time is the union of the device intervals: kernels on two streams
+    # (an overlap LocalOp) may run at once, and then the sum exceeds it
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start)
+    check(bool(spans), f"{name}: the profiler gave no device intervals")
+    union_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            union_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    union_us += cur_e - cur_s
+    busy = union_us / 1e3 / reps
+    check(busy <= kernel_sum * 1.001, f"{name}: busy {busy:.3f} ms exceeds the kernels' sum {kernel_sum:.3f} ms")
     check(busy <= wall, f"{name}: device busy {busy:.3f} ms exceeds the wall time {wall:.3f} ms")
+    by_kind: dict = {}
+    for key, ms, _ in rows:
+        by_kind[kernel_kind(key)] = by_kind.get(kernel_kind(key), 0.0) + ms
     return {
         "wall_ms": wall,
         "device_busy_ms": busy,
+        "device_kernel_sum_ms": kernel_sum,
         "idle_share": 1.0 - busy / wall,
+        "ms_by_kind": by_kind,
         "device_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:top]],
+    }
+
+
+def traced_phase(cfg: dict, dev, P: int) -> dict:
+    """``cfg`` (the multilevel configuration) through the traced executor
+    twice, on its own hierarchy: outputs bit-equal to the untraced encode, one
+    root span and one span a CommRound each call, permutations and registry
+    counters as budgeted, then the calibration feed into a temporary file."""
+    name, K, q, seed = cfg["name"], cfg["K"], cfg["q"], cfg["seed"]
+    x = rand_residues((K, P), q, dev, seed=seed)
+    plain = cfg["make"]()
+    want = plain(x)
+    ir, budget = plain.ir, cfg["budget"]
+    topo = Hierarchy(levels=cfg["plan"].levels)
+    reg = get_registry()
+    reg.reset()
+    tracer = Tracer()
+    fn = ir_encode(ir, q=q, tracer=tracer, topo=topo)
+    calls = 2
+    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    for i in range(calls):
+        out = fn(x)
+        check(same(out, want), f"traced: call {i} != the untraced encode")
+        check(fn.permutes_run == budget, f"traced: {fn.permutes_run} permutations, the budget is {budget}")
+    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    expect = count_calls(ir_kernel_calls(ir, P))
+    check((g1 - g0, b1 - b0) == (calls * expect[0], calls * expect[1]),
+          f"traced: launched (gf, bf)={(g1 - g0, b1 - b0)}, expected {calls} x {expect}")
+    del out
+    roots = [s for s in tracer.spans if s.name == "ir_encode"]
+    comm = [s for s in tracer.spans if "comm_round" in s.attrs]
+    check(len(roots) == calls and all(s.parent is None for s in roots), "traced: one root span a call")
+    check(len(comm) == calls * ir.c1 == calls * 6, f"traced: {len(comm)} round spans for {calls} x c1={ir.c1}")
+    levels = [s.attrs["level"] for s in comm]
+    check(levels == [0, 0, 1, 1, 2, 2] * calls, f"traced: round levels {levels}")
+    check(all(s.dur_us > 0 for s in comm), "traced: a round span took no time")
+    for i in range(calls):
+        mine = comm[i * ir.c1:(i + 1) * ir.c1]
+        check(all(tracer.spans[s.parent] is roots[i] for s in mine), "traced: round spans nest in their call")
+        check(sum(s.attrs["ppermutes"] for s in mine) == budget, "traced: permutations of the spans != budget")
+    snap = reg.snapshot()
+    check(snap["encode.rounds"]["value"] == calls * ir.c1, f"traced: encode.rounds {snap['encode.rounds']}")
+    check(snap["encode.ppermutes"]["value"] == calls * budget, f"traced: encode.ppermutes {snap['encode.ppermutes']}")
+    wire = sum(s.attrs["wire_slots"] for s in comm) * P * 4
+    check(snap["encode.bytes_on_wire"]["value"] == wire > 0, "traced: encode.bytes_on_wire")
+    check(snap["encode.round_us{level=0}"]["count"] == levels.count(0), "traced: encode.round_us{level=0}")
+    with tempfile.TemporaryDirectory() as d:
+        fitted = feed_calibration(tracer.spans, os.path.join(d, "calibration.json"), n_levels=3)
+    return {
+        "K": K, "q": q, "payload_elems": P, "topology": f"Hierarchy(levels={topo.levels})",
+        "calls": calls, "traced_call_ms": [s.dur_us / 1e3 for s in roots],
+        "untraced_ms": wall_ms(lambda: plain(x), ENCODE_REPS),
+        "rounds": [{"round": s.attrs["comm_round"], "level": s.attrs["level"], "msgs": s.attrs["msgs"],
+                    "elems": s.attrs["elems"], "wire_slots": s.attrs["wire_slots"],
+                    "measured_us": s.dur_us, "predicted_us": s.attrs["predicted_us"]} for s in comm],
+        "counters": {k: v["value"] for k, v in snap.items() if v["type"] == "counter"},
+        "calibration_label": "fitted from one card's gathers in HBM (K processors as a tensor axis), "
+                             "not from links between cards",
+        "fitted_level_costs": [{"level": j, "alpha_s": c.alpha, "beta_s_per_elem": c.beta}
+                               for j, c in enumerate(fitted)],
+        "drift_rows": drift_rows(tracer.spans),
     }
 
 
@@ -554,7 +772,13 @@ def main() -> int:
     butterfly_mac_cuda.launches = 0
     records, timers = {}, {}
     for cfg in configs:
-        records[cfg["name"]], timers[cfg["name"]] = drive_encode(cfg, dev, P)
+        if cfg["kind"] == "topology":
+            record, fn, x = drive_entry(cfg, dev, P)
+            records[cfg["name"]], timers[cfg["name"]] = record, (lambda fn=fn, x=x: fn(x),)
+            if cfg["name"] == "pipelined":
+                cfg["pipelined"] = (fn, x)
+        else:
+            records[cfg["name"]], timers[cfg["name"]] = drive_encode(cfg, dev, P)
         torch.cuda.empty_cache()
     main_path_launches = {
         "gf_matmul": gf_matmul_cuda.launches,
@@ -567,7 +791,15 @@ def main() -> int:
     for cfg in configs:
         name = cfg["name"]
         record = records[name]
-        entries = dict(zip(("a2a_encode", "ir_encode"), timers[name]))
+        entries = dict(zip(cfg["entries"], timers[name]))
+        if name == "pipelined":  # the same IR with its overlap LocalOps run in order
+            fn, x = cfg.pop("pipelined")
+            fn_in_order = ir_encode(in_order(fn.ir), q=cfg["q"], kernels="cuda")
+            check(same(fn_in_order(x), fn(x)), "pipelined: the in-order run differs")
+            entries["in_order"] = lambda f=fn_in_order, x=x: f(x)
+            turns = [(k, wall_ms(entries[k], ENCODE_REPS))
+                     for k in ("ps_encode", "in_order", "in_order", "ps_encode")]
+            record["overlap_vs_in_order_ms"] = [{"run": k, "ms": ms} for k, ms in turns]
         for entry, run in entries.items():
             run()
             record[f"{entry}_ms"] = wall_ms(run, ENCODE_REPS)
@@ -578,6 +810,15 @@ def main() -> int:
         del entries
         timers[name] = None
         torch.cuda.empty_cache()
+
+    # phase 5: the traced path, counted on its own
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_cuda.launches = 0
+    traced = traced_phase(next(c for c in configs if c["name"] == "multilevel"), dev, P)
+    check(gf_matmul_cuda.launches > 0, "the traced path never launched gf_matmul")
+    say("traced", card=smi, launches={"gf_matmul": gf_matmul_cuda.launches,
+                                      "butterfly_mac": butterfly_mac_cuda.launches}, **traced)
+    torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,10 @@
 """Carrying plans and arrays across from the reference package.
 
-The reference's plans and IR are dataclasses of ints, tuples and numpy
-arrays. :func:`from_reference` reads them by attribute — this module never
-imports the reference package — and rebuilds them as the port's own classes,
-so the port's executors can run a schedule the reference compiled. :func:`to_tensor` and
+The reference's plans, IR, topologies and link costs are dataclasses of
+ints, floats, strings, tuples and numpy arrays. :func:`from_reference` reads
+them by attribute — this module never imports the reference package — and
+rebuilds them as the port's own classes, so the port's executors can run a
+schedule the reference compiled and price it on the same topology. :func:`to_tensor` and
 :func:`to_numpy` move residue and Shoup-dual arrays between ``np.uint32`` and
 the port's ``int32`` bit-pattern tensors (``core.field`` states the
 representation).
@@ -18,13 +19,29 @@ import numpy as np
 from .core.field import to_numpy, to_tensor  # noqa: F401  (re-exported)
 from .core.ir import CommRound, LocalOp, ScheduleIR, Transfer
 from .core.schedule import ButterflyPlan, DrawLoosePlan, PrepareShootPlan
+from .topo import hierarchical, model
 
 __all__ = ["from_reference", "to_tensor", "to_numpy"]
 
 _PLAN_CLASSES = {
-    "PrepareShootPlan": PrepareShootPlan,
-    "ButterflyPlan": ButterflyPlan,
-    "DrawLoosePlan": DrawLoosePlan,
+    cls.__name__: cls
+    for cls in (
+        PrepareShootPlan,
+        ButterflyPlan,
+        DrawLoosePlan,
+        hierarchical.HierarchicalPlan,
+        hierarchical.MultiLevelPlan,
+        hierarchical.RingPlan,
+        hierarchical.TwoLevelDFTPlan,
+        hierarchical.MultiLevelDFTPlan,
+        model.LinkCost,
+        model.FullyConnected,
+        model.Ring,
+        model.Torus2D,
+        model.Torus3D,
+        model.TwoLevel,
+        model.Hierarchy,
+    )
 }
 
 
@@ -75,9 +92,12 @@ def _step(step):
 
 
 def from_reference(obj):
-    """A reference ``PrepareShootPlan`` / ``ButterflyPlan`` / ``DrawLoosePlan``
-    / ``ScheduleIR`` (or any object with the same attributes) as the port's
-    own class, deep-copied."""
+    """A reference plan (``PrepareShootPlan``, ``ButterflyPlan``,
+    ``DrawLoosePlan``, ``HierarchicalPlan``, ``MultiLevelPlan``, ``RingPlan``,
+    ``TwoLevelDFTPlan``, ``MultiLevelDFTPlan``), topology (``FullyConnected``,
+    ``Ring``, ``Torus2D``, ``Torus3D``, ``TwoLevel``, ``Hierarchy``),
+    ``LinkCost`` or ``ScheduleIR`` — or any object with the same class name
+    and attributes — as the port's own class, deep-copied."""
     kind = type(obj).__name__
     if kind in _PLAN_CLASSES:
         return _plan(obj)
@@ -90,4 +110,4 @@ def from_reference(obj):
             placement=None if obj.placement is None else tuple(int(v) for v in obj.placement),
             out_slot=int(obj.out_slot),
         )
-    raise TypeError(f"from_reference takes a plan or a ScheduleIR, got {kind}")
+    raise TypeError(f"from_reference takes a plan, a topology, a LinkCost or a ScheduleIR, got {kind}")

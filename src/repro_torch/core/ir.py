@@ -8,7 +8,7 @@ schedule plan (prepare-shoot, butterfly, draw-loose, allgather, ring,
 hierarchical, multilevel, two-level/multi-level DFT) **compiles to** the same
 IR via a per-family ``plan.to_ir()`` lowering, and everything downstream —
 simulation (``core.simulator.interpret``), message-map lowering and α-β
-pricing (by a topology model), and execution
+pricing (``topo.lower.lower_ir``), and execution
 (``repro_torch.dist.collectives.ir_encode``) — consumes the IR generically. Adding an
 algorithm is now ONE compile function instead of four implementations.
 
@@ -36,8 +36,8 @@ in slot ``INPUT_SLOT`` and must end with its encode output in slot
 Rewrite passes operate on the IR: :func:`fuse_trivial_rounds` here (drop
 empty rounds / no-op transfers / identity local ops — exactness is immediate
 because every removed step is semantically the identity), and the
-topology-aware relabelling passes built on :func:`relabel` (they arrive with
-the topology layer of the port).
+topology-aware ``repro_torch.topo.passes.remap_digits`` (torus-native
+butterfly via :func:`relabel`).
 
 Paper-notation glossary: ``K`` processors, ``p`` ports per round, ``C1`` =
 round count = number of CommRounds, ``C2`` = Σ over rounds of the largest
@@ -90,7 +90,7 @@ class LocalOp:
 
     ``update=True`` switches to read-modify-write semantics: the op writes
     only its out_slots and every other live slot survives untouched — the
-    form a software-pipelining rewrite needs for its combine
+    form :func:`~repro_torch.topo.passes.pipeline_rounds` needs for its combine
     steps (``o ← o + τ(o)``), which must not clobber in-flight slots.
     ``overlap=True`` marks an op whose inputs are independent of the NEXT
     comm round, i.e. the executor may run it concurrently with (or fused

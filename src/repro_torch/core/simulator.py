@@ -90,18 +90,20 @@ class SyncSimulator:
 
 
 def interpret(
-    ir: ScheduleIR, x: np.ndarray, field: Field, *, tracer=None
+    ir: ScheduleIR, x: np.ndarray, field: Field, *, tracer=None, topo=None
 ) -> tuple[np.ndarray, SimStats]:
     """Execute ``ir`` on input ``x`` (shape (K,), uint64 canonical mod q)
     under the p-port constraints; returns (output, stats). Inputs and
     outputs are in LOGICAL processor order — ``ir.placement`` (set by layout
     passes built on ``relabel``) is applied at the boundary.
 
-    ``tracer`` (any object with a ``span(name, **attrs)`` context manager)
-    opts into per-round spans: one span per CommRound with its round index,
-    transfer count, and largest message (host wall time here measures the
-    interpreter itself, not a network — useful for tracing schedule
-    structure, not for calibration)."""
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) opts into per-round
+    spans mirroring the executor's instrumentation: one span per CommRound
+    with its round index, transfer count, and largest message (host wall
+    time here measures the interpreter itself, not a network — useful for
+    tracing schedule structure, not for calibration); ``topo`` (a
+    :class:`repro_torch.topo.model.Topology`) additionally stamps the α-β
+    model's ``predicted_us`` on each round span."""
     K = ir.K
     x = field.asarray(np.asarray(x))
     if x.shape != (K,):
@@ -147,6 +149,15 @@ def interpret(
                         "slots": max(len(v) for v in msgs.values()),
                         "payload_elems": 1,
                     }
+                    if topo is not None:
+                        from ..topo.model import schedule_time
+
+                        attrs["predicted_us"] = (
+                            schedule_time(
+                                topo, [{p_: len(v) for p_, v in msgs.items()}]
+                            ).total
+                            * 1e6
+                        )
                     span = tracer.span(f"round[{round_no}]", **attrs)
                 with span:
                     delivered = sim.exchange(msgs)

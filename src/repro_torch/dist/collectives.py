@@ -12,14 +12,16 @@ of the reference's mesh executor; rows that receive nothing read zero). Each
 :class:`~repro_torch.core.ir.LocalOp` becomes a modular contraction against
 baked per-processor coefficient constants that live on the device. The
 per-family entry points are dispatches: they build the plan, compile it with
-``plan.to_ir()``, and hand the IR to the generic executor — round structure,
+``plan.to_ir()``, optionally rewrite it with a named ``topo.passes``
+pipeline, and hand the IR to the generic executor — round structure,
 coefficient tables and masks all come from the SAME plans as the host
 simulator, so this path and the oracle agree bit for bit by construction.
 
 Communication discipline: the executor runs one permutation per port group
 and counts them (``fn.permutes_run`` after a call, ``fn.permute_count``
-statically); the committed budgets (:func:`expected_permute_count` and
-``H·p`` for the butterfly) are asserted at dispatch time
+statically); the committed budgets (:func:`expected_permute_count`,
+:func:`expected_hier_permute_count`, :func:`expected_multilevel_permute_count`
+and ``H·p`` for the butterfly) are asserted at dispatch time
 (``ir_permute_count(ir) ≤ budget``).
 
 :func:`allgather_encode` is the deliberate baseline that DOES gather every
@@ -32,10 +34,13 @@ handed to the returned callable is moved there, and with no card the call
 raises.
 
 Paper-notation glossary: ``K`` processors, ``p`` ports per round (each
-permutation is one port), ``C1`` rounds, ``C2`` per-port elements;
+permutation is one port), ``C1`` rounds, ``C2`` per-port elements; ``I``/``G``
+the two-level k_intra × k_inter split of :func:`hierarchical_encode`;
 *digit-reduction slots* — the §IV shoot buffer layout (one slot per
 (p+1)-ary numeral of the remaining target offset; round t zeroes digit t by
-shipping the slots with digit_t = ρ on port ρ).
+shipping the slots with digit_t = ρ on port ρ). :func:`multilevel_encode`
+generalizes to any K = Π K_level hierarchy: one gather over the innermost
+level, then one digit-reduction shoot per outer level, innermost first.
 """
 
 from __future__ import annotations
@@ -68,6 +73,16 @@ from ..core.schedule import (
     plan_butterfly,
     plan_prepare_shoot,
 )
+from ..obs.metrics import get_registry
+from ..topo.calibrate import round_features
+from ..topo.hierarchical import (
+    hier_shoot_message_size,
+    multilevel_message_size,
+    plan_hierarchical,
+    plan_multilevel,
+)
+from ..topo.model import FullyConnected, schedule_time
+from ..topo.passes import PIPELINES
 
 __all__ = [
     "KERNEL_MODES",
@@ -75,8 +90,12 @@ __all__ = [
     "ps_encode",
     "allgather_encode",
     "butterfly",
+    "hierarchical_encode",
+    "multilevel_encode",
     "shoot_round_slots",
     "expected_permute_count",
+    "expected_hier_permute_count",
+    "expected_multilevel_permute_count",
 ]
 
 
@@ -144,6 +163,13 @@ def _lower_local(step: LocalOp, bake, kernels: str) -> dict:
     return spec
 
 
+def _wait(dev: torch.device):
+    """Wait until the device has finished the work issued so far (a span's
+    bracket); the CPU runs torch ops synchronously and needs none."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 # ---------------------------------------------------------------------------
 # THE generic executor: any ScheduleIR whose rounds are permutations
 # ---------------------------------------------------------------------------
@@ -155,6 +181,9 @@ def ir_encode(
     q: int = M31,
     device=None,
     kernels: str | None = None,
+    tracer=None,
+    topo=None,
+    metrics=None,
 ):
     """Executor of any :class:`ScheduleIR` on one device: row ``k`` of the
     ``(K, *payload)`` tensor runs processor ``k``'s program. Returns a
@@ -180,9 +209,36 @@ def ir_encode(
     the per-coefficient loop, and ``None`` picks ``"cuda"`` on a CUDA device
     and ``"fused"`` on the CPU. All three are bit-exact.
 
-    The callable carries ``permute_count`` (gathers per call, equal to
-    ``ir_permute_count(ir)``), ``permutes_run`` (gathers the last call
-    really ran) and ``kernels`` (the resolved mode).
+    An ``overlap=True`` LocalOp (emitted by ``topo.passes.pipeline_rounds``)
+    runs, on a CUDA device, on a second stream: it is issued there after the
+    work before it and the main stream waits for it just before the first
+    step that reads one of its output slots, so its contraction runs beside
+    the following round's gathers. Every tensor that crosses the two streams
+    is handed to ``Tensor.record_stream``, so the caching allocator does not
+    reuse its memory while the other stream may still read it. No step writes
+    into an existing tensor, so the later steps cannot disturb what the
+    second stream reads. On the CPU the ops run in order. The flag never
+    changes a value.
+
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) opts into per-round
+    telemetry: each CommRound (merged with an overlap LocalOp just before
+    it, as the reference merges them into one dispatch) and each other
+    LocalOp runs inside its own span, bracketed by ``torch.cuda.synchronize``
+    on a CUDA device so that a span measures the work and not its launch.
+    Each round span carries the round index, transfer count, port groups
+    (``ppermutes``), slots on the wire, the α-β model's predicted µs on
+    ``topo`` (default: the paper's flat network), and the busiest-link
+    calibration features (level/msgs/elems) that ``repro_torch.obs.feed``
+    refits α/β from. Measured round times also land in the ``metrics``
+    registry (default: the process-local ``repro_torch.obs.metrics`` one) as
+    ``encode.rounds``, ``encode.ppermutes``, ``encode.bytes_on_wire`` and
+    ``encode.round_us{level=}``. With ``tracer=None`` (the default) nothing
+    synchronises; tracing changes when the host waits, never the computed
+    function.
+
+    The callable carries ``ir`` (the schedule it runs), ``permute_count``
+    (gathers per call, equal to ``ir_permute_count(ir)``), ``permutes_run``
+    (gathers the last call really ran) and ``kernels`` (the resolved mode).
     """
     dev = resolve_device(device)
     kernels = _resolve_kernels(kernels, dev)
@@ -192,11 +248,13 @@ def ir_encode(
         arr = np.asarray(arr).astype(np.uint32)
         return to_tensor(arr, dev), to_tensor(shoup_precompute(arr, q), dev)
 
-    # ("comm", [(src_of_dst, non_receivers, src_slots, dst_slots, mode, coef)])
+    # ("comm", [(pairs, src_of_dst, non_receivers, src_slots, dst_slots, mode, coef)], round_no)
     # | ("local", out_slots, in_slots, spec)
     ops = []
+    round_no = -1
     for step in ir.steps:
         if isinstance(step, CommRound):
+            round_no += 1
             groups = []
             for g in round_port_groups(step):
                 if g.mode == "store" and len(g.pairs) != K:
@@ -219,6 +277,7 @@ def ir_encode(
                 non_receivers = np.nonzero(~receives)[0]
                 groups.append(
                     (
+                        g.pairs,
                         torch.as_tensor(src_of_dst, device=dev),
                         torch.as_tensor(non_receivers, device=dev)
                         if non_receivers.size
@@ -230,7 +289,7 @@ def ir_encode(
                     )
                 )
             if groups:
-                ops.append(("comm", groups))
+                ops.append(("comm", groups, round_no))
         elif isinstance(step, LocalOp):
             if step.coeffs is None:
                 raise ValueError(
@@ -245,7 +304,7 @@ def ir_encode(
 
     def apply_comm(groups, buf, zero, npay):
         updates = []
-        for src_of_dst, non_receivers, src_slots, dst_slots, mode, coef in groups:
+        for _, src_of_dst, non_receivers, src_slots, dst_slots, mode, coef in groups:
             payload = torch.stack([buf.get(s, zero) for s in src_slots], dim=1)
             recv = payload.index_select(0, src_of_dst)  # one port = one gather
             run.permutes_run += 1
@@ -311,25 +370,193 @@ def ir_encode(
                     new[out_slots[i]] = acc[:, r]
         return new
 
+    overlapping = dev.type == "cuda" and any(
+        op[0] == "local" and op[3]["overlap"] for op in ops
+    )
+    side = torch.cuda.Stream(dev) if overlapping else None
+
+    def reads(op) -> set:
+        """The slots whose data ``op`` reads."""
+        if op[0] == "local":
+            return set(op[2])
+        out = set()
+        for _, _, _, src_slots, dst_slots, mode, _ in op[1]:
+            out.update(src_slots)
+            if mode == "add":
+                out.update(dst_slots)
+        return out
+
+    def join(pending: dict, slots):
+        """Make the main stream wait for the second-stream work that writes
+        any of ``slots`` (all of it when ``slots`` is None)."""
+        for s in list(pending) if slots is None else [s for s in slots if s in pending]:
+            torch.cuda.current_stream(dev).wait_event(pending.pop(s))
+
+    def apply_op(op, buf, zero, npay, pending):
+        """One IR step on the slot buffer. ``pending`` maps a slot to the
+        event after which the second stream has written it."""
+        if pending:
+            join(pending, reads(op))
+        if op[0] == "comm":
+            return apply_comm(op[1], buf, zero, npay)
+        if side is None or not op[3]["overlap"]:
+            return apply_local(op[1], op[2], op[3], buf, zero, npay)
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            new = apply_local(op[1], op[2], op[3], buf, zero, npay)
+            done = torch.cuda.Event()
+            done.record(side)
+        for s in op[2]:  # inputs the second stream reads
+            if s in buf:
+                buf[s].record_stream(side)
+        zero.record_stream(side)
+        for s in op[1]:  # outputs the main stream will read
+            new[s].record_stream(main)
+            pending[s] = done
+        return new
+
+    def execute(x, zero, npay):
+        """Run ``ops`` on x, untraced: nothing waits for the device."""
+        buf = {INPUT_SLOT: x}
+        pending: dict = {}
+        for op in ops:
+            buf = apply_op(op, buf, zero, npay, pending)
+        join(pending, None)
+        return buf.get(ir.out_slot, zero)
+
+    traced = None
+    if tracer is not None:
+        traced = _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics)
+
     def run(x):
         x = to_tensor(x, dev)
         if x.ndim < 1 or x.shape[0] != K:
             raise ValueError(f"x must have shape ({K}, *payload), got {tuple(x.shape)}")
         run.permutes_run = 0
-        npay = x.ndim - 1
         zero = torch.zeros_like(x)
-        buf = {INPUT_SLOT: x}
-        for op in ops:
-            if op[0] == "comm":
-                buf = apply_comm(op[1], buf, zero, npay)
-            else:
-                buf = apply_local(op[1], op[2], op[3], buf, zero, npay)
-        return buf.get(ir.out_slot, zero)
+        npay = x.ndim - 1
+        if traced is not None:
+            return traced(x, zero, npay)
+        return execute(x, zero, npay)
 
+    run.ir = ir
     run.permute_count = sum(len(op[1]) for op in ops if op[0] == "comm")
     run.permutes_run = 0
     run.kernels = kernels
     run.device = dev
+    return run
+
+
+def _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics):
+    """The opt-in per-round path of :func:`ir_encode`: the IR's steps in
+    dispatch groups, each inside a tracer span bracketed by
+    :func:`_wait`. Groups, span names and attributes are the reference's
+    (``repro.dist.collectives._traced_runner``): an overlap LocalOp followed
+    by a comm round is one group, ``round[r]`` spans carry the round's
+    metadata, other LocalOps get ``local[i]`` spans, ``i`` being the group's
+    index. The values are those of the untraced path."""
+    if topo is None:
+        topo = FullyConnected(ir.K)
+    reg = metrics if metrics is not None else get_registry()
+
+    grouped = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        if op[0] == "local" and op[3]["overlap"] and i + 1 < len(ops) and ops[i + 1][0] == "comm":
+            grouped.append((op, ops[i + 1]))
+            i += 2
+        else:
+            grouped.append((op,))
+            i += 1
+
+    # per-comm-group metadata: the round's message map and its derived stats
+    comm_meta = {}
+    for idx, grp in enumerate(grouped):
+        op = next((o for o in grp if o[0] == "comm"), None)
+        if op is None:
+            continue
+        msgs: dict = {}
+        wire_slots = 0
+        n_transfers = 0
+        max_slots = 0
+        for pairs, _, _, src_slots, _, _, _ in op[1]:
+            n_transfers += len(pairs)
+            wire_slots += len(pairs) * len(src_slots)
+            max_slots = max(max_slots, len(src_slots))
+            for s, d in pairs:
+                msgs[(s, d)] = msgs.get((s, d), 0) + len(src_slots)
+        feats = round_features([msgs], topo)
+        overlap_op = next((o for o in grp if o[0] == "local"), None)
+        comm_meta[idx] = {
+            "round": op[2],
+            "msgs_map": msgs,
+            "transfers": n_transfers,
+            "ppermutes": len(op[1]),
+            "slots": max_slots,
+            "wire_slots": wire_slots,
+            "feature": feats[0] if feats else None,
+            "overlap_out_slots": len(overlap_op[1]) if overlap_op else 0,
+        }
+    n_rounds = len(comm_meta)
+    total_ppermutes = ir_permute_count(ir)
+
+    def run_group(grp, buf, zero, npay):
+        pending: dict = {}
+        for op in grp:
+            buf = apply_op(op, buf, zero, npay, pending)
+        join(pending, None)
+        _wait(dev)
+        return buf
+
+    def run(x, zero, npay):
+        payload_elems = math.prod(int(d) for d in x.shape[1:])
+        with tracer.span(
+            "ir_encode",
+            algorithm=ir.algorithm,
+            K=ir.K,
+            p=ir.p,
+            rounds=n_rounds,
+            ppermutes=total_ppermutes,
+            payload_elems=payload_elems,
+        ):
+            buf = {INPUT_SLOT: x}
+            _wait(dev)
+            for idx, grp in enumerate(grouped):
+                meta = comm_meta.get(idx)
+                if meta is None:
+                    with tracer.span(f"local[{idx}]", kind="local"):
+                        buf = run_group(grp, buf, zero, npay)
+                    continue
+                pred_us = schedule_time(topo, [meta["msgs_map"]], payload_elems).total * 1e6
+                feat = meta["feature"]
+                attrs = {
+                    "algorithm": ir.algorithm,
+                    "comm_round": meta["round"],
+                    "transfers": meta["transfers"],
+                    "ppermutes": meta["ppermutes"],
+                    "slots": meta["slots"],
+                    "wire_slots": meta["wire_slots"],
+                    "payload_elems": payload_elems,
+                    "predicted_us": pred_us,
+                }
+                if meta["overlap_out_slots"]:
+                    attrs["overlap"] = True
+                    attrs["overlap_out_slots"] = meta["overlap_out_slots"]
+                if feat is not None:
+                    attrs.update(level=feat["level"], msgs=feat["msgs"], elems=feat["elems"])
+                with tracer.span(f"round[{meta['round']}]", **attrs) as sp:
+                    buf = run_group(grp, buf, zero, npay)
+                reg.counter("encode.rounds").inc()
+                reg.counter("encode.ppermutes").inc(meta["ppermutes"])
+                reg.counter("encode.bytes_on_wire").inc(meta["wire_slots"] * payload_elems * 4)
+                if feat is not None:
+                    reg.histogram("encode.round_us", level=feat["level"]).observe(sp.dur_us)
+                else:
+                    reg.histogram("encode.round_us").observe(sp.dur_us)
+            return buf.get(ir.out_slot, zero)
+
     return run
 
 
@@ -361,12 +588,31 @@ def expected_permute_count(plan: PrepareShootPlan) -> int:
     return count
 
 
+def _apply_pipeline(ir: ScheduleIR, pipeline: str, payload_elems: int = 1 << 16):
+    """Apply a named ``topo.passes`` pipeline at dispatch time (e.g.
+    ``pipeline="pipeline"`` for the software-pipelined rounds). Priced
+    against a flat fabric at a representative payload, exactly as the
+    reference prices it, so the rewritten IR is the reference's; comm rounds
+    are never touched, so the entry point's permutation budget still binds
+    the rewritten IR."""
+    if not pipeline:
+        return ir
+    return PIPELINES[pipeline].apply(ir, FullyConnected(ir.K), payload_elems)
+
+
 def _check_budget(ir: ScheduleIR, budget: int):
     n = ir_permute_count(ir)
     if n > budget:
         raise AssertionError(
             f"{ir.algorithm} IR needs {n} permutations, committed budget is {budget}"
         )
+
+
+def _square(A) -> np.ndarray:
+    A = np.asarray(A)
+    if A.ndim != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be square (K, K), got {A.shape}")
+    return A
 
 
 def ps_encode(
@@ -376,6 +622,7 @@ def ps_encode(
     q: int = M31,
     device=None,
     kernels: str | None = None,
+    pipeline: str = "",
 ):
     """Executor of the universal encode: ``out = x @ A`` over GF(q) for ANY
     K×K matrix A, K = A.shape[0].
@@ -383,13 +630,12 @@ def ps_encode(
     Returns ``(fn, plan)``; ``fn`` maps a ``(K, *payload)`` tensor to the
     encoded tensor of the same shape. A is a host array: the IR's
     coefficients and their Shoup duals are baked in as device constants.
+    ``pipeline`` names a ``topo.passes.PIPELINES`` entry applied to the IR
+    first (``""``: none).
     """
-    A = np.asarray(A)
-    if A.ndim != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be square (K, K), got {A.shape}")
-    K = A.shape[0]
-    plan = plan_prepare_shoot(K, p)
-    ir = plan.to_ir(A, q=q)
+    A = _square(A)
+    plan = plan_prepare_shoot(A.shape[0], p)
+    ir = _apply_pipeline(plan.to_ir(A, q=q), pipeline)
     _check_budget(ir, expected_permute_count(plan))
     return ir_encode(ir, q=q, device=device, kernels=kernels), plan
 
@@ -400,9 +646,7 @@ def allgather_encode(A: np.ndarray, *, q: int = M31, device=None):
     the cost-model foil for ps_encode (deliberately NOT routed through
     ir_encode, and plain torch: its point is the gather the IR path never
     does)."""
-    A = np.asarray(A)
-    if A.ndim != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be square (K, K), got {A.shape}")
+    A = _square(A)
     K = A.shape[0]
     dev = resolve_device(device)
     # processor k needs column A[:, k]: cols[k, j] = A[j, k]
@@ -425,6 +669,111 @@ def allgather_encode(A: np.ndarray, *, q: int = M31, device=None):
 
 
 # ---------------------------------------------------------------------------
+# two-level hierarchical encode
+# ---------------------------------------------------------------------------
+
+
+def expected_hier_permute_count(plan) -> int:
+    """Permutation budget of hierarchical_encode: one per non-empty intra
+    gather port plus one per inter (round, port) with live slots — the
+    plan/executor agreement contract (mirrors expected_permute_count)."""
+    count = sum(len(ports) for ports in plan.intra_rounds)
+    for t in range(1, len(plan.inter_shifts) + 1):
+        for rho in range(1, plan.p + 1):
+            if hier_shoot_message_size(plan, t, rho):
+                count += 1
+    return count
+
+
+def hierarchical_encode(
+    A: np.ndarray,
+    *,
+    k_intra: int,
+    p: int = 1,
+    q: int = M31,
+    device=None,
+    kernels: str | None = None,
+    pipeline: str = "",
+):
+    """Two-level executor of the universal encode: ``out = x @ A`` over GF(q)
+    for ANY K×K matrix A, K = G × I with I = ``k_intra``; row ``k = g·I + i``
+    is the reference's device (g, i).
+
+    Three phases (``topo.hierarchical`` — the topology-aligned schedule):
+    (p+1)-ary doubling all-gather inside each group of I, a local Shoup
+    contraction against baked per-processor coefficients, then the §IV
+    digit-reduction shoot across the G groups. Bit-exact vs. ``ps_encode``
+    and the oracle (modular sums reassociate exactly). The two-level
+    schedule is the depth-2 case of the recursive one, so
+    ``HierarchicalPlan.to_ir`` compiles through the multilevel IR builder.
+
+    Returns ``(fn, plan)`` with plan a :class:`HierarchicalPlan`.
+    """
+    A = _square(A)
+    plan = plan_hierarchical(A.shape[0], p, k_intra=k_intra)
+    ir = _apply_pipeline(plan.to_ir(A, q=q), pipeline)
+    _check_budget(ir, expected_hier_permute_count(plan))
+    return ir_encode(ir, q=q, device=device, kernels=kernels), plan
+
+
+# ---------------------------------------------------------------------------
+# recursive multi-level encode
+# ---------------------------------------------------------------------------
+
+
+def expected_multilevel_permute_count(plan) -> int:
+    """Permutation budget of multilevel_encode: one per non-empty intra
+    gather port plus one per (level, round, port) with live slots — the
+    plan/executor agreement contract (mirrors expected_hier_permute_count)."""
+    count = sum(len(ports) for ports in plan.intra_rounds)
+    for j in range(1, len(plan.levels)):
+        for t in range(1, len(plan.level_shifts[j - 1]) + 1):
+            for rho in range(1, plan.p + 1):
+                if multilevel_message_size(plan, j, t, rho):
+                    count += 1
+    return count
+
+
+def multilevel_encode(
+    A: np.ndarray,
+    sizes,
+    *,
+    p: int = 1,
+    q: int = M31,
+    device=None,
+    kernels: str | None = None,
+    pipeline: str = "",
+):
+    """N-level executor of the universal encode: ``out = x @ A`` over GF(q)
+    for ANY K×K matrix A, K = Π ``sizes``.
+
+    ``sizes`` is ordered outermost (slowest links) → innermost (fastest), as
+    the reference's mesh ``axes``: the last size varies fastest, so row
+    (c_{L−1}, …, c_1, c_0) is packet k = c_0 + K_0·(c_1 + K_1·(…)) and the
+    plan's ``levels`` are ``reversed(sizes)``.
+
+    Phases (``topo.hierarchical`` — the recursive topology-aligned schedule):
+    (p+1)-ary doubling all-gather over the innermost level, a local Shoup
+    contraction against baked per-processor coefficients, then one §IV
+    digit-reduction shoot per outer level, innermost first — every round
+    permutes exactly ONE level's coordinate. Bit-exact vs. ``ps_encode`` and
+    the oracle. With two sizes this is exactly :func:`hierarchical_encode`'s
+    schedule.
+
+    Returns ``(fn, plan)`` with plan a :class:`MultiLevelPlan`.
+    """
+    sizes = tuple(int(s) for s in sizes)
+    K = math.prod(sizes)
+    A = _square(A)
+    if A.shape != (K, K):
+        raise ValueError(f"A must be ({K}, {K}) to match sizes {sizes!r}, got {A.shape}")
+    plan = plan_multilevel(K, p, tuple(reversed(sizes)))
+    ir = _apply_pipeline(plan.to_ir(A, q=q), pipeline)
+    _check_budget(ir, expected_multilevel_permute_count(plan))
+    return ir_encode(ir, q=q, device=device, kernels=kernels), plan
+
+
+# ---------------------------------------------------------------------------
 # radix-(p+1) DFT butterfly (§V-A)
 # ---------------------------------------------------------------------------
 
@@ -437,6 +786,7 @@ def butterfly(
     inverse: bool = False,
     device=None,
     kernels: str | None = None,
+    pipeline: str = "",
 ):
     """Butterfly executor: forward computes ``x @ butterfly_target_matrix``
     (the digit-reversed K-point DFT), inverse undoes it exactly (Lemma 5).
@@ -444,9 +794,9 @@ def butterfly(
     Returns ``(fn, plan)``. Round t exchanges within digit-t groups via p
     permutations (one per port group of the butterfly IR) and combines with
     the plan's (inverse) twiddles — C1 = C2 = H rounds/elements, mirroring
-    core/draw_loose.butterfly_apply.
+    core/draw_loose.butterfly_apply. ``pipeline`` as for :func:`ps_encode`.
     """
     plan = plan_butterfly(K, p, q)
-    ir = plan.to_ir(inverse=inverse)
+    ir = _apply_pipeline(plan.to_ir(inverse=inverse), pipeline)
     _check_budget(ir, plan.H * p)
     return ir_encode(ir, q=q, device=device, kernels=kernels), plan

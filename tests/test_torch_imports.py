@@ -41,6 +41,8 @@ def test_the_slice_is_all_there():
         "core.prepare_shoot", "core.draw_loose", "core.encode", "dist.collectives", "convert",
         "kernels._build", "kernels.gf_matmul.kernel", "kernels.gf_matmul.ops", "kernels.gf_matmul.ref",
         "kernels.butterfly.kernel", "kernels.butterfly.ops", "kernels.butterfly.ref",
+        "topo", "topo.model", "topo.hierarchical", "topo.lower", "topo.passes", "topo.calibrate",
+        "topo.autotune", "obs", "obs.trace", "obs.metrics", "obs.export", "obs.feed",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -65,17 +67,20 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "imported" in r.stdout
 
 
-@pytest.mark.parametrize("order", ["kernels-first", "core-first", "dist-first"])
+@pytest.mark.parametrize("order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first"])
 def test_import_order_does_not_matter(order):
     first = {
         "kernels-first": "repro_torch.kernels.gf_matmul.ops",
         "core-first": "repro_torch.core.encode",
         "dist-first": "repro_torch.dist.collectives",
+        "topo-first": "repro_torch.topo",
+        "obs-first": "repro_torch.obs",
     }[order]
     r = run_fresh(f"""
         import importlib
         importlib.import_module({first!r})
         import repro_torch.kernels.butterfly.ops, repro_torch.core, repro_torch.dist, repro_torch.convert
+        import repro_torch.topo, repro_torch.obs
         print("ok")
     """)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -101,6 +106,8 @@ ENTRY_POINTS = {
     "ps_encode": "ps_encode(A)",
     "butterfly": "butterfly(8)",
     "allgather_encode": "allgather_encode(A)",
+    "hierarchical_encode": "hierarchical_encode(A, k_intra=4)",
+    "multilevel_encode": "multilevel_encode(A, (2, 2, 2))",
     "encode_direct": "encode_direct(x, A, q=M31)",
     "to_tensor": "to_tensor(x)",
 }
@@ -114,7 +121,7 @@ def test_entry_point_with_device_none_raises_without_a_card(name):
     r = run_fresh(f"""
         import numpy as np, torch
         from repro_torch import a2a_encode, plan_for, ir_encode, ps_encode, butterfly, M31
-        from repro_torch.dist import allgather_encode
+        from repro_torch.dist import allgather_encode, hierarchical_encode, multilevel_encode
         from repro_torch.kernels.gf_matmul.ops import encode_direct
         from repro_torch.convert import to_tensor
         A = np.arange(64, dtype=np.uint32).reshape(8, 8)
