@@ -14,7 +14,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
                 that phase 4 hands it, with its time, its plain version's
-                time and its bound at each of those.
+                time, its bound and its share of the bound at each of those.
+                ``gf_matmul`` is held at every M from 1 to 17, K in 1..9 and
+                33, N % 4 in {0, 1, 2, 3}, with an operand at a 4-byte offset,
+                on all-(q-1) operands at every row tile, and at a batch of
+                65,537, so that every row tile of the row kernel and both
+                forms of the general kernel run; each main-path shape's
+                record names the row tile it gets. A 1 GiB device ``copy_`` gives the bytes/s
+                the card's memory attains, the yardstick of "near the bound".
 4. ``universal`` (K=64, M31), ``dft`` (K=64, NTT), ``draw_loose`` (K=48, NTT),
                 each with 2^20 payload elements a processor, through
                 ``a2a_encode`` and through ``ir_encode(kernels="cuda")``: both
@@ -52,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,7 +91,13 @@ from repro_torch.dist.collectives import (  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain  # noqa: E402
 from repro_torch.kernels.butterfly.ops import butterfly_mac  # noqa: E402
-from repro_torch.kernels.gf_matmul.kernel import gf_matmul_cuda, gf_matmul_plain  # noqa: E402
+from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
+    GENERAL,
+    ROW_TILES,
+    gf_matmul_cuda,
+    gf_matmul_plain,
+    launch_plan,
+)
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
 from repro_torch.obs import Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
 from repro_torch.topo import (  # noqa: E402
@@ -182,6 +196,35 @@ def rand_residues(shape, q: int, dev, seed: int) -> torch.Tensor:
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return torch.randint(0, q, shape, dtype=torch.int32, device=dev, generator=g)
+
+
+def ptxas_by_kernel(log: str) -> list[dict]:
+    """Registers, spills and static shared memory of each kernel that nvcc
+    compiled, from its ``-Xptxas -v`` log, under demangled names."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": name, "registers": int(m.group(1)), "spill_stores": spill[0],
+                         "spill_loads": spill[1], "static_smem": int(smem.group(1)) if smem else 0})
+            name = None
+    try:  # demangle, where the machine has c++filt
+        out = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, n in zip(rows, out):
+                r["kernel"] = re.sub(r"^void |\(anonymous namespace\)::", "", n).split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 def nvidia_smi_line() -> str:
@@ -384,6 +427,8 @@ def check_gf_matmul(dev, shapes: list) -> dict:
     got = gf_matmul_batched(a, b, q=M31)
     check(same(got, gf_matmul_plain(a, b, M31)), "gf_matmul_batched != plain")
     cases += 1
+    n, w = check_gf_matmul_forms(dev)
+    cases, worst = cases + n, max(worst, w)
     # zero-size operands: guarded in ops, no launch
     before = gf_matmul_cuda.launches
     for M, K, N in [(0, 8, 8), (8, 0, 8), (8, 8, 0), (0, 0, 0)]:
@@ -400,19 +445,109 @@ def check_gf_matmul(dev, shapes: list) -> dict:
     for i, ((B, M, K, N), q, who) in enumerate(shapes):
         a = rand_residues((B, M, K), q, dev, seed=11 + 2 * i)
         b = rand_residues((B, K, N), q, dev, seed=12 + 2 * i)
-        got = gf_matmul_batched(a, b, q=q)
         want = gf_matmul_plain(a, b, q)
+        got = gf_matmul_batched(a, b, q=q)
         err = max_abs_err(got, want)
         check(same(got, want), f"gf_matmul_batched != plain at the main-path shape {(B, M, K, N)}, q={q}")
+        m_tile = launch_plan(M, N, b.data_ptr(), got.data_ptr())
         del got, want
-        at_shapes.append({
+        record = {
             "shape": f"batch {B} x ({M}x{K}).({K}x{N})", "q": q, "from": who, "max_abs_err": err,
+            "m_tile": m_tile,
             "ms": cuda_ms(lambda: gf_matmul_cuda(a, b, q), KERNEL_REPS),
             "plain_ms": cuda_ms(lambda: gf_matmul_plain(a, b, q), max(3, KERNEL_REPS // 4), warmup=1),
             **bound(4 * (a.numel() + b.numel() + B * M * N), 2 * B * M * K * N),
-        })
+        }
+        record["share_of_bound"] = record["bound_ms"] / record["ms"]
+        at_shapes.append(record)
         del a, b
     return kernel_row("gf_matmul", cases, worst, at_shapes)
+
+
+def check_gf_matmul_forms(dev) -> tuple[int, int]:
+    """Every row tile of the row kernel and both forms of the general kernel
+    (16-byte and scalar accesses), each reached by the shapes that send the
+    launch there, bit for bit against the plain version and, on the small
+    cases, the host oracle: every M from 1 to 17, K in 1..9 and 33, N % 4 in
+    {0, 1, 2, 3}, tiles over several batch entries and blocks, an operand at
+    a 4-byte offset, all-(q-1) operands for every row tile and both primes,
+    and a batch above 65,535. Returns (cases, worst)."""
+    cases, worst = 0, 0
+    reached = set()
+    probe = torch.empty(16, dtype=torch.int32, device=dev)  # a fresh, 16-byte-aligned C
+
+    def hold(a, b, q, what, host=False):
+        nonlocal cases, worst
+        want = gf_matmul_plain(a, b, q)
+        B, M, K = a.shape
+        N = b.shape[2]
+        m_tile = launch_plan(M, N, b.data_ptr(), probe.data_ptr())
+        if m_tile == GENERAL:
+            form = "general, 16-byte" if N % 4 == 0 and b.data_ptr() % 16 == 0 else "general, scalar"
+        else:
+            form = f"row tile {m_tile}"
+        reached.add(form)
+        got = gf_matmul_cuda(a, b, q)
+        worst = max(worst, max_abs_err(got, want))
+        check(same(got, want), f"gf_matmul ({form}) != plain at {what}, q={q}")
+        cases += 1
+        if host:
+            f = Field(q)
+            an, bn, wn = to_numpy(a), to_numpy(b), to_numpy(want)
+            for z in range(B):
+                check(np.array_equal(wn[z], f.matmul(an[z], bn[z]).astype(np.uint32)),
+                      f"gf_matmul plain != host oracle at {what}, entry {z}, q={q}")
+
+    for M in range(1, 18):
+        for K in (*range(1, 10), 33):
+            for N in (4100, 1029, 1030, 1031):  # N % 4 = 0, 1, 2, 3; ragged tiles
+                q = M31 if (M + K + N) % 2 else NTT
+                a = rand_residues((3, M, K), q, dev, seed=1000 + 100 * M + K)
+                b = rand_residues((3, K, N), q, dev, seed=2000 + 100 * M + K + N)
+                hold(a, b, q, f"batch 3 x ({M}x{K}).({K}x{N})", host=(N == 4100 and K in (1, 4, 9, 33)) or N == 1029)
+    for M, K in ((2, 2), (8, 8), (16, 4), (5, 3)):  # many tiles a block, batch entries changing inside a block
+        a = rand_residues((5, M, K), M31, dev, seed=3000 + M)
+        b = rand_residues((5, K, (1 << 16) + 4), M31, dev, seed=3001 + M)
+        hold(a, b, M31, f"batch 5 x ({M}x{K}).({K}x{(1 << 16) + 4})")
+    # an operand that is a view at a 4-byte offset: only the general kernel takes it
+    for q in (M31, NTT):
+        M, K, N = 4, 8, 4096
+        flat_a = rand_residues((1 + 2 * M * K,), q, dev, seed=4000)
+        flat_b = rand_residues((1 + 2 * K * N,), q, dev, seed=4001)
+        a, b = flat_a[1:].view(2, M, K), flat_b[1:].view(2, K, N)
+        check(b.is_contiguous() and b.data_ptr() % 16 == 4, "the offset view is not where it should be")
+        check(launch_plan(M, N, b.data_ptr(), probe.data_ptr()) == GENERAL, "the row kernel took an unaligned B")
+        hold(a, b, q, f"B at a 4-byte offset, batch 2 x ({M}x{K}).({K}x{N})", host=True)
+    # operands of all q-1, the accumulator's worst case, at every row tile
+    for q in (M31, NTT):
+        for M in ROW_TILES:
+            for K in (4, 5, 33):
+                a = torch.full((2, M, K), q - 1, dtype=torch.int32, device=dev)
+                b = torch.full((2, K, 4100), q - 1, dtype=torch.int32, device=dev)
+                hold(a, b, q, f"all q-1, batch 2 x ({M}x{K}).({K}x4100)", host=True)
+    # a batch the old grid's z axis could not hold
+    a = rand_residues((65537, 2, 2), M31, dev, seed=5000)
+    b = rand_residues((65537, 2, 4), M31, dev, seed=5001)
+    hold(a, b, M31, "batch 65537 x (2x2).(2x4)")
+    a = rand_residues((65537, 3, 2), NTT, dev, seed=5002)
+    b = rand_residues((65537, 2, 3), NTT, dev, seed=5003)
+    hold(a, b, NTT, "batch 65537 x (3x2).(2x3)")
+    want = {f"row tile {t}" for t in ROW_TILES} | {"general, 16-byte", "general, scalar"}
+    check(reached == want, f"gf_matmul's checks reached {sorted(reached)}, not every form {sorted(want)}")
+    return cases, worst
+
+
+def attained_copy(dev) -> dict:
+    """What the card's memory attains on a plain 1 GiB device-to-device copy:
+    the yardstick for how near a byte bound a kernel can come."""
+    n = (1 << 30) // 4
+    src = torch.empty(n, dtype=torch.int32, device=dev).fill_(1)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), 5)
+    del src, dst
+    moved = 2 * (1 << 30)  # read once, written once
+    return {"bytes": 1 << 30, "ms": ms, "attained_bytes_per_s": moved / (ms / 1e3),
+            "share_of_peak": moved / (ms / 1e3) / HBM_BYTES_PER_S}
 
 
 def check_butterfly_mac(dev, shapes: list) -> dict:
@@ -754,7 +889,7 @@ def main() -> int:
                                   timeout=60).stdout.strip().splitlines()[-2:]
     say("build", seconds=_build.build_report["seconds"], nvcc=nvcc_version,
         sources={k: {"compiled": v["compiled"], "library": os.path.relpath(v["library"], ROOT),
-                     "ptxas": [ln for ln in v["log"].splitlines() if "registers" in ln or "spill" in ln]}
+                     "ptxas": ptxas_by_kernel(v["log"])}
                  for k, v in _build.build_report["sources"].items()})
 
     # phase 3: kernels against their plain versions, at every shape phase 4 gives them
@@ -764,7 +899,7 @@ def main() -> int:
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
     ]
-    say("kernels", card=smi, kernels=rows)
+    say("kernels", card=smi, copy_1GiB=attained_copy(dev), kernels=rows)
     torch.cuda.empty_cache()
 
     # phase 4: the main path, with every count set to 0 just before it

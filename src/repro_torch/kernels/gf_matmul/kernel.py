@@ -21,6 +21,30 @@ from ...core.field import _wide
 from .._build import load_library
 
 
+#: the row kernel's row tiles (MT): the smallest one >= M is launched
+ROW_TILES = (1, 2, 4, 8, 16)
+#: what ``launch_plan`` returns, and the C function takes, for the general kernel
+GENERAL = 0
+#: rows of C a block of the general kernel owns; its grid's y axis is M / 8
+GENERAL_TILE_M = 8
+GRID_Y_MAX = 65535
+
+
+def launch_plan(M: int, N: int, b_ptr: int, c_ptr: int) -> int:
+    """The row tile of the launch for a (batch, M, K) x (batch, K, N)
+    product whose B and C start at the addresses ``b_ptr`` and ``c_ptr``:
+    the smallest of ``ROW_TILES`` >= M where the row kernel takes the shape
+    (M <= 16, N % 4 == 0, B and C 16-byte aligned), else ``GENERAL``, the
+    general kernel, which takes any shape its grid holds. Neither K nor the
+    batch sets a limit: the row kernel walks the batch on a persistent grid
+    and the general one in strides of its grid's z axis."""
+    if M <= ROW_TILES[-1] and N % 4 == 0 and b_ptr % 16 == 0 and c_ptr % 16 == 0:
+        return next(t for t in ROW_TILES if t >= M)
+    if (M + GENERAL_TILE_M - 1) // GENERAL_TILE_M > GRID_Y_MAX:
+        raise ValueError(f"M={M} exceeds the general kernel's grid ({GRID_Y_MAX} x {GENERAL_TILE_M} rows)")
+    return GENERAL
+
+
 def _library():
     lib = load_library("gf_matmul")
     fn = lib.gf_matmul_launch
@@ -29,11 +53,13 @@ def _library():
             ctypes.c_void_p,  # A
             ctypes.c_void_p,  # B
             ctypes.c_void_p,  # C
-            ctypes.c_int,  # batch
+            ctypes.c_longlong,  # batch
             ctypes.c_int,  # M
             ctypes.c_int,  # K
             ctypes.c_longlong,  # N
             ctypes.c_uint,  # q
+            ctypes.c_int,  # m_tile (GENERAL: the general kernel)
+            ctypes.c_int,  # device
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -53,27 +79,28 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, q: int):
 
 def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """C[z] = (A[z] @ B[z]) mod q by the CUDA kernel. a: (batch, M, K),
-    b: (batch, K, N), canonical residues, contiguous, on one CUDA device."""
+    b: (batch, K, N), canonical residues, contiguous, on one CUDA device.
+    ``launch_plan`` chooses the kernel and its row tile by shape."""
     _check_operands(a, b, q)
-    if not a.is_cuda or not b.is_cuda or a.device != b.device:
-        raise ValueError(f"gf_matmul_cuda needs both operands on one CUDA device, got {a.device}, {b.device}")
     if not a.is_contiguous() or not b.is_contiguous():
         raise ValueError("gf_matmul_cuda needs contiguous operands")
+    if not a.is_cuda or not b.is_cuda or a.device != b.device:
+        raise ValueError(f"gf_matmul_cuda needs both operands on one CUDA device, got {a.device}, {b.device}")
     batch, M, K = a.shape
     N = b.shape[2]
     if min(batch, M, K, N) < 1:
         raise ValueError(f"gf_matmul_cuda takes no empty operand, got {tuple(a.shape)} @ {tuple(b.shape)}")
-    if batch > 65535 or (M + 7) // 8 > 65535:
-        raise ValueError(f"batch={batch} or M={M} exceeds the kernel's grid")
     fn = _library()
     with torch.cuda.device(a.device):
         out = torch.empty((batch, M, N), dtype=torch.int32, device=a.device)
+        m_tile = launch_plan(M, N, b.data_ptr(), out.data_ptr())
         err = fn(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K, N, q,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K, N, q, m_tile, a.device.index,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"gf_matmul_launch failed with CUDA error {err}")
+        form = "the general kernel" if m_tile == GENERAL else f"row tile {m_tile}"
+        raise RuntimeError(f"gf_matmul_launch ({form}) failed with CUDA error {err}")
     gf_matmul_cuda.launches += 1
     return out
 

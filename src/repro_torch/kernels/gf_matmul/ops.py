@@ -39,7 +39,7 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor, *, q: int) -> torch.Tensor:
 
 def gf_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, q: int) -> torch.Tensor:
     """Batched C[i] = (A[i] @ B[i]) mod q. a: (B, M, K), b: (B, K, N) — the
-    batch is a grid axis of the one kernel launch. Used for the shoot-phase
+    batch is walked by the grid of the one kernel launch. Used for the shoot-phase
     init, where every processor contracts its prepare buffer against its own
     coefficient tile, and for the general rows of a LocalOp."""
     if a.ndim != 3 or b.ndim != 3:

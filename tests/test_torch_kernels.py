@@ -26,7 +26,13 @@ from repro_torch.core.schedule import plan_prepare_shoot
 from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain
 from repro_torch.kernels.butterfly.ops import butterfly_mac, butterfly_mac_reference
 from repro_torch.kernels.butterfly.ref import butterfly_mac_ref
-from repro_torch.kernels.gf_matmul.kernel import gf_matmul_cuda, gf_matmul_plain
+from repro_torch.kernels.gf_matmul.kernel import (
+    GENERAL,
+    ROW_TILES,
+    gf_matmul_cuda,
+    gf_matmul_plain,
+    launch_plan,
+)
 from repro_torch.kernels.gf_matmul.ops import (
     encode_direct,
     gf_matmul,
@@ -147,6 +153,108 @@ def test_encode_direct_on_the_cpu():
     assert np.array_equal(got.astype(np.uint64), gf_matmul_host(x, G, q))
     got2 = to_numpy(encode_direct(t(x), t(G), q=q, device="cpu"))
     assert np.array_equal(got, got2)
+
+
+# --- which form of the CUDA kernel a shape goes to (host-side logic) ---
+
+@pytest.mark.parametrize("M", range(1, 18))
+def test_launch_plan_row_tile_is_the_smallest_at_least_M(M):
+    """Every M up to 16 goes to the row kernel with the smallest row tile
+    >= M (never a dead row beyond the next power of two); M = 17 goes to
+    the general kernel, whatever the batch."""
+    m_tile = launch_plan(M, 1 << 20, 0x1000, 0x2000)
+    if M <= 16:
+        assert m_tile in ROW_TILES and m_tile >= M and (m_tile == 1 or m_tile // 2 < M)
+    else:
+        assert m_tile == GENERAL
+
+
+@pytest.mark.parametrize(
+    "M,N,b_ptr,c_ptr,why",
+    [
+        (8, 1029, 0x1000, 0x2000, "N % 4 == 1"),
+        (8, 1030, 0x1000, 0x2000, "N % 4 == 2"),
+        (8, 1031, 0x1000, 0x2000, "N % 4 == 3"),
+        (8, 1024, 0x1004, 0x2000, "B at a 4-byte offset"),
+        (8, 1024, 0x1000, 0x2008, "C at an 8-byte offset"),
+        (17, 1024, 0x1000, 0x2000, "M above the largest row tile"),
+    ],
+)
+def test_launch_plan_sends_what_the_row_kernel_refuses_to_the_general_one(M, N, b_ptr, c_ptr, why):
+    assert launch_plan(M, N, b_ptr, c_ptr) == GENERAL, why
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 8, 9, 16])
+@pytest.mark.parametrize("K", [1, 2, 3, 8])
+def test_gf_matmul_row_kernel_shapes_vs_host(M, K):
+    """Shapes the row kernel takes (N % 4 == 0), one and several stages of B
+    deep, against the host oracle (the on-card check holds the kernel at
+    these against this plain version)."""
+    q = M31 if (M + K) % 2 else NTT
+    a = rand_u32((3, M, K), q, seed=200 * M + K)
+    b = rand_u32((3, K, 1028), q, seed=200 * M + K + 1)
+    got = to_numpy(gf_matmul_batched(t(a), t(b), q=q))
+    for z in range(3):
+        assert np.array_equal(got[z].astype(np.uint64), gf_matmul_host(a[z], b[z], q))
+
+
+def test_launch_plan_limits_and_names():
+    assert ROW_TILES == (1, 2, 4, 8, 16) and GENERAL not in ROW_TILES
+    assert launch_plan(16, 4, 0, 0) == 16
+    assert launch_plan(8 * 65535, 4, 0, 0) == GENERAL
+    with pytest.raises(ValueError, match="grid"):
+        launch_plan(8 * 65535 + 1, 4, 0, 0)
+
+
+def test_gf_matmul_batch_above_the_old_grid_cap():
+    """The batch has no cap any more (the kernel's grid walks it); the ops
+    path takes a batch of 65,537 entries and agrees with the host oracle."""
+    q = NTT
+    a = rand_u32((65537, 2, 2), q, seed=21)
+    b = rand_u32((65537, 2, 4), q, seed=22)
+    got = to_numpy(gf_matmul_batched(t(a), t(b), q=q)).astype(np.uint64)
+    f = Field(q)
+    want = f.add(f.mul(a[:, :, 0:1], b[:, 0:1, :]), f.mul(a[:, :, 1:2], b[:, 1:2, :]))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 15, 16, 17])
+@pytest.mark.parametrize("K", [1, 4, 5, 9, 33])
+def test_gf_matmul_row_tile_edges_vs_host(M, K):
+    """The shapes at every row tile's edges (the on-card check holds the
+    kernel at these against this plain version)."""
+    q = M31 if (M + K) % 2 else NTT
+    a = rand_u32((2, M, K), q, seed=100 * M + K)
+    b = rand_u32((2, K, 1030), q, seed=100 * M + K + 1)
+    got = to_numpy(gf_matmul_batched(t(a), t(b), q=q))
+    for z in range(2):
+        assert np.array_equal(got[z].astype(np.uint64), gf_matmul_host(a[z], b[z], q))
+
+
+def _cpu_pair(q=M31):
+    return t(rand_u32((2, 4, 4), q, 1)), t(rand_u32((2, 4, 8), q, 2))
+
+
+@pytest.mark.parametrize(
+    "make,error,match",
+    [
+        (lambda a, b: (a.to(torch.int64), b), TypeError, "int32"),
+        (lambda a, b: (a, b.to(torch.uint8)), TypeError, "int32"),
+        (lambda a, b: (a.transpose(1, 2), b[:, :, :4]), ValueError, "contiguous"),
+        (lambda a, b: (a, b.transpose(1, 2).contiguous().transpose(1, 2)), ValueError, "contiguous"),
+        (lambda a, b: (a, b.to("meta")), ValueError, "one CUDA device"),
+        (lambda a, b: (a, b), ValueError, "one CUDA device"),
+        (lambda a, b: (a[:, :, :3], b), ValueError, "do not contract"),
+        (lambda a, b: (a[0], b[0]), ValueError, "batch, M, K"),
+    ],
+)
+def test_gf_matmul_cuda_refuses(make, error, match):
+    """The wrapper's refusals come before any launch (or library build) and
+    leave the launch count alone."""
+    a, b = make(*_cpu_pair())
+    with pytest.raises(error, match=match):
+        gf_matmul_cuda(a, b, M31)
+    assert gf_matmul_cuda.launches == 0
 
 
 @pytest.mark.parametrize("q", [M31, NTT])
