@@ -46,9 +46,32 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 0,0,1,1,2,2), permutations and registry counters as budgeted;
                 then the calibration feed into a temporary file, its fitted
                 α/β and drift rows (one card's gathers in HBM, not links).
-6. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path, error, time, bound and plain time; the card's name and power limit;
-   and last ``{"ok": true, "device": {...}}``.
+6. ``coded``    the coded layer at the widths of Qwen3-1.7B
+                (``src/repro/configs/qwen3_1_7b.py``), with its own launch
+                counts: ``coded_checkpoint`` (``CodedStateGuard(K=16)``, M31,
+                over one decoder layer's bf16 parameters with float32 Adam
+                moments, an int32 step and a bool mask: parity through
+                ``encode_parity`` and ``encode_parity_collective`` flat and
+                with sizes (4, 4), all bit-equal, equal to a plain ``x @ A
+                mod q`` on the card and to the host oracle on sampled columns;
+                then ``fail_and_recover`` of replicas 1, 4, 6 bit for bit),
+                ``lcc_serve`` (``CodedServeGuard(K=6, R=2)``, NTT, over the bf16
+                KV cache of all 28 layers for 4 slots x 1,024 positions plus
+                token and position leaves: snapshot, two scheduled kills,
+                recover bit for bit, with ``collective=False`` and ``True``
+                giving bit-equal coded shards), ``lcc_square``
+                (``lcc_encode(build_lcc(48), X)``, the draw-and-loose Lagrange
+                encode of the same cache limbs in 48 shards, equal to a plain
+                ``X @ G mod q``, and ``lcc_decode`` from all 48 back to X) and
+                ``grad_coding`` (``worker_combine``/``aggregate``, K = 8,
+                s = 2, over one layer's float32 gradients on the card against
+                the CPU at rtol 1e-6). Each with its wall ms, the device
+                bytes each entry point holds as it starts and at its peak
+                (read as it returns, before any check), busy time and idle
+                share, and host numpy ms of the recovery.
+7. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path and the coded path, error, time, bound and plain time; the card's
+   name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -56,6 +79,7 @@ no arguments. Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,13 +96,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import tree  # noqa: E402
+from repro_torch.coded import gradient_coding  # noqa: E402
+from repro_torch.coded.lagrange_compute import build_lcc, lcc_decode, lcc_encode, lcc_generator  # noqa: E402
+from repro_torch.coded.rs_checkpoint import (  # noqa: E402
+    build_parity_plan,
+    encode_parity,
+    encode_parity_collective,
+    shard_state_limbs,
+)
 from repro_torch.core.draw_loose import decode_dft, decode_draw_loose  # noqa: E402
 from repro_torch.core.encode import a2a_encode, plan_for  # noqa: E402
 from repro_torch.core.field import M31, NTT, Field, shoup_precompute, to_numpy, to_tensor  # noqa: E402
 from repro_torch.core.ir import LocalOp, ir_permute_count  # noqa: E402
 from repro_torch.core.matrices import butterfly_target_matrix, random_matrix  # noqa: E402
 from repro_torch.core.prepare_shoot import encode_oracle  # noqa: E402
-from repro_torch.core.schedule import draw_loose_target_matrix  # noqa: E402
+from repro_torch.core.schedule import draw_loose_target_matrix, plan_prepare_shoot  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
     expected_hier_permute_count,
     expected_multilevel_permute_count,
@@ -99,7 +132,11 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     launch_plan,
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
-from repro_torch.obs import Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
+from repro_torch.serve import coded as serve_coded  # noqa: E402
+from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
+from repro_torch.train import elastic  # noqa: E402
+from repro_torch.train.elastic import CodedStateGuard  # noqa: E402
 from repro_torch.topo import (  # noqa: E402
     FullyConnected,
     Hierarchy,
@@ -311,6 +348,13 @@ def a2a_kernel_calls(cfg: dict, P: int) -> list[tuple]:
         return [("gf_matmul", (K, plan.n, plan.m, P))]
     if cfg["kind"] == "dft":  # one launch a butterfly round
         return [("butterfly_mac", (plan.radix, K, P))] * plan.H
+    return draw_loose_calls(plan, P)
+
+
+def draw_loose_calls(plan, P: int) -> list[tuple]:
+    """The kernel calls of ``encode_draw_loose`` (and of
+    ``decode_draw_loose``, the same calls in reverse order) at P elements a
+    processor."""
     calls = []
     if plan.draw_plan is not None:  # M processors, (Z, P) as their payload
         d = plan.draw_plan
@@ -354,7 +398,9 @@ def path_shapes(configs: list[dict], P: int) -> dict[str, list]:
     reports)."""
     seen: dict[str, dict] = {"gf_matmul": {}, "butterfly_mac": {}}
     for cfg in configs:
-        if cfg["kind"] == "topology":
+        if "runs" in cfg:  # a coded configuration lists its entry points' calls
+            runs = tuple(cfg["runs"].items())
+        elif cfg["kind"] == "topology":
             runs = ((cfg["entries"][0], ir_kernel_calls(cfg["ir"], P)),)
         else:
             runs = (("a2a_encode", a2a_kernel_calls(cfg, P)), ("ir_encode", ir_kernel_calls(cfg["ir"], P)))
@@ -870,6 +916,368 @@ def traced_phase(cfg: dict, dev, P: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the coded layer at the widths of Qwen3-1.7B
+# ---------------------------------------------------------------------------
+
+# Qwen3-1.7B (src/repro/configs/qwen3_1_7b.py, hf:Qwen/Qwen3-1.7B)
+D_MODEL, N_HEADS, N_KV_HEADS, HEAD_DIM, D_FF, N_LAYERS = 2048, 16, 8, 128, 6144, 28
+SERVE_SLOTS, SERVE_POSITIONS = 4, 1024  # the KV cache the serving guard protects
+CKPT_K, CKPT_LOST = 16, [1, 4, 6]  # K of benchmarks/bench_coded_ckpt.py
+SERVE_K, SERVE_R, SERVE_KILLS = 6, 2, ((1, 3), (2, 0))  # tests/test_coded_serve.py:278, (tick, host) kills
+SQUARE_K = 48  # 3 x 16: draw-and-loose with both a draw and a loose phase
+GC_K, GC_S, GC_DROP = 8, 2, (1, 5)  # gradient coding: workers, stragglers, the two dropped
+
+
+def layer_param_shapes() -> dict[str, tuple]:
+    """One decoder layer's parameters: attention, SwiGLU MLP, the two
+    RMSNorms and the q/k norms."""
+    q, kv = N_HEADS * HEAD_DIM, N_KV_HEADS * HEAD_DIM
+    return {"wq": (D_MODEL, q), "wk": (D_MODEL, kv), "wv": (D_MODEL, kv), "wo": (q, D_MODEL),
+            "gate": (D_MODEL, D_FF), "up": (D_MODEL, D_FF), "down": (D_FF, D_MODEL),
+            "attn_norm": (D_MODEL,), "mlp_norm": (D_MODEL,), "q_norm": (HEAD_DIM,), "k_norm": (HEAD_DIM,)}
+
+
+def meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def checkpoint_spec() -> dict:
+    """The training state of the coded checkpoint, as meta tensors: bf16
+    parameters, float32 Adam moments m and v, an int32 step and a bool mask
+    with one flag a parameter (11 bytes: an odd count)."""
+    shapes = layer_param_shapes()
+    return {
+        "params": {k: meta(s, torch.bfloat16) for k, s in shapes.items()},
+        "opt": {"m": {k: meta(s, torch.float32) for k, s in shapes.items()},
+                "v": {k: meta(s, torch.float32) for k, s in shapes.items()},
+                "step": meta((), torch.int32)},
+        "mask": meta((len(shapes),), torch.bool),
+    }
+
+
+def serve_spec() -> tuple:
+    """(cache, state) of the serving guard: the bf16 KV cache of every layer,
+    a token buffer and per-slot positions."""
+    slab = (SERVE_SLOTS, SERVE_POSITIONS, N_KV_HEADS, HEAD_DIM)
+    cache = [{"k": meta(slab, torch.bfloat16), "v": meta(slab, torch.bfloat16)} for _ in range(N_LAYERS)]
+    state = {"tokens": meta((SERVE_SLOTS, SERVE_POSITIONS), torch.int32), "pos": meta((SERVE_SLOTS,), torch.int32)}
+    return cache, state
+
+
+def limb_count(spec) -> int:
+    return sum(-(-t.numel() * t.element_size() // 2) for t in tree.leaves(spec))
+
+
+def spec_bytes(spec) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.leaves(spec))
+
+
+def make_state(spec, dev, seed: int):
+    """Random leaves of ``spec``'s shapes and dtypes, made on ``dev`` from
+    ``seed``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def fill(m):
+        if m.dtype == torch.bool:
+            return torch.rand(m.shape, generator=g, device=dev) < 0.5
+        if m.dtype == torch.int32:
+            return torch.randint(0, 1 << 20, m.shape, generator=g, device=dev, dtype=torch.int32)
+        return (torch.randn(m.shape, generator=g, device=dev) * 0.02).to(m.dtype)
+
+    return tree.map(fill, spec)
+
+
+def same_bits(a, b) -> bool:
+    """Two pytrees of tensors hold the same structure, dtypes, shapes and bytes."""
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if tree.structure(a) != tree.structure(b) or len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
+            return False
+        if x.dtype != torch.bool:
+            x, y = x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def coded_configs() -> list[dict]:
+    """The coded phase's configurations, host-side: state specs, shard widths,
+    plans, and the kernel calls each entry point makes (``runs``)."""
+    ck_spec, sv_spec = checkpoint_spec(), serve_spec()
+    plan = build_parity_plan(CKPT_K)
+    ps = plan.ps_plan
+    S = -(-limb_count(ck_spec) // CKPT_K)
+    lplan = build_lcc(SERVE_K, R=SERVE_R)
+    lps = plan_prepare_shoot(lplan.N, lplan.p)
+    S6 = -(-limb_count(sv_spec) // SERVE_K)
+    qplan = build_lcc(SQUARE_K)
+    S48 = -(-limb_count(sv_spec) // SQUARE_K)
+    return [
+        {"name": "coded_checkpoint", "q": M31, "K": CKPT_K, "S": S, "spec": ck_spec, "plan": plan,
+         "seed": SEED + 700, "runs": {
+             "CodedStateGuard.snapshot": [("gf_matmul", (CKPT_K, ps.n, ps.m, S))],
+             "encode_parity_collective": ir_kernel_calls(ps.to_ir(plan.A, q=M31), S),
+             "encode_parity_collective(4, 4)": ir_kernel_calls(
+                 plan_hierarchical(CKPT_K, plan.p, 4).to_ir(plan.A, q=M31), S),
+         }},
+        {"name": "lcc_serve", "q": NTT, "K": SERVE_K, "S": S6, "spec": sv_spec, "plan": lplan,
+         "seed": SEED + 800, "runs": {
+             "CodedServeGuard.snapshot": [("gf_matmul", (lplan.N, lps.n, lps.m, S6))],
+             "CodedServeGuard.snapshot(collective=True)": ir_kernel_calls(
+                 lps.to_ir(lcc_generator(lplan), q=NTT), S6),
+         }},
+        {"name": "lcc_square", "q": NTT, "K": SQUARE_K, "S": S48, "spec": sv_spec, "plan": qplan,
+         "seed": SEED + 800, "runs": {
+             "lcc_encode": draw_loose_calls(qplan.plan_omega, S48) + draw_loose_calls(qplan.plan_alpha, S48),
+         }},
+    ]
+
+
+def launches() -> tuple[int, int]:
+    return gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+
+
+def check_launches(name: str, entry: str, before: tuple, calls: list):
+    got = tuple(a - b for a, b in zip(launches(), before))
+    check(got == count_calls(calls), f"{name}: {entry} launched (gf, bf)={got}, expected {count_calls(calls)}")
+    return {"gf_matmul": got[0], "butterfly_mac": got[1]}
+
+
+@contextlib.contextmanager
+def peak_of(sink: dict, entry: str):
+    """The device memory one entry point needs: the bytes allocated as it
+    starts (``held``) and the most allocated while it runs (``peak``), read
+    as soon as it has returned, before any check runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    sink[entry] = {"held_bytes": held, "peak_bytes": peak, "added_bytes": peak - held}
+
+
+@contextlib.contextmanager
+def timed(module, name: str, sink: list):
+    """Record the wall ms of every call of ``module.name`` into ``sink``
+    while the block runs: how the host numpy part of a recovery is timed
+    inside the guard that calls it."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
+    """``CodedStateGuard(K=16)``: snapshot, the parity through the three
+    entry points, the plain and host-oracle checks, and the recovery of three
+    lost replicas. Returns (record, timers)."""
+    name, K, plan, runs = cfg["name"], cfg["K"], cfg["plan"], cfg["runs"]
+    state = make_state(cfg["spec"], dev, cfg["seed"])
+    peaks: dict = {}
+    guard = CodedStateGuard(K=K, device=dev)
+    before = launches()
+    with peak_of(peaks, "CodedStateGuard.snapshot"):
+        guard.snapshot(state, step=1)
+    counted = {"CodedStateGuard.snapshot": check_launches(name, "snapshot", before, runs["CodedStateGuard.snapshot"])}
+    shards, _ = shard_state_limbs(state, K, dev)
+    check(shards.is_cuda and tuple(shards.shape) == (K, cfg["S"]), f"{name}: shards {tuple(shards.shape)}")
+    check(np.array_equal(to_numpy(shards), guard._shards), f"{name}: the guard's shards differ from the limbs")
+    parity = to_tensor(guard._parity, dev)
+    outs = {}
+    for entry, sizes in (("encode_parity_collective", None), ("encode_parity_collective(4, 4)", (4, 4))):
+        before = launches()
+        with peak_of(peaks, entry):
+            fn = encode_parity_collective(plan, sizes, device=dev)
+            outs[entry] = fn(shards)
+        check(fn.device.type == "cuda" and fn.kernels == "cuda", f"{name}: {entry} did not run on the card")
+        check(ir_kernel_calls(fn.ir, cfg["S"]) == runs[entry],
+              f"{name}: {entry} runs other kernel shapes than phase 3 held")
+        counted[entry] = check_launches(name, entry, before, runs[entry])
+        check(same(outs[entry], parity), f"{name}: {entry} != encode_parity")
+    del outs
+    n_cols = check_output(name, parity, shards, np.asarray(plan.A), M31, cfg["seed"])
+    host_ms: list = []
+    with peak_of(peaks, "CodedStateGuard.fail_and_recover"), timed(elastic, "recover_lost", host_ms):
+        t0 = time.perf_counter()
+        recovered, step = guard.fail_and_recover(CKPT_LOST)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t0) * 1e3
+    check(step == 1 and same_bits(recovered, state), f"{name}: fail_and_recover({CKPT_LOST}) is not bit-exact")
+    del recovered, parity
+    record = {
+        "K": K, "q": M31, "c1": plan.c1, "c2": plan.c2, "state_bytes": spec_bytes(cfg["spec"]),
+        "limbs": int(guard._meta.total), "limbs_a_replica": cfg["S"], "leaves": len(tree.leaves(state)),
+        "launches": counted, "memory": peaks,
+        "checked_columns": {"plain_on_card": cfg["S"], "host_oracle": n_cols},
+        "lost": CKPT_LOST, "recover_ms": recover_ms, "recover_lost_host_numpy_ms": host_ms[0],
+        "overhead_elements": guard.overhead_elements,
+    }
+    flat = encode_parity_collective(plan, device=dev)
+    timers = {"CodedStateGuard.snapshot": lambda: guard.snapshot(state, step=1),
+              "encode_parity": lambda: encode_parity(shards, plan),
+              "encode_parity_collective": lambda: flat(shards)}
+    return record, timers
+
+
+def drive_lcc_serve(cfg: dict, dev) -> tuple[dict, dict]:
+    """``CodedServeGuard(K=6, R=2)`` with ``collective=False`` and ``True``:
+    snapshot, two scheduled kills, recovery, counters and spans. Returns
+    (record, timers)."""
+    name, plan, runs = cfg["name"], cfg["plan"], cfg["runs"]
+    cache, state = make_state(cfg["spec"], dev, cfg["seed"])
+    peaks: dict = {}
+    record = {"K": plan.K, "R": plan.R, "N": plan.N, "q": NTT, "state_bytes": spec_bytes(cfg["spec"]),
+              "limbs_a_shard": cfg["S"], "leaves": len(tree.leaves((cache, state))), "kills": SERVE_KILLS}
+    stored, guards, counted = {}, {}, {}
+    for collective, entry in ((False, "CodedServeGuard.snapshot"),
+                              (True, "CodedServeGuard.snapshot(collective=True)")):
+        guard = CodedServeGuard(K=plan.K, R=plan.R, injector=FaultInjector(kills=SERVE_KILLS),
+                                collective=collective, device=dev)
+        if collective:
+            enc = guard._collective
+            check(enc.kernels == "cuda" and ir_kernel_calls(enc.ir, cfg["S"]) == runs[entry],
+                  f"{name}: {entry} runs other kernels than phase 3 held")
+        reg, tracer = MetricsRegistry(), Tracer()
+        guard.attach(reg, tracer)
+        before = launches()
+        with peak_of(peaks, entry):
+            guard.snapshot(cache, state, tick=0)
+        counted[entry] = check_launches(name, entry, before, runs[entry])
+        stored[collective] = dict(guard.group._mem)
+        dead = guard.poll(2) + guard.poll(3)
+        check(dead == [h for _, h in SERVE_KILLS], f"{name}: poll found {dead} dead")
+        host_ms: list = []
+        with peak_of(peaks, f"CodedServeGuard.recover(collective={collective})"), \
+                timed(serve_coded, "lcc_decode", host_ms):
+            got_cache, got_state = guard.recover(dead)
+        check(same_bits(got_cache, cache) and same_bits(got_state, state),
+              f"{name}: recover({dead}) is not bit-exact (collective={collective})")
+        stats = guard.stats()
+        check(stats["recoveries"] == 2 and stats["injected_faults"] == 2 and stats["snapshots"] == 1,
+              f"{name}: stats {stats}")
+        snap = reg.snapshot()
+        check(snap["serve.recoveries"]["value"] == 2 and snap["serve.snapshots"]["value"] == 1
+              and snap["serve.recovery_us"]["count"] == 1, f"{name}: registry {snap}")
+        check([s.name for s in tracer.spans] == ["serve.recovery"], f"{name}: spans {tracer.spans}")
+        record[f"collective={collective}"] = {"stats": stats, "recover_ms": stats["recovery_us"]["p50"] / 1e3,
+                                              "lcc_decode_host_numpy_ms": host_ms[0]}
+        guards[collective] = guard
+        del got_cache, got_state
+    check(sorted(stored[False]) == sorted(stored[True]) == list(range(plan.N))
+          and all(np.array_equal(stored[False][j], stored[True][j]) for j in range(plan.N)),
+          f"{name}: collective=True gave other coded shards than collective=False")
+    shards, _ = shard_state_limbs((cache, state), plan.K, dev)
+    padded = torch.cat([shards, shards.new_zeros((plan.R, shards.shape[1]))])
+    coded = to_tensor(np.stack([stored[False][j] for j in range(plan.N)]), dev)
+    n_cols = check_output(name, coded, padded, lcc_generator(plan), NTT, cfg["seed"])
+    record.update(launches=counted, memory=peaks,
+                  checked_columns={"plain_on_card": cfg["S"], "host_oracle": n_cols})
+    del coded, padded, shards
+    timers = {f"CodedServeGuard.snapshot(collective={c})": (lambda g=g: g.snapshot(cache, state, tick=0))
+              for c, g in guards.items()}
+    return record, timers
+
+
+def drive_lcc_square(cfg: dict, dev) -> tuple[dict, dict]:
+    """``lcc_encode(build_lcc(48), X)`` over the serving state's limbs in 48
+    shards: the plain check on the card and ``lcc_decode`` from all 48 coded
+    shards back to X. Returns (record, timers)."""
+    name, plan, runs = cfg["name"], cfg["plan"], cfg["runs"]
+    X, _ = shard_state_limbs(make_state(cfg["spec"], dev, cfg["seed"]), plan.K, dev)
+    peaks: dict = {}
+    before = launches()
+    with peak_of(peaks, "lcc_encode"):
+        out = lcc_encode(plan, X)
+    counted = {"lcc_encode": check_launches(name, "lcc_encode", before, runs["lcc_encode"])}
+    n_cols = check_output(name, out, X, lcc_generator(plan), NTT, cfg["seed"])
+    coded = to_numpy(out)
+    t0 = time.perf_counter()
+    back = lcc_decode(plan, coded, list(range(plan.N)))
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(back, to_numpy(X)), f"{name}: lcc_decode from {plan.N} responders != X")
+    del out, coded, back
+    record = {"K": plan.K, "M": plan.plan_omega.M, "Z": plan.plan_omega.Z, "q": NTT,
+              "payload_elems": cfg["S"], "launches": counted, "memory": peaks,
+              "checked_columns": {"plain_on_card": cfg["S"], "host_oracle": n_cols},
+              "lcc_decode_host_numpy_ms": decode_ms}
+    return record, {"lcc_encode": lambda: lcc_encode(plan, X)}
+
+
+def drive_grad_coding(dev) -> dict:
+    """``worker_combine`` of every worker and ``aggregate`` without two
+    stragglers over one layer's float32 gradients, on the card and on the
+    CPU: equal at rtol 1e-6, and the aggregate equal to the plain sum at the
+    reference test's 1e-4."""
+    plan = gradient_coding.build_grad_coding(GC_K, GC_S, seed=1)
+    spec = {k: meta(s, torch.float32) for k, s in layer_param_shapes().items()}
+    grads = {j: make_state(spec, dev, SEED + 900 + j) for j in range(GC_K)}
+    out = {}
+    for where, g in (("card", grads), ("cpu", {j: tree.map(lambda t: t.cpu(), gj) for j, gj in grads.items()})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sent = {i: gradient_coding.worker_combine(plan, i, g) for i in range(GC_K)}
+        total = gradient_coding.aggregate(plan, {i: c for i, c in sent.items() if i not in GC_DROP})
+        torch.cuda.synchronize()
+        out[where] = (total, (time.perf_counter() - t0) * 1e3)
+    worst_rel, worst_abs = 0.0, 0.0
+    for a, b in zip(tree.leaves(out["card"][0]), tree.leaves(out["cpu"][0])):
+        check(a.is_cuda and a.dtype == torch.float32, "grad_coding: the card's aggregate is not float32 on the card")
+        a = a.cpu()
+        check(torch.allclose(a, b, rtol=1e-6, atol=0.0), "grad_coding: card and CPU differ beyond rtol 1e-6")
+        diff = (a - b).abs()
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / b.abs().clamp_min(1e-30)).max()))
+    plain = {k: sum(grads[j][k] for j in range(GC_K)) for k in spec}
+    for k in spec:
+        check(torch.allclose(out["card"][0][k], plain[k], rtol=1e-4, atol=1e-4),
+              f"grad_coding: the aggregate of {k} != the plain sum at 1e-4")
+    return {"K": GC_K, "s": GC_S, "dropped": list(GC_DROP), "values_a_gradient": spec_bytes(spec) // 4,
+            "max_abs_err_card_vs_cpu": worst_abs, "max_rel_err_card_vs_cpu": worst_rel,
+            "card_ms": out["card"][1], "cpu_ms": out["cpu"][1]}
+
+
+def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
+    """The coded path (``cfgs`` from :func:`coded_configs`), counted on its
+    own: every count is 0 before it and read after it. Then each
+    configuration's times. Returns (launches, records)."""
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_cuda.launches = 0
+    records, timers = {}, {}
+    for cfg, drive in zip(cfgs, (drive_coded_checkpoint, drive_lcc_serve, drive_lcc_square)):
+        records[cfg["name"]], timers[cfg["name"]] = drive(cfg, dev)
+        torch.cuda.empty_cache()
+    records["grad_coding"] = drive_grad_coding(dev)
+    torch.cuda.empty_cache()
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    for k, n in counted.items():
+        check(n > 0, f"the coded path never launched {k}")
+    # times (these repeats are not part of the counted run)
+    for name, entries in timers.items():
+        record = records[name]
+        for entry, run in entries.items():
+            run()
+            record[f"{entry}_ms"] = wall_ms(run, ENCODE_REPS)
+        record["profile"] = {entry: profile_encode(f"{name}/{entry}", run, ENCODE_REPS)
+                             for entry, run in entries.items()}
+        timers[name] = None
+        torch.cuda.empty_cache()
+    return counted, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -894,7 +1302,8 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions, at every shape phase 4 gives them
     configs = make_configs()
-    shapes = path_shapes(configs, P)
+    coded_cfgs = coded_configs()
+    shapes = path_shapes(configs + coded_cfgs, P)
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
@@ -955,10 +1364,16 @@ def main() -> int:
                                       "butterfly_mac": butterfly_mac_cuda.launches}, **traced)
     torch.cuda.empty_cache()
 
+    # phase 6: the coded path, counted on its own
+    coded_launches, coded = coded_phase(coded_cfgs, dev)
+    for name, record in coded.items():
+        say(name, card=smi, **record)
+    say("coded", card=smi, launches=coded_launches)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
-        row["launches"] = main_path_launches[row["name"]]
+        row["launches"] = main_path_launches[row["name"]] + coded_launches[row["name"]]
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -1,0 +1,250 @@
+"""Erasure-coded optimizer/parameter state across the data-parallel axis —
+the paper's all-to-all encode as the framework's fault-tolerance fast path
+(DESIGN §2, §8; Remark 1 of the paper).
+
+Scheme
+------
+Every DP replica k holds a distinct state shard x_k (ZeRO-style). Every
+``coded_every`` steps the replicas run ONE all-to-all encode of the Cauchy
+generator A (universal prepare-and-shoot — C1 = ⌈log_{p+1}K⌉ rounds,
+C2 = Θ(√K/p) elements, vs Θ(K/p) for the all-gather a naive scheme needs):
+replica k ends up holding the parity packet
+
+    P_k = Σ_r x_r · A[r, k]        (in GF(2^31−1), exact)
+
+in spare device memory. Loss of any set F of ≤ K−|F| nodes destroys
+{x_k, P_k : k∈F}; the survivors recover every lost x_r bit-exactly by solving
+the f×f Cauchy subsystem  Σ_{r∈F} x_r A[r, j] = P_j − Σ_{r∉F} x_r A[r, j]
+for any f surviving parity indices j (every square Cauchy submatrix is
+invertible).
+
+Bit-exactness over floats: state is bitcast to 16-bit limbs (canonical
+elements < 2^16 < q), encoded, and reassembled — no rounding anywhere.
+
+Representation: limbs are ``int32`` bit-pattern tensors (``core.field``)
+holding values < 2^16, read from the state's bytes with
+``Tensor.view(torch.uint8)`` in little-endian limb order, leaf by leaf in
+JAX's pytree order (``repro_torch.tree``), so they equal the reference's
+``uint32`` limbs value for value. The encodes run on the device where the
+limbs lie; :func:`state_to_limbs` puts them on ``device`` (``None``: the
+card). Recovery runs on the host in numpy, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import tree
+from ..core.field import M31, Field, resolve_device, to_tensor
+from ..core.matrices import cauchy_matrix
+from ..core.prepare_shoot import encode_universal
+from ..core.schedule import counted_c2, plan_prepare_shoot
+from ..dist.collectives import hierarchical_encode, multilevel_encode, ps_encode
+
+
+def as_residues(x) -> torch.Tensor:
+    """``x`` as an ``int32`` bit-pattern tensor: a tensor stays on its device,
+    anything else (a numpy array) goes to the card."""
+    return to_tensor(x, x.device if isinstance(x, torch.Tensor) else None)
+
+
+# ---------------------------------------------------------------------------
+# bitcast <-> limbs
+# ---------------------------------------------------------------------------
+
+# the 32-bit type the reference's ``jnp.asarray`` gives a 64-bit one
+# (JAX's 64-bit types are off in the reference)
+_TO_32_BITS = {np.dtype(a): np.dtype(b) for a, b in (
+    (np.int64, np.int32), (np.uint64, np.uint32), (np.float64, np.float32), (np.complex128, np.complex64))}
+
+
+def leaf_tensor(leaf) -> torch.Tensor:
+    """A state leaf as the tensor the coded layer reads. A tensor stays as
+    it is. Anything else (a Python scalar, a numpy array, an object with
+    ``__array__``) is read as the reference's ``jnp.asarray`` reads it: a
+    64-bit type becomes its 32-bit one (a Python ``int`` an ``int32``, out
+    of range raising ``OverflowError``; a ``float`` a ``float32``), and a
+    bfloat16 array, which numpy cannot name, moves by its bits."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    if isinstance(leaf, int) and not isinstance(leaf, (bool, np.generic)):
+        arr = np.array(leaf, dtype=np.int32)
+    else:
+        arr = np.array(leaf)  # a copy: the reference's arrays are read-only
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr.astype(_TO_32_BITS.get(arr.dtype, arr.dtype), copy=False))
+
+
+
+@dataclass
+class LimbMeta:
+    treedef: tree.TreeDef
+    shapes: list[tuple[int, ...]]
+    dtypes: list[torch.dtype]
+    sizes_u16: list[int]
+    total: int
+
+
+def state_to_limbs(state, device=None) -> tuple[torch.Tensor, LimbMeta]:
+    """Pytree → (S,) ``int32`` tensor of 16-bit limbs (canonical mod-q
+    elements) on ``device`` (``None``: the card). A leaf that is not a tensor
+    is read as the reference reads it (:func:`leaf_tensor`); a ``bool`` leaf
+    is read as ``uint8`` and an odd byte count is padded with one zero
+    byte."""
+    dev = resolve_device(device)
+    leaves, treedef = tree.flatten(state)
+    parts = []
+    shapes, dtypes, sizes = [], [], []
+    for leaf in leaves:
+        arr = leaf_tensor(leaf).to(dev)
+        shapes.append(tuple(arr.shape))
+        dtypes.append(arr.dtype)
+        if arr.dtype == torch.bool:  # a bool's byte is 0 or 1: read it as uint8
+            arr = arr.to(torch.uint8)
+        u8 = arr.contiguous().reshape(-1).view(torch.uint8)
+        if u8.numel() % 2:
+            u8 = torch.cat([u8, u8.new_zeros(1)])
+        u16 = u8[0::2].to(torch.int32) | (u8[1::2].to(torch.int32) << 8)
+        sizes.append(int(u16.numel()))
+        parts.append(u16)
+    limbs = torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.int32, device=dev)
+    return limbs, LimbMeta(treedef, shapes, dtypes, sizes, int(limbs.numel()))
+
+
+def limbs_to_state(limbs, meta: LimbMeta):
+    """The pytree back from its limbs, on the device where ``limbs`` lie."""
+    limbs = as_residues(limbs)
+    out = []
+    off = 0
+    for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes_u16):
+        u16 = limbs[off : off + size]
+        off += size
+        u8 = torch.stack([u16 & 0xFF, (u16 >> 8) & 0xFF], dim=1).reshape(-1).to(torch.uint8)
+        u8 = u8[: math.prod(shape) * dtype.itemsize]
+        if dtype == torch.bool:
+            arr = u8.to(torch.bool).reshape(shape)
+        else:
+            arr = u8.view(dtype).reshape(shape)
+        out.append(arr)
+    return tree.unflatten(meta.treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# parity plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParityPlan:
+    K: int
+    p: int
+    q: int
+    A: np.ndarray  # (K, K) Cauchy generator
+    ps_plan: Any
+
+    @property
+    def c1(self) -> int:
+        return self.ps_plan.c1
+
+    @property
+    def c2(self) -> int:
+        return counted_c2(self.ps_plan)
+
+
+def build_parity_plan(K: int, p: int = 1, q: int = M31) -> ParityPlan:
+    f = Field(q)
+    A = cauchy_matrix(f, K)
+    return ParityPlan(K=K, p=p, q=q, A=A, ps_plan=plan_prepare_shoot(K, p))
+
+
+def encode_parity(x_limbs, plan: ParityPlan) -> torch.Tensor:
+    """Single-program path: x_limbs (K, S) → (K, S) parity packets, via the
+    universal algorithm (host-A Shoup path), on the device where the limbs
+    lie (a numpy array goes to the card)."""
+    return encode_universal(as_residues(x_limbs), plan.A, p=plan.p, q=plan.q, plan=plan.ps_plan)
+
+
+def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
+    """The IR path: returns a (K, S) → (K, S) callable that runs the parity
+    encode as the compiled round schedule of ``dist.collectives`` on one
+    device (``None``: the card), the K replicas being the tensor's first
+    axis.
+
+    ``sizes`` stands where the reference's mesh axes stand, outermost →
+    innermost: ``None`` or one size is the flat prepare-and-shoot
+    (``ps_encode``), two sizes the two-level ``hierarchical_encode`` with
+    ``k_intra = sizes[1]``, more the recursive ``multilevel_encode``. Every
+    variant is bit-exact (same modular sums, reassociated). The multi-rank
+    ``torch.distributed`` form, one replica a rank, waits for the
+    distributed executor."""
+    sizes = (plan.K,) if sizes is None else tuple(int(s) for s in sizes)
+    if math.prod(sizes) != plan.K:
+        raise ValueError(f"sizes {sizes} hold {math.prod(sizes)} replicas, the plan has K={plan.K}")
+    kw = dict(p=plan.p, q=plan.q, device=device)
+    if len(sizes) == 1:
+        fn, _ = ps_encode(plan.A, **kw)
+    elif len(sizes) == 2:
+        fn, _ = hierarchical_encode(plan.A, k_intra=sizes[1], **kw)
+    else:
+        fn, _ = multilevel_encode(plan.A, sizes, **kw)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# recovery
+# ---------------------------------------------------------------------------
+
+
+def recover_lost(
+    plan: ParityPlan,
+    lost: list[int],
+    surviving_x: dict[int, np.ndarray],
+    surviving_parity: dict[int, np.ndarray],
+) -> dict[int, np.ndarray]:
+    """Recover the lost replicas' limb arrays bit-exactly, on the host.
+
+    surviving_x/parity: {replica index → (S,) numpy limbs}. Needs
+    |surviving_parity| ≥ |lost| (any subset works — Cauchy guarantee).
+    """
+    f = Field(plan.q)
+    F = sorted(lost)
+    J = sorted(surviving_parity)[: len(F)]
+    if len(J) < len(F):
+        raise ValueError(f"need ≥{len(F)} surviving parity shards, have {len(J)}")
+    A = plan.A
+    S = next(iter(surviving_parity.values())).shape[0]
+    rhs = np.zeros((len(J), S), dtype=np.uint64)
+    for ji, j in enumerate(J):
+        acc = surviving_parity[j].astype(np.uint64) % f.q
+        for r, xr in surviving_x.items():
+            acc = f.sub(acc, f.mul(xr, A[r, j]))
+        rhs[ji] = acc
+    M = A[np.ix_(F, J)].T.astype(np.uint64)  # equations j × unknowns r
+    sol = f.solve(M, rhs)  # (f, S)
+    return {r: sol[i] for i, r in enumerate(F)}
+
+
+# ---------------------------------------------------------------------------
+# high-level: coded checkpoint of a training-state pytree across K replicas
+# ---------------------------------------------------------------------------
+
+
+def shard_state_limbs(state, K: int, device=None) -> tuple[torch.Tensor, LimbMeta]:
+    """Flatten state to limbs on ``device`` (``None``: the card) and split
+    them into K equal shards (zero-padded to a multiple of K)."""
+    limbs, meta = state_to_limbs(state, device)
+    S = -(-int(limbs.numel()) // K)
+    pad = S * K - limbs.numel()
+    if pad:
+        limbs = torch.cat([limbs, limbs.new_zeros(pad)])
+    return limbs.reshape(K, S), meta
+
+
+def unshard_state_limbs(shards, meta: LimbMeta):
+    return limbs_to_state(as_residues(shards).reshape(-1)[: meta.total], meta)

@@ -7,7 +7,9 @@ rebuilds them as the port's own classes, so the port's executors can run a
 schedule the reference compiled and price it on the same topology. :func:`to_tensor` and
 :func:`to_numpy` move residue and Shoup-dual arrays between ``np.uint32`` and
 the port's ``int32`` bit-pattern tensors (``core.field`` states the
-representation).
+representation). :func:`state_from_reference` carries a whole state pytree
+of the reference's arrays across as tensors, bfloat16 leaves bit for bit, so
+that both packages encode the same bits.
 """
 
 from __future__ import annotations
@@ -16,12 +18,17 @@ import dataclasses
 
 import numpy as np
 
+from . import tree
+from .coded.gradient_coding import GradCodingPlan
+from .coded.lagrange_compute import LCCPlan
+from .coded.rs_checkpoint import ParityPlan, leaf_tensor
+from .core.field import resolve_device
 from .core.field import to_numpy, to_tensor  # noqa: F401  (re-exported)
 from .core.ir import CommRound, LocalOp, ScheduleIR, Transfer
 from .core.schedule import ButterflyPlan, DrawLoosePlan, PrepareShootPlan
 from .topo import hierarchical, model
 
-__all__ = ["from_reference", "to_tensor", "to_numpy"]
+__all__ = ["from_reference", "state_from_reference", "to_tensor", "to_numpy"]
 
 _PLAN_CLASSES = {
     cls.__name__: cls
@@ -41,6 +48,9 @@ _PLAN_CLASSES = {
         model.Torus3D,
         model.TwoLevel,
         model.Hierarchy,
+        ParityPlan,
+        LCCPlan,
+        GradCodingPlan,
     )
 }
 
@@ -94,7 +104,9 @@ def _step(step):
 def from_reference(obj):
     """A reference plan (``PrepareShootPlan``, ``ButterflyPlan``,
     ``DrawLoosePlan``, ``HierarchicalPlan``, ``MultiLevelPlan``, ``RingPlan``,
-    ``TwoLevelDFTPlan``, ``MultiLevelDFTPlan``), topology (``FullyConnected``,
+    ``TwoLevelDFTPlan``, ``MultiLevelDFTPlan``, and the coded layer's
+    ``ParityPlan``, ``LCCPlan``, ``GradCodingPlan`` with the plans nested in
+    them), topology (``FullyConnected``,
     ``Ring``, ``Torus2D``, ``Torus3D``, ``TwoLevel``, ``Hierarchy``),
     ``LinkCost`` or ``ScheduleIR`` — or any object with the same class name
     and attributes — as the port's own class, deep-copied."""
@@ -111,3 +123,14 @@ def from_reference(obj):
             out_slot=int(obj.out_slot),
         )
     raise TypeError(f"from_reference takes a plan, a topology, a LinkCost or a ScheduleIR, got {kind}")
+
+
+def state_from_reference(state, device=None):
+    """A pytree of the reference's arrays (numpy arrays, Python scalars, or
+    anything with ``__array__``) as the same pytree of tensors on ``device``
+    (``None``: the card), each leaf as the reference's ``jnp.asarray`` reads
+    it: bits unchanged, but a 64-bit type (a Python ``int`` or ``float``
+    too) as its 32-bit one. A bfloat16 leaf is recognised by its dtype's
+    name and moved through a 16-bit integer view."""
+    dev = resolve_device(device)
+    return tree.map(lambda leaf: leaf_tensor(leaf).to(dev), state)

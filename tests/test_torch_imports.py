@@ -43,6 +43,8 @@ def test_the_slice_is_all_there():
         "kernels.butterfly.kernel", "kernels.butterfly.ops", "kernels.butterfly.ref",
         "topo", "topo.model", "topo.hierarchical", "topo.lower", "topo.passes", "topo.calibrate",
         "topo.autotune", "obs", "obs.trace", "obs.metrics", "obs.export", "obs.feed",
+        "tree", "coded", "coded.rs_checkpoint", "coded.lagrange_compute", "coded.gradient_coding",
+        "train", "train.checkpoint", "train.elastic", "serve", "serve.coded",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -67,7 +69,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "imported" in r.stdout
 
 
-@pytest.mark.parametrize("order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first"])
+@pytest.mark.parametrize(
+    "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first"]
+)
 def test_import_order_does_not_matter(order):
     first = {
         "kernels-first": "repro_torch.kernels.gf_matmul.ops",
@@ -75,12 +79,14 @@ def test_import_order_does_not_matter(order):
         "dist-first": "repro_torch.dist.collectives",
         "topo-first": "repro_torch.topo",
         "obs-first": "repro_torch.obs",
+        "coded-first": "repro_torch.coded",
+        "serve-first": "repro_torch.serve",
     }[order]
     r = run_fresh(f"""
         import importlib
         importlib.import_module({first!r})
         import repro_torch.kernels.butterfly.ops, repro_torch.core, repro_torch.dist, repro_torch.convert
-        import repro_torch.topo, repro_torch.obs
+        import repro_torch.topo, repro_torch.obs, repro_torch.coded, repro_torch.train, repro_torch.serve
         print("ok")
     """)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -110,6 +116,17 @@ ENTRY_POINTS = {
     "multilevel_encode": "multilevel_encode(A, (2, 2, 2))",
     "encode_direct": "encode_direct(x, A, q=M31)",
     "to_tensor": "to_tensor(x)",
+    "state_to_limbs": "state_to_limbs({'a': torch.zeros(3)})",
+    "shard_state_limbs": "shard_state_limbs({'a': torch.zeros(3)}, 4)",
+    "encode_parity": "encode_parity(x, build_parity_plan(8))",
+    "encode_parity_collective": "encode_parity_collective(build_parity_plan(8), (2, 4))",
+    "lcc_encode": "lcc_encode(build_lcc(8), x)",
+    "lcc_encode_collective": "lcc_encode_collective(build_lcc(6, R=2))",
+    "CodedStateGuard": "CodedStateGuard(K=4)",
+    "CodedServeGuard": "CodedServeGuard(K=3, R=1)",
+    "restore_checkpoint": "restore_checkpoint((save_checkpoint((d := tempfile.TemporaryDirectory()).name, "
+                          "{'a': torch.zeros(1)}, 0), d.name)[1], {'a': torch.zeros(1)})",
+    "state_from_reference": "state_from_reference({'a': np.zeros(3)})",
 }
 
 
@@ -119,11 +136,16 @@ def test_entry_point_with_device_none_raises_without_a_card(name):
     raises; it does not quietly run on the CPU. (On a machine with a card the
     same call succeeds, and the check is that it ran there.)"""
     r = run_fresh(f"""
+        import tempfile
         import numpy as np, torch
         from repro_torch import a2a_encode, plan_for, ir_encode, ps_encode, butterfly, M31
         from repro_torch.dist import allgather_encode, hierarchical_encode, multilevel_encode
         from repro_torch.kernels.gf_matmul.ops import encode_direct
-        from repro_torch.convert import to_tensor
+        from repro_torch.convert import state_from_reference, to_tensor
+        from repro_torch.coded import (build_lcc, build_parity_plan, encode_parity, encode_parity_collective,
+                                       lcc_encode, lcc_encode_collective, shard_state_limbs, state_to_limbs)
+        from repro_torch.serve import CodedServeGuard
+        from repro_torch.train import CodedStateGuard, restore_checkpoint, save_checkpoint
         A = np.arange(64, dtype=np.uint32).reshape(8, 8)
         x = np.arange(24, dtype=np.uint32).reshape(8, 3)
         try:
