@@ -69,9 +69,30 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 bytes each entry point holds as it starts and at its peak
                 (read as it returns, before any check), busy time and idle
                 share, and host numpy ms of the recovery.
-7. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path and the coded path, error, time, bound and plain time; the card's
-   name and power limit; and last ``{"ok": true, "device": {...}}``.
+7. ``serve``    the serving path at the full width of Qwen3-1.7B (28 layers,
+                d_model 2048, 16 heads x 128, 8 KV heads, d_ff 6144, vocab
+                151,936, bf16 weights drawn on the card from the seed):
+                ``ContinuousEngine`` with 4 slots, max_len 1024, buckets (128,
+                256, 512), 32 new tokens at most, over a seeded Poisson trace
+                of 12 requests with prompts of 16-512 tokens: (a) greedy; (b)
+                greedy under ``CodedServeGuard(K=6, R=2)`` with one scheduled
+                kill, its tokens equal to (a)'s; (c) sampled at temperature
+                1.0 under the guard with one kill, equal to the same sampled
+                run unfailed; (d) the guard's ``collective=True`` form, equal
+                to (a); (e) the fixed-batch ``Engine`` on 4 prompts; (f)
+                ``prefill_into_cache`` against the per-token refeed through
+                ``decode_step`` at a stated bf16 tolerance; (g) the float32
+                smoke config on the card against the CPU. Every ``gf_matmul``
+                shape the guard hands the kernel (the engine state's own shard
+                width) is among phase 3's. Prints tokens/s, TTFT and e2e
+                p50/p99, each snapshot's and the recovery's ms (with the host
+                numpy inside it), prefill ms per bucket, one decode tick's ms,
+                the idle share of a profiled decode chunk, the launches and
+                the peak device bytes.
+8. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path, the coded path and the serve path, error, time, bound and plain
+   time; the card's name and power limit; and last ``{"ok": true, "device":
+   {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -98,6 +119,7 @@ import torch  # noqa: E402
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.coded import gradient_coding  # noqa: E402
+from repro_torch.configs import get, smoke_config  # noqa: E402
 from repro_torch.coded.lagrange_compute import build_lcc, lcc_decode, lcc_encode, lcc_generator  # noqa: E402
 from repro_torch.coded.rs_checkpoint import (  # noqa: E402
     build_parity_plan,
@@ -132,11 +154,16 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     launch_plan,
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
 from repro_torch.serve import coded as serve_coded  # noqa: E402
 from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
+from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
+from repro_torch.serve.scheduler import bucket_for  # noqa: E402
+from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.train.elastic import CodedStateGuard  # noqa: E402
+from repro_torch.train.train_loop import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.topo import (  # noqa: E402
     FullyConnected,
     Hierarchy,
@@ -1278,6 +1305,285 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
     return counted, records
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path at the full width of Qwen3-1.7B
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BUCKETS = (128, 256, 512)  # prefill length buckets; SERVE_POSITIONS is max_len
+SERVE_MAX_NEW = 32  # the engine's token budget; requests draw theirs from [16, 32]
+SERVE_REQUESTS, SERVE_RATE = 12, 8.0  # a seeded Poisson trace, requests a second
+SERVE_MIX = (LengthBand(16, 128, 0.4), LengthBand(129, 256, 0.3), LengthBand(257, 512, 0.3))
+SERVE_SYNC = 4  # decode ticks a chunk: one host sync and one snapshot a chunk
+SERVE_ENGINE_KILL = ((6, 3),)  # host 3 dies after tick 6: found at the second chunk's sync
+SERVE_TEMPERATURE = 1.0
+FIXED_PROMPTS = 4  # prompts of the trace through the fixed-batch Engine
+REFEED_PLEN = 100  # prompt of the prefill-versus-refeed check (bucket 128)
+# bf16 prefill against the per-token refeed: the logits' rms error within 5 %
+# of their rms, the largest error within 10 % of the largest logit
+REFEED_RMS_TOL, REFEED_MAX_TOL = 0.05, 0.10
+# float32 smoke config on the card against the CPU (which the CPU tests hold
+# against the reference): logits within this, greedy tokens equal
+SMALL_LOGITS_ATOL = 1e-4
+
+
+def serve_engine(model, params) -> ContinuousEngine:
+    """The serve phase's continuous engine, on the device that holds ``params``."""
+    return ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=SERVE_POSITIONS, buckets=SERVE_BUCKETS,
+                            max_new_tokens=SERVE_MAX_NEW, metrics=MetricsRegistry())
+
+
+def serve_state_spec(model) -> tuple:
+    """(cache, state) that the guard snapshots, as meta tensors: the engine's
+    own stacked KV cache and ``init_state()``, built on meta parameters."""
+    eng = serve_engine(model, model.param_specs())
+    return model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device="meta"), eng.init_state()
+
+
+def serve_config() -> dict:
+    """The serve phase's configuration, host-side: the model, the engine
+    state's spec and shard width, the guard's plan and the kernel calls of
+    one snapshot of each form (``runs``)."""
+    cfg = get(SERVE_ARCH)
+    model = build_model(cfg)
+    spec = serve_state_spec(model)
+    plan = build_lcc(SERVE_K, R=SERVE_R)
+    lps = plan_prepare_shoot(plan.N, plan.p)
+    S = -(-limb_count(spec) // SERVE_K)
+    return {"name": "serve", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
+            "runs": {
+                "ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))],
+                "ContinuousEngine.serve(guard collective=True)": ir_kernel_calls(
+                    lps.to_ir(lcc_generator(plan), q=NTT), S),
+            }}
+
+
+def tokens_of(report) -> dict:
+    return {r.id: tuple(r.tokens) for r in report.results}
+
+
+def check_report(what: str, rep, trace, vocab: int) -> dict:
+    """Every request of the trace answered, within its budget, with token ids
+    in the vocabulary; returns the report's numbers."""
+    check([r.id for r in rep.results] == [r.id for r in sorted(trace, key=lambda r: (r.arrival_s, r.id))],
+          f"serve/{what}: not every request was answered")
+    by_id = {r.id: r for r in trace}
+    for r in rep.results:
+        req = by_id[r.id]
+        check(r.prompt_len == len(req.prompt) and 1 <= r.gen_len <= req.max_new_tokens
+              and r.tokens[: r.prompt_len] == list(req.prompt) and len(r.tokens) == r.prompt_len + r.gen_len,
+              f"serve/{what}: {r.id} has {r.gen_len} tokens for a budget of {req.max_new_tokens}")
+        check(all(0 <= t < vocab for t in r.tokens[r.prompt_len:]), f"serve/{what}: {r.id} left the vocabulary")
+    return {"tokens_per_s": rep.tokens_per_s, "ttft_ms": rep.ttft_ms, "e2e_ms": rep.e2e_ms, "wall_s": rep.wall_s,
+            "decode_steps": rep.decode_steps, "slot_occupancy": rep.slot_occupancy,
+            "prefill_compiles": rep.prefill_compiles,
+            "generated_tokens": sum(r.gen_len for r in rep.results)}
+
+
+def guarded_run(scfg: dict, eng, trace, dev, *, collective: bool, greedy: bool) -> tuple:
+    """One serve of the trace under ``CodedServeGuard(K=6, R=2)`` with one
+    scheduled kill: counted launches, each snapshot's wall ms, the recovery
+    and the host numpy ms inside it. Returns (report, record)."""
+    entry = "ContinuousEngine.serve(guard collective=True)" if collective else "ContinuousEngine.serve(guard)"
+    guard = CodedServeGuard(K=SERVE_K, R=SERVE_R, injector=FaultInjector(kills=SERVE_ENGINE_KILL),
+                            collective=collective, device=dev)
+    if collective:
+        enc = guard._collective
+        check(enc.kernels == "cuda" and ir_kernel_calls(enc.ir, scfg["S"]) == scfg["runs"][entry],
+              f"serve: {entry} runs other kernels than phase 3 held")
+    snap_ms, host_ms = [], []
+    before = launches()
+    with timed(guard, "snapshot", snap_ms), timed(serve_coded, "lcc_decode", host_ms):
+        rep = eng.serve(trace, greedy=greedy, sync_every=SERVE_SYNC, temperature=SERVE_TEMPERATURE, guard=guard)
+    stats = rep.coded
+    counted = check_launches("serve", entry, before, scfg["runs"][entry] * stats["snapshots"])
+    check(stats["recoveries"] == 1 and stats["injected_faults"] == 1 and len(host_ms) == 1,
+          f"serve: {entry} stats {stats}")
+    check(all(len(v) == scfg["S"] for v in guard.group._mem.values()),
+          f"serve: the coded shards are not {scfg['S']} limbs wide (the width phase 3 held)")
+    return rep, {"snapshots": stats["snapshots"], "launches": counted,
+                 "snapshot_ms": {"median": statistics.median(snap_ms), "max": max(snap_ms)},
+                 "recover_ms": stats["recovery_us"]["p50"] / 1e3, "lcc_decode_host_numpy_ms": host_ms[0],
+                 "requests_recovered": stats["requests_recovered"], "report": check_report(entry, rep, trace,
+                                                                                            eng.model.cfg.vocab_size)}
+
+
+def prefill_vs_refeed(model, params, dev) -> dict:
+    """(f): ``prefill_into_cache`` of one REFEED_PLEN-token prompt against
+    the same prompt refed token by token through ``decode_step``, bf16 on the
+    card: the last position's logits within REFEED_RMS_TOL / REFEED_MAX_TOL
+    of the logits' scale, and the K/V rows both write."""
+    V = model.cfg.vocab_size
+    prompt = np.random.default_rng(SEED + 1002).integers(1, V, size=REFEED_PLEN).astype(np.int32)
+    bucket = bucket_for(REFEED_PLEN, SERVE_BUCKETS)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :REFEED_PLEN] = prompt
+    pf = make_prefill_step(model, into_cache=True)
+    last, cache_pf = pf(params, model.init_cache(1, SERVE_POSITIONS, device=dev), torch.from_numpy(toks).to(dev),
+                        0, REFEED_PLEN)
+    step = make_decode_step(model)
+    cache_rf = model.init_cache(1, SERVE_POSITIONS, device=dev)
+    tok_t = torch.from_numpy(prompt).to(dev)
+    for t in range(REFEED_PLEN):
+        lg, cache_rf = step(params, cache_rf, tok_t[t: t + 1][None], torch.full((1,), t, dtype=torch.int32, device=dev))
+    a, b = last[0, :V], lg[0, 0, :V]
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), "serve/refeed: logits not finite")
+    err = (a - b).abs()
+    rms, rms_err = float(b.pow(2).mean().sqrt()), float(err.pow(2).mean().sqrt())
+    big, max_err = float(b.abs().max()), float(err.max())
+    kv = max(float((x[:, 0, :REFEED_PLEN].float() - y[:, 0, :REFEED_PLEN].float()).abs().max())
+             for x, y in zip(tree.leaves(cache_pf), tree.leaves(cache_rf)))
+    rec = {"plen": REFEED_PLEN, "bucket": bucket, "logits_rms": rms, "rms_err": rms_err, "max_abs_err": max_err,
+           "largest_logit": big, "tolerance": {"rms": REFEED_RMS_TOL, "max": REFEED_MAX_TOL},
+           "argmax_equal": int(a.argmax()) == int(b.argmax()), "kv_rows_max_abs_err": kv}
+    check(rms_err <= REFEED_RMS_TOL * rms and max_err <= REFEED_MAX_TOL * big,
+          f"serve/refeed: prefill logits differ from the refeed's beyond the stated bf16 tolerance: {rec}")
+    return rec
+
+
+def small_reference(dev) -> dict:
+    """The float32 smoke config of the same architecture on the card against
+    the CPU, with the same parameters: forward logits within
+    SMALL_LOGITS_ATOL and both engines' greedy tokens equal."""
+    cfg = smoke_config(SERVE_ARCH).replace(dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 1003)
+    cpu_params = model.init(gen)
+    card_params = tree.map(lambda t: t.to(dev), cpu_params)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1004).integers(0, cfg.vocab_size, size=(2, 24)))
+    lc = model.forward(cpu_params, {"tokens": toks})[0]
+    lg = model.forward(card_params, {"tokens": toks.to(dev)})[0].cpu()
+    err = float((lc - lg).abs()[..., : cfg.vocab_size].max())
+    check(err <= SMALL_LOGITS_ATOL, f"serve/small: card and CPU logits differ by {err}")
+    trace = poisson_trace(6, 1e4, max_new_tokens=6, vocab_size=cfg.vocab_size, seed=SEED + 1005)
+    out = {}
+    for where, p in (("cpu", cpu_params), ("card", card_params)):
+        eng = ContinuousEngine(model, p, n_slots=2, max_len=160, buckets=(32, 64, 128), max_new_tokens=6,
+                               metrics=MetricsRegistry())
+        res = Engine(model, p, max_len=160, metrics=MetricsRegistry()).generate([r.prompt for r in trace],
+                                                                                 max_new_tokens=6)
+        out[where] = (tokens_of(eng.serve(trace, greedy=True, sync_every=2)), res.tokens.tolist(),
+                      res.lengths.tolist())
+    check(out["cpu"][0] == out["card"][0], "serve/small: continuous greedy tokens on the card differ from the CPU's")
+    check(out["cpu"][1:] == out["card"][1:], "serve/small: fixed-batch greedy tokens on the card differ from the CPU's")
+    return {"config": cfg.name, "dtype": "float32", "logits_max_abs_err": err, "requests": len(trace),
+            "tokens_equal": True, "fixed_tokens_equal": True}
+
+
+def serve_timings(model, params, eng, trace, dev) -> dict:
+    """Prefill ms of each bucket, one decode tick's ms with every slot
+    active, and one decode chunk under the profiler (not counted)."""
+    state = eng.init_state()
+    cache = model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device=dev)
+    V = model.cfg.vocab_size
+    out = {"prefill_ms": {}}
+    for b in SERVE_BUCKETS:
+        pf = eng._prefill_for(b, True)
+        toks = torch.from_numpy(np.random.default_rng(b).integers(1, V, size=(1, b)).astype(np.int32)).to(dev)
+        out["prefill_ms"][b] = wall_ms(lambda pf=pf, toks=toks: pf(params, cache, state, toks, 0, b, SERVE_MAX_NEW,
+                                                                   -1, (0, 0), 1.0), 3)
+    for s in range(SERVE_SLOTS):  # every slot holds a prompt and decodes
+        req = trace[s]
+        b = bucket_for(len(req.prompt), SERVE_BUCKETS)
+        toks = np.zeros((1, b), np.int32)
+        toks[0, : len(req.prompt)] = req.prompt
+        eng._prefill_for(b, True)(params, cache, state, torch.from_numpy(toks).to(dev), s, len(req.prompt),
+                                  SERVE_MAX_NEW, -1, (0, s), 1.0)
+    state["max_gen"].fill_(1 << 30)  # stays active however often it is timed
+    tick = eng._tick_for(True)
+    out["decode_tick_ms"] = wall_ms(lambda: tick(params, cache, state, -1, 1.0), 10)
+
+    def chunk():
+        for _ in range(SERVE_SYNC):
+            tick(params, cache, state, -1, 1.0)
+        state["active"].cpu()
+
+    chunk()
+    out["decode_chunk_profile"] = profile_encode("serve/decode_chunk", chunk, 1)
+    return out
+
+
+def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
+    """The serving path at Qwen3-1.7B's full width (``scfg`` from
+    :func:`serve_config`), counted on its own: (a) greedy, (b) greedy under
+    the guard with one kill, equal to (a), (c) sampled under the guard with
+    one kill, equal to the same sampled run unfailed, (d) the guard's
+    ``collective=True`` form, equal to (a), (e) the fixed-batch Engine, (f)
+    prefill against the per-token refeed, (g) the float32 smoke config on the
+    card against the CPU. Returns (launches, record)."""
+    model = scfg["model"]
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1000)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree.leaves(params)
+    check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in leaves), "serve: the weights are not bf16 on the card")
+    check(cfg.n_layers == 28 and cfg.d_model == 2048 and cfg.vocab_padded == 152064
+          and tuple(params["body"]["b0"]["mlp"]["w_up"].shape) == (28, 2048, 6144), "serve: not Qwen3-1.7B's width")
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=cfg.vocab_size, seed=SEED + 1001)
+    eng = serve_engine(model, params)
+    record = {"arch": cfg.name, "params": sum(t.numel() for t in leaves),
+              "param_bytes": sum(t.numel() * t.element_size() for t in leaves), "init_s": init_s,
+              "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS, "buckets": SERVE_BUCKETS, "max_new": SERVE_MAX_NEW,
+              "sync_every": SERVE_SYNC, "trace": {"requests": len(trace), "rate_rps": SERVE_RATE, "seed": SEED + 1001,
+                                                  "prompt_lens": [len(r.prompt) for r in trace],
+                                                  "budgets": [r.max_new_tokens for r in trace]},
+              "guard": {"K": SERVE_K, "R": SERVE_R, "q": NTT, "kills": SERVE_ENGINE_KILL,
+                        "state_bytes": spec_bytes(scfg["spec"]), "limbs_a_shard": scfg["S"]}}
+
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_cuda.launches = 0
+    rep_a = eng.serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (a)
+    greedy = tokens_of(rep_a)
+    record["greedy"] = check_report("greedy", rep_a, trace, cfg.vocab_size)
+    check(launches() == (0, 0), "serve: the unguarded run launched a hand kernel")
+    rep_b, record["greedy_guarded"] = guarded_run(scfg, eng, trace, dev, collective=False, greedy=True)  # (b)
+    check(tokens_of(rep_b) == greedy, "serve: greedy tokens after a kill and recovery differ from the unfailed run's")
+    rep_c = eng.serve(trace, greedy=False, sync_every=SERVE_SYNC, temperature=SERVE_TEMPERATURE)  # (c)
+    record["sampled"] = check_report("sampled", rep_c, trace, cfg.vocab_size)
+    rep_c2, record["sampled_guarded"] = guarded_run(scfg, eng, trace, dev, collective=False, greedy=False)
+    check(tokens_of(rep_c2) == tokens_of(rep_c), "serve: the sampled replay differs from its unfailed run")
+    check(tokens_of(rep_c) != greedy, "serve: sampling at temperature 1.0 drew the greedy tokens")
+    rep_d, record["greedy_guarded_collective"] = guarded_run(scfg, eng, trace, dev, collective=True,  # (d)
+                                                             greedy=True)
+    check(tokens_of(rep_d) == greedy, "serve: collective=True tokens after a kill differ from the unfailed run's")
+    reg = MetricsRegistry()  # (e)
+    fixed = Engine(model, params, max_len=SERVE_POSITIONS, metrics=reg)
+    prompts = [r.prompt for r in trace[:FIXED_PROMPTS]]
+    res = fixed.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
+    plens = np.array([len(p) for p in prompts])
+    check(np.array_equal(res.lengths, plens + SERVE_MAX_NEW) and res.tokens.shape == (FIXED_PROMPTS, plens.max()
+                                                                                       + SERVE_MAX_NEW)
+          and all(res.tokens[b, : plens[b]].tolist() == prompts[b] for b in range(FIXED_PROMPTS))
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()), "serve/fixed: lengths or tokens")
+    snap = reg.snapshot()
+    record["fixed"] = {"prompts": FIXED_PROMPTS, "steps": res.steps, "generate_ms": snap["serve.generate_ms"]["value"],
+                       "tokens_per_s": snap["serve.tokens_per_s"]["value"],
+                       "first_tokens_equal_continuous": sum(
+                           int(res.tokens[b, plens[b]]) == greedy[trace[b].id][plens[b]] for b in range(FIXED_PROMPTS))}
+    # the refeed and the one-pass prefill pick the same first token (bf16; (f) bounds their logits' distance)
+    check(record["fixed"]["first_tokens_equal_continuous"] == FIXED_PROMPTS,
+          f"serve/fixed: first tokens equal the continuous engine's for "
+          f"{record['fixed']['first_tokens_equal_continuous']} of {FIXED_PROMPTS} prompts")
+    record["prefill_vs_refeed"] = prefill_vs_refeed(model, params, dev)  # (f)
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    check(counted["gf_matmul"] > 0, "the serve path never launched gf_matmul")
+    record["launches"] = counted
+    record["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["small_reference"] = small_reference(dev)  # (g)
+    record.update(serve_timings(model, params, eng, trace, dev))
+    del params, eng, fixed
+    torch.cuda.empty_cache()
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -1303,7 +1609,8 @@ def main() -> int:
     # phase 3: kernels against their plain versions, at every shape phase 4 gives them
     configs = make_configs()
     coded_cfgs = coded_configs()
-    shapes = path_shapes(configs + coded_cfgs, P)
+    serve_cfg = serve_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg], P)
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
@@ -1370,10 +1677,15 @@ def main() -> int:
         say(name, card=smi, **record)
     say("coded", card=smi, launches=coded_launches)
 
+    # phase 7: the serving path at full width, counted on its own
+    serve_launches, served = serve_phase(serve_cfg, dev)
+    say("serve", card=smi, **served)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
-        row["launches"] = main_path_launches[row["name"]] + coded_launches[row["name"]]
+        row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
+                           + serve_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

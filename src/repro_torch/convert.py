@@ -9,7 +9,9 @@ schedule the reference compiled and price it on the same topology. :func:`to_ten
 the port's ``int32`` bit-pattern tensors (``core.field`` states the
 representation). :func:`state_from_reference` carries a whole state pytree
 of the reference's arrays across as tensors, bfloat16 leaves bit for bit, so
-that both packages encode the same bits.
+that both packages encode the same bits; :func:`params_from_reference` does
+the same for a model's parameters, checked leaf by leaf against the port's
+model.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from .core.ir import CommRound, LocalOp, ScheduleIR, Transfer
 from .core.schedule import ButterflyPlan, DrawLoosePlan, PrepareShootPlan
 from .topo import hierarchical, model
 
-__all__ = ["from_reference", "state_from_reference", "to_tensor", "to_numpy"]
+__all__ = ["from_reference", "params_from_reference", "state_from_reference", "to_tensor", "to_numpy"]
 
 _PLAN_CLASSES = {
     cls.__name__: cls
@@ -134,3 +136,24 @@ def state_from_reference(state, device=None):
     name and moved through a 16-bit integer view."""
     dev = resolve_device(device)
     return tree.map(lambda leaf: leaf_tensor(leaf).to(dev), state)
+
+
+def params_from_reference(params, model, device=None):
+    """The reference's parameter pytree of ``model``'s configuration (numpy
+    arrays, or anything with ``__array__``) as the port's, on ``device``
+    (``None``: the card): the same nested dicts with the stacked ``body``
+    leaves, bfloat16 carried bit for bit. Raises ``ValueError`` unless the
+    structure, every shape and every dtype equal ``model.param_specs()``."""
+    dev = resolve_device(device)
+    specs = model.param_specs()
+    got, want = tree.structure(params), tree.structure(specs)
+    if got != want:
+        raise ValueError(f"parameter tree {got} is not the model's {want}")
+    names = list(tree.flatten_with_names(specs))
+    out = []
+    for name, leaf, spec in zip(names, tree.leaves(params), tree.leaves(specs)):
+        t = leaf_tensor(leaf)
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model has {tuple(spec.shape)} {spec.dtype}")
+        out.append(t.to(dev))
+    return tree.unflatten(tree.structure(specs), out)

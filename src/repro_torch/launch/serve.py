@@ -1,0 +1,117 @@
+"""Serving launcher: parameters on the card + a serving engine.
+
+Continuous batching by default (bucketed one-pass prefill + slot
+scheduler); ``--engine fixed`` runs the fixed-batch loop instead.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
+        --prompts "1,2,3;4,5" --max-new 16
+
+``--coded K,R`` makes the run straggler-tolerant: the decode-path state is
+LCC-encoded to N = K + R simulated hosts every chunk
+(``serve.coded.CodedServeGuard``) and ``--kill TICK:HOST`` (repeatable)
+injects host faults mid-trace — in-flight requests are recovered from any K
+surviving shards, not dropped:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
+        --prompts "1,2,3;4,5" --coded 3,2 --kill 2:0 --kill 6:4
+
+Everything runs on the card unless ``--device cpu`` asks for the CPU. The
+weights are random from seed 0 unless ``--ckpt`` names a checkpoint
+directory (the reference's format, ``train.checkpoint``). Only a ``1x1``
+mesh runs: a larger one waits for the sharding substrate (ROADMAP.md queue
+A item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs import get, smoke_config
+from ..core.field import resolve_device
+from ..models import build_model
+from ..serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
+from ..train import latest_step, restore_checkpoint
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--prompts", default="1,2,3;7,8")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--engine", choices=["continuous", "fixed"], default="continuous")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument(
+        "--coded", default=None, metavar="K,R",
+        help="LCC-protect the decode state: K data + R parity shards "
+        "over N=K+R simulated hosts (continuous engine only)",
+    )
+    ap.add_argument(
+        "--kill", action="append", default=[], metavar="TICK:HOST",
+        help="inject a host fault after decode tick TICK (repeatable; needs --coded)",
+    )
+    args = ap.parse_args(argv)
+    if args.kill and args.coded is None:
+        ap.error("--kill requires --coded K,R")
+    if args.mesh != "1x1":
+        ap.error(f"--mesh {args.mesh}: only 1x1 runs; a mesh waits for the sharding substrate "
+                 "(ROADMAP.md queue A item 9)")
+
+    dev = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        params, _ = restore_checkpoint(args.ckpt, model.param_specs(), device=dev)
+
+    prompts = [[int(t) for t in p.split(",") if t] for p in args.prompts.split(";")]
+    if args.coded is not None and args.engine != "continuous":
+        ap.error("--coded needs the continuous engine")
+
+    if args.engine == "continuous":
+        guard = None
+        if args.coded is not None:
+            K, R = (int(x) for x in args.coded.split(","))
+            kills = tuple(tuple(int(x) for x in k.split(":")) for k in args.kill)
+            guard = CodedServeGuard(K=K, R=R, injector=FaultInjector(kills=kills) if kills else None, device=dev)
+        eng = ContinuousEngine(model, params, n_slots=args.slots, max_len=args.max_len,
+                               max_new_tokens=args.max_new)
+        reqs = [Request(id=f"cli-{i}", prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(prompts)]
+        rep = eng.serve(reqs, guard=guard)
+        print(
+            f"{rep.decode_steps} decode steps, {len(rep.results)} reqs, "
+            f"{rep.tokens_per_s:.1f} tok/s, ttft p99 {rep.ttft_ms['p99']:.1f} ms, "
+            f"{rep.prefill_compiles} prefill graphs, on {dev}"
+        )
+        if rep.coded is not None:
+            c = rep.coded
+            print(
+                f"coded K={c['K']} R={c['R']}: {c['injected_faults']} faults "
+                f"injected, {c['recoveries']} hosts recovered from, "
+                f"{c['requests_recovered']} in-flight requests recovered, "
+                f"recovery p99 {c['recovery_us']['p99']:.0f} us"
+            )
+        for r in rep.results:
+            print(f"{r.id}: {r.tokens}")
+        return rep
+    eng = Engine(model, params, max_len=args.max_len)
+    t0 = time.time()
+    res = eng.generate(prompts, max_new_tokens=args.max_new)
+    dt = time.time() - t0
+    print(f"{res.steps} decode steps, {len(prompts)} seqs, {dt:.2f}s, on {dev}")
+    for i, row in enumerate(res.tokens):
+        print(f"seq {i}: {row[: res.lengths[i]].tolist()}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

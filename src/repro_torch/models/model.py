@@ -1,0 +1,302 @@
+"""Model assembly: the dense decoder-only LM.
+
+A model is a layer PATTERN: a non-repeated prefix (empty for the dense
+family, the only one ported) plus a repeated body period whose parameters
+(and decode cache) are stacked over the repeats, so every body leaf has a leading ``n_layers`` axis — the
+reference's pytree, leaf for leaf, which is what the coded-serving guard
+reads and what a checkpoint holds. The reference scans the body with
+``jax.lax.scan``; here a Python loop indexes the stacked tensors.
+
+Public surface (used by train/, serve/, launch/):
+    build_model(cfg)        → Model
+    model.init(generator)   → params (on the generator's device)
+    model.param_specs()     → the params' pytree as ``meta`` tensors
+    model.forward(params, batch, ctx)          → (logits, aux, hidden)
+    model.init_cache(batch, s_max) / model.cache_dims()
+    model.prefill(params, batch, ctx)          → forward
+    model.decode_step(params, cache, tokens, pos, ctx) → (logits, cache)
+    model.prefill_into_cache(params, cache, tokens, slot, ctx)
+                            → (logits, cache)   # one-pass KV fill of a slot
+    model.supports_prefill  → bool
+
+Only the ``"dense"`` layer kind is ported; ``build_model`` refuses the other
+families. Decode and prefill write the cache in place and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from .. import tree
+from ..configs.base import ModelConfig
+from ..core.field import resolve_device
+from . import layers as L
+
+#: ROADMAP queue A item under which each family that is not ported yet waits
+_NOT_PORTED = "ROADMAP.md queue A item 10 (models: {what})"
+
+
+# ---------------------------------------------------------------------------
+# layer-kind registry
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(generator, cfg, dtype, d_ff=None):
+    dev = L.init_device(generator)
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+        "attn": L.attention_init(generator, cfg, dtype),
+        "ln2": L.rmsnorm_init(cfg.d_model, dtype, dev),
+        "mlp": L.swiglu_init(generator, cfg.d_model, d_ff or cfg.d_ff, dtype),
+    }
+
+
+def _dense_fwd(params, x, cfg, ctx, aux):
+    h, _ = L.attention_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
+    x = x + h
+    x = x + L.swiglu(params["mlp"], L.rmsnorm(params["ln2"], x), ctx)
+    return x, aux
+
+
+def _dense_decode(params, x, cfg, cache, pos, ctx):
+    h, cache2 = L.attention_decode(params["attn"], L.rmsnorm(params["ln1"], x), cfg, cache, pos, ctx)
+    x = x + h
+    x = x + L.swiglu(params["mlp"], L.rmsnorm(params["ln2"], x), ctx)
+    return x, cache2
+
+
+def _dense_prefill(params, x, cfg, ctx, aux):
+    """Full-sequence forward that also returns this layer's cache content
+    (the K/V rows for positions [0, S)): the decode path's cache is filled in
+    ONE pass instead of a per-token refeed."""
+    h, (k, v) = L.attention_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
+    x = x + h
+    x = x + L.swiglu(params["mlp"], L.rmsnorm(params["ln2"], x), ctx)
+    return x, aux, {"k": k, "v": v}
+
+
+def _kv_cache_init(cfg, batch, s_max, dtype, device):
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_cache_dims():
+    return {
+        "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+        "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    }
+
+
+_KINDS: dict[str, dict[str, Any]] = {
+    "dense": dict(init=_dense_init, fwd=_dense_fwd, decode=_dense_decode, prefill=_dense_prefill),
+}
+
+
+def layer_pattern(cfg: ModelConfig) -> tuple[list[str], list[str], int]:
+    """(prefix kinds, body period kinds, n_repeats)."""
+    n = cfg.n_layers
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return [], ["rwkv"], n
+    if cfg.ssm is not None and cfg.ssm.kind == "mamba":
+        period = cfg.ssm.attn_layer_period or 8
+        kinds = []
+        for i in range(period):
+            is_attn = (i % period) == cfg.ssm.attn_layer_offset
+            is_moe = cfg.moe is not None and (i % cfg.moe.layer_period) == cfg.moe.layer_offset
+            if is_attn:
+                kinds.append("moe" if is_moe else "dense")
+            else:
+                kinds.append("mamba_moe" if is_moe else "mamba")
+        assert n % period == 0
+        return [], kinds, n // period
+    if cfg.mla is not None:
+        fd = cfg.moe.first_dense if cfg.moe else 0
+        return ["mla_dense"] * fd, ["mla_moe"], n - fd
+    if cfg.moe is not None:
+        return [], ["moe"], n
+    return [], ["dense"], n
+
+
+def _write_slot(cache_tree, content_tree, slot: int):
+    """Write per-layer prefill content (1, L, ...) into row ``slot`` of the
+    batched cache leaves (B, Smax, ...), positions [0, L), in place."""
+
+    def write(leaf, content):
+        leaf[slot, : content.shape[1]] = content[0].to(leaf.dtype)
+        return leaf
+
+    return tree.map(write, cache_tree, content_tree)
+
+
+def _stack(trees: list):
+    """Leaf-wise ``torch.stack`` of same-structured pytrees."""
+    return tree.map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s view of a pytree stacked over layers."""
+    return tree.map(lambda a: a[i], stacked)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+class Model(nn.Module):
+    """The dense decoder. Parameters are not registered on the module: they
+    are a pytree passed to every call, as in the reference, so that the
+    serving state, checkpoints and the coded guards see the reference's
+    leaves."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        _, self.body, self.repeats = layer_pattern(cfg)  # no prefix in the dense family
+        self.is_encdec = cfg.encdec is not None
+        self.is_vlm = cfg.vlm is not None
+
+    # -- params ------------------------------------------------------------
+    def init(self, generator: torch.Generator | None) -> dict:
+        """Random parameters drawn from ``generator``, on its device (truncated
+        normals at scale 0.02, norms at one); ``None`` gives the same pytree
+        as ``meta`` tensors."""
+        cfg, dtype = self.cfg, self.dtype
+        params: dict[str, Any] = {
+            "embed": L.truncnorm_init(generator, (cfg.vocab_padded, cfg.d_model), dtype),
+            "ln_f": L.rmsnorm_init(cfg.d_model, dtype, L.init_device(generator)),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.truncnorm_init(generator, (cfg.d_model, cfg.vocab_padded), dtype)
+        body = []
+        for _ in range(self.repeats):
+            body.append({f"b{j}": _KINDS[kind]["init"](generator, cfg, dtype) for j, kind in enumerate(self.body)})
+        params["body"] = _stack(body)
+        return params
+
+    def param_specs(self) -> dict:
+        """The parameters' pytree as ``meta`` tensors (shapes and dtypes, no
+        storage)."""
+        return self.init(None)
+
+    # -- embedding / head ----------------------------------------------------
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()]
+
+    def _head(self, params, x):
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        logits = (x @ w).float()
+        if self.cfg.vocab_padded > self.cfg.vocab_size:
+            pad = torch.zeros((self.cfg.vocab_padded,), dtype=torch.float32, device=logits.device)
+            pad[self.cfg.vocab_size:] = 1e30
+            logits = logits - pad
+        return logits
+
+    # -- trunk ----------------------------------------------------------------
+    def _trunk(self, params, x, ctx):
+        """Full-seq forward through the body. Returns (x, aux)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        body_fns = [_KINDS[k]["fwd"] for k in self.body]
+        for r in range(self.repeats):
+            blk = _layer(params["body"], r)
+            for j, fn in enumerate(body_fns):
+                x, aux = fn(blk[f"b{j}"], x, cfg, ctx, aux)
+        return L.rmsnorm(params["ln_f"], x), aux
+
+    # -- public forward --------------------------------------------------------
+    def forward(self, params, batch, ctx=L.NO_CTX):
+        """batch: {"tokens": (B,S) int} → (logits (B,S,V_padded) f32, aux, h)."""
+        x = self._embed(params, batch["tokens"]).to(self.dtype)
+        x = ctx.cons(x, ("batch", "seq", "d_model"))
+        h, aux = self._trunk(params, x, ctx)
+        logits = self._head(params, h)
+        return logits, aux, h
+
+    # -- serving ---------------------------------------------------------------
+    def init_cache(self, batch: int, s_max: int, device=None):
+        """The decode cache, zeros, on ``device`` (``None``: the card):
+        ``{"body": {"b0": {"k", "v"}}}`` with leaves (n_layers, batch, s_max,
+        kv_heads, head_dim)."""
+        cfg, dtype, device = self.cfg, self.dtype, resolve_device(device)
+        caches = [{f"b{j}": _kv_cache_init(cfg, batch, s_max, dtype, device) for j, _k in enumerate(self.body)}
+                  for _ in range(self.repeats)]
+        return {"body": _stack(caches)}
+
+    def cache_dims(self):
+        return {"body": {f"b{j}": {k: (None, *d) for k, d in _kv_cache_dims().items()}
+                         for j, _k in enumerate(self.body)}}
+
+    def decode_step(self, params, cache, tokens, pos, ctx=L.NO_CTX):
+        """tokens: (B,1) int; pos: (B,) int → (logits (B,1,V), cache), the
+        cache written in place at ``pos``."""
+        cfg = self.cfg
+        x = self._embed(params, tokens).to(self.dtype)
+        dec_fns = [_KINDS[k]["decode"] for k in self.body]
+        for r in range(self.repeats):
+            blk, bcache = _layer(params["body"], r), _layer(cache["body"], r)
+            for j, fn in enumerate(dec_fns):
+                x, _ = fn(blk[f"b{j}"], x, cfg, bcache[f"b{j}"], pos, ctx)
+        logits = self._head(params, L.rmsnorm(params["ln_f"], x))
+        return logits, cache
+
+    def prefill(self, params, batch, ctx=L.NO_CTX):
+        """Run the full prompt, returning ``forward``'s outputs."""
+        return self.forward(params, batch, ctx)
+
+    @property
+    def supports_prefill(self) -> bool:
+        """True iff every layer kind can emit its cache rows from one
+        full-sequence pass."""
+        if self.is_encdec or self.is_vlm:
+            return False
+        return all(_KINDS[k].get("prefill") is not None for k in self.body)
+
+    def prefill_into_cache(self, params, cache, tokens, slot: int, ctx=L.NO_CTX):
+        """One-pass prompt prefill into a decode-slot cache row.
+
+        ``tokens``: (1, L) int, the prompt right-padded to a length bucket
+        L ≤ Smax. Runs the full-sequence trunk once, writing every layer's
+        cache content for positions [0, L) into row ``slot`` of the batched
+        decode ``cache`` (in place), and returns ``(logits (1, L, V_padded),
+        cache)``. Rows of the padded tail carry garbage K/V, which the decode
+        path never attends (its mask is ``t <= pos`` and the per-token decode
+        overwrites position p before attending it).
+        """
+        if not self.supports_prefill:
+            raise NotImplementedError(
+                f"{self.cfg.name}: one-pass prefill needs per-position cache "
+                "rows in every layer (recurrent/enc-dec/VLM models refeed)"
+            )
+        cfg = self.cfg
+        x = self._embed(params, tokens).to(self.dtype)
+        x = ctx.cons(x, ("batch", "seq", "d_model"))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        pf_fns = [_KINDS[k]["prefill"] for k in self.body]
+        for r in range(self.repeats):
+            blk, bcache = _layer(params["body"], r), _layer(cache["body"], r)
+            for j, fn in enumerate(pf_fns):
+                x, aux, content = fn(blk[f"b{j}"], x, cfg, ctx, aux)
+                _write_slot(bcache[f"b{j}"], content, slot)
+        logits = self._head(params, L.rmsnorm(params["ln_f"], x))
+        return logits, cache
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    """The port's model for ``cfg``. Only the dense family is ported: the
+    others raise ``NotImplementedError`` naming the ROADMAP item they wait
+    for."""
+    what = [name for name, on in (("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+                                  ("ssm", cfg.ssm is not None), ("encdec", cfg.encdec is not None),
+                                  ("vlm", cfg.vlm is not None), ("mtp", cfg.mtp)) if on]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: the {', '.join(what)} layers are not ported yet; they wait for "
+            + _NOT_PORTED.format(what=", ".join(what))
+        )
+    return Model(cfg)

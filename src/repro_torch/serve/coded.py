@@ -1,22 +1,27 @@
 """Coded straggler-tolerant serving: LCC-protected decode state.
 
 The paper's all-to-all encode exists so decentralized computation survives
-failures; this module protects a serving engine's decode-path state with
-it. The state (every layer's KV-cache slab + the per-slot decode state, any
-``(cache, state)`` pytree of tensors) is flattened to field limbs, sharded K
-ways, and encoded into **N = K + R coded replicas** with the padded
-Lagrange/Vandermonde generator (``repro_torch.coded.lcc_encode`` — one
-universal prepare-and-shoot all-to-all encode; with ``collective=True`` the
-same generator runs as the compiled round schedule of
-``dist.collectives.ps_encode``, the N hosts being the tensor's first axis).
-Each coded shard is owned by one simulated "host".
+failures; this module wires it into the continuous-batching engine
+(``ContinuousEngine.serve(guard=)``). The decode-path state — every layer's
+KV-cache slab and the per-slot decode state (last tokens, positions, the
+bool ``active`` mask, token buffers, counters and the int32 ``rng`` seed
+pairs of the sampling streams), or any ``(cache, state)`` pytree of tensors
+— is flattened to field limbs, sharded K ways, and encoded into **N = K + R
+coded replicas** with the padded Lagrange/Vandermonde generator
+(``repro_torch.coded.lcc_encode`` — one universal prepare-and-shoot
+all-to-all encode; with ``collective=True`` the same generator runs as the
+compiled round schedule of ``dist.collectives.ps_encode``, the N hosts being
+the tensor's first axis). Each coded shard is owned by one simulated "host".
 
 A :class:`FaultInjector` kills hosts at scheduled decode ticks (or a
-:class:`ProcessHostPool` host — a real OS process holding its shard —
-is SIGKILLed). :class:`CodedServeGuard` reconstructs the exact snapshot
-state from any K of the surviving shards via Lagrange interpolation
-(``repro_torch.coded.lcc_decode``, host numpy). Wiring the guard into the
-port's continuous-batching engine waits for the engine's port.
+:class:`ProcessHostPool` host — a real OS process holding its shard — is
+SIGKILLed). The engine detects the fault at the next chunk sync,
+:class:`CodedServeGuard` reconstructs the exact chunk-start state from any
+K of the surviving shards via Lagrange interpolation
+(``repro_torch.coded.lcc_decode``, host numpy), and the chunk replays
+deterministically — requests in flight on the dead host are **recovered,
+not dropped**, and the emitted token stream is bit-identical to an unfailed
+run.
 
 Observability: ``serve.recoveries`` (hosts recovered from), ``serve.
 recovery_us`` (reconstruction latency histogram), ``serve.snapshots``,
@@ -349,7 +354,9 @@ class CodedServeGuard:
 
     def snapshot(self, cache, state, tick: int) -> None:
         """Encode the decode-path state ((cache, state) pytree → limbs →
-        K shards → N coded shards) and hand shard j to host j."""
+        K shards → N coded shards) and hand shard j to host j. Every leaf
+        is read by its bytes: bf16 slabs, int32 counters and seeds, the
+        bool mask as one byte a flag."""
         shards, meta = shard_state_limbs((cache, state), self.K, self.device)
         if self._collective is None:
             coded = lcc_encode(self.plan, shards)

@@ -45,6 +45,9 @@ def test_the_slice_is_all_there():
         "topo.autotune", "obs", "obs.trace", "obs.metrics", "obs.export", "obs.feed",
         "tree", "coded", "coded.rs_checkpoint", "coded.lagrange_compute", "coded.gradient_coding",
         "train", "train.checkpoint", "train.elastic", "serve", "serve.coded",
+        "configs", "configs.base", "configs.registry", "configs.qwen3_1_7b", "models", "models.layers",
+        "models.model", "models.inputs", "train.train_loop", "serve.scheduler", "serve.traffic", "serve.engine",
+        "launch", "launch.serve",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -70,7 +73,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize(
-    "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first"]
+    "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first",
+              "models-first", "configs-first", "launch-first"]
 )
 def test_import_order_does_not_matter(order):
     first = {
@@ -81,12 +85,16 @@ def test_import_order_does_not_matter(order):
         "obs-first": "repro_torch.obs",
         "coded-first": "repro_torch.coded",
         "serve-first": "repro_torch.serve",
+        "models-first": "repro_torch.models",
+        "configs-first": "repro_torch.configs",
+        "launch-first": "repro_torch.launch.serve",
     }[order]
     r = run_fresh(f"""
         import importlib
         importlib.import_module({first!r})
         import repro_torch.kernels.butterfly.ops, repro_torch.core, repro_torch.dist, repro_torch.convert
         import repro_torch.topo, repro_torch.obs, repro_torch.coded, repro_torch.train, repro_torch.serve
+        import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
         print("ok")
     """)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -127,6 +135,10 @@ ENTRY_POINTS = {
     "restore_checkpoint": "restore_checkpoint((save_checkpoint((d := tempfile.TemporaryDirectory()).name, "
                           "{'a': torch.zeros(1)}, 0), d.name)[1], {'a': torch.zeros(1)})",
     "state_from_reference": "state_from_reference({'a': np.zeros(3)})",
+    "make_batch": "make_batch(smoke_config('qwen3-1.7b'), 1, 4)",
+    "init_cache": "build_model(smoke_config('qwen3-1.7b')).init_cache(1, 8)",
+    "params_from_reference": "params_from_reference((m := build_model(smoke_config('qwen3-1.7b'))).param_specs(), m)",
+    "launch.serve": "serve_main(['--arch', 'qwen3-1.7b', '--smoke'])",
 }
 
 
@@ -141,7 +153,10 @@ def test_entry_point_with_device_none_raises_without_a_card(name):
         from repro_torch import a2a_encode, plan_for, ir_encode, ps_encode, butterfly, M31
         from repro_torch.dist import allgather_encode, hierarchical_encode, multilevel_encode
         from repro_torch.kernels.gf_matmul.ops import encode_direct
-        from repro_torch.convert import state_from_reference, to_tensor
+        from repro_torch.configs import smoke_config
+        from repro_torch.convert import params_from_reference, state_from_reference, to_tensor
+        from repro_torch.launch.serve import main as serve_main
+        from repro_torch.models import build_model, make_batch
         from repro_torch.coded import (build_lcc, build_parity_plan, encode_parity, encode_parity_collective,
                                        lcc_encode, lcc_encode_collective, shard_state_limbs, state_to_limbs)
         from repro_torch.serve import CodedServeGuard
