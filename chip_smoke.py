@@ -89,10 +89,29 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 numpy inside it), prefill ms per bucket, one decode tick's ms,
                 the idle share of a profiled decode chunk, the launches and
                 the peak device bytes.
-8. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path, the coded path and the serve path, error, time, bound and plain
-   time; the card's name and power limit; and last ``{"ok": true, "device":
-   {...}}``.
+8. ``train``    training of Qwen3-1.7B, with its own launch counts: (a) six
+                steps of ``launch.train.main`` at full width and depth (28
+                layers, bf16 weights drawn on the card from the seed, float32
+                AdamW moments, ``remat="block"``, batch 8 x 256 synthetic
+                tokens, the launcher's defaults), with ``--coded-every 0``:
+                a snapshot of this 17 GB state would need 43x its bytes on
+                the card; each step's loss and grad norm, the median step
+                wall, tokens/s, peak device bytes, the state's bytes, and one
+                step and one ``apply_updates`` under the profiler (busy, idle
+                share, ms by kind); (b) the float32 smoke config, three steps
+                on the card against the CPU from the same parameters and
+                batches, within stated tolerances; (c) the resume of the
+                reference's system test at its own cut
+                (``smoke_config("qwen3-1.7b").replace(n_layers=1)``): six
+                steps uninterrupted against three, ``CodedStateGuard(K=8)``
+                snapshot, ``fail_and_recover([1, 4, 6])`` and three more, and
+                against a disk checkpoint restored into three more, all bit
+                for bit, with the snapshot's ``gf_matmul`` shape among phase
+                3's.
+9. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path, the coded path, the serve path and the train path, error, time,
+   bound and plain time; the card's name and power limit; and last ``{"ok":
+   true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -161,7 +180,19 @@ from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
 from repro_torch.serve.scheduler import bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    OptConfig,
+    SyntheticLM,
+    apply_updates,
+    init_state,
+    make_train_step,
+    restore_checkpoint,
+    save_checkpoint,
+    state_specs,
+)
 from repro_torch.train import elastic  # noqa: E402
+from repro_torch.train.data import to_device  # noqa: E402
 from repro_torch.train.elastic import CodedStateGuard  # noqa: E402
 from repro_torch.train.train_loop import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.topo import (  # noqa: E402
@@ -824,13 +855,13 @@ def kernel_kind(key: str) -> str:
     return "elementwise"
 
 
-def profile_encode(name: str, fn, reps: int, top: int = 6) -> dict:
+def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> dict:
     """``reps`` encodes under ``torch.profiler``: wall and device-busy ms an
-    encode, the idle share, device time by kind of kernel, and the busiest
-    device kernels by name. Busy time is the union of the device intervals,
-    so kernels that ran at once on two streams count once; it can exceed
-    neither the kernels' sum nor the wall time, and the run fails if it
-    does (rows counted twice)."""
+    encode, the idle share, device time by kind of kernel (``kind`` names a
+    kernel's kind), and the busiest device kernels by name. Busy time is the
+    union of the device intervals, so kernels that ran at once on two streams
+    count once; it can exceed neither the kernels' sum nor the wall time, and
+    the run fails if it does (rows counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -871,11 +902,12 @@ def profile_encode(name: str, fn, reps: int, top: int = 6) -> dict:
     check(busy <= wall, f"{name}: device busy {busy:.3f} ms exceeds the wall time {wall:.3f} ms")
     by_kind: dict = {}
     for key, ms, _ in rows:
-        by_kind[kernel_kind(key)] = by_kind.get(kernel_kind(key), 0.0) + ms
+        by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + ms
     return {
         "wall_ms": wall,
         "device_busy_ms": busy,
         "device_kernel_sum_ms": kernel_sum,
+        "device_kernels_launched": sum(c for _, _, c in rows),
         "idle_share": 1.0 - busy / wall,
         "ms_by_kind": by_kind,
         "device_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:top]],
@@ -1584,6 +1616,219 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training of Qwen3-1.7B
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+# (a): the launcher at its defaults (batch 8 x seq 256, lr 3e-4) for six steps
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "6", "--coded-every", "0"]
+TRAIN_LOSS_SLACK = 1.5  # step 0's loss within this of ln(vocab): random weights guess uniformly
+# (b): the float32 smoke config on the card against the CPU
+SMALL_TRAIN_STEPS, SMALL_TRAIN_BATCH, SMALL_TRAIN_SEQ = 3, 8, 64
+# The card and the CPU sum in other orders, so AdamW's first step (from zero
+# moments, mhat / sqrt(vhat) = sign(g)) may move an element whose gradient
+# lies within float error of 0 by 2 lr the other way: every parameter lies
+# within 2 x (the run's summed lr) x SMALL_STEP_SLACK + SMALL_TIGHT of the
+# CPU's, at most SMALL_FRACTION of a leaf's elements beyond SMALL_TIGHT; the
+# moments within SMALL_MOMENT_SCALE of the leaf's largest value; each
+# step's loss within SMALL_LOSS_ATOL. (Against the reference on the CPU the
+# port measured at most 2e-5, 0 % beyond 1e-5, 4e-5 and 1.4e-6.)
+SMALL_STEP_SLACK, SMALL_TIGHT, SMALL_FRACTION = 1.05, 1e-5, 0.01
+SMALL_MOMENT_SCALE, SMALL_LOSS_ATOL = 1e-3, 1e-5
+# (c): tests/test_system.py at its own cut, one layer of the smoke config
+RESUME_OPT = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+RESUME_K, RESUME_LOST, RESUME_BATCH, RESUME_SEQ = 8, [1, 4, 6], 2, 16
+
+
+def train_kernel_kind(key: str) -> str:
+    """The kind of a device kernel of a train step, by its profiler name."""
+    k = key.lower()
+    if any(w in k for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")):
+        return "matmul"
+    if "reduce" in k:
+        return "reductions"
+    return kernel_kind(key)
+
+
+def resume_model():
+    return build_model(smoke_config(TRAIN_ARCH).replace(n_layers=1))
+
+
+def train_config() -> dict:
+    """The train phase's configuration, host-side: the resume's state spec,
+    its shard width and the kernel call of one snapshot (``runs``)."""
+    model = resume_model()
+    spec = {"params": model.param_specs(), "opt": state_specs(RESUME_OPT, model.param_specs())}
+    plan = build_parity_plan(RESUME_K)
+    S = -(-limb_count(spec) // RESUME_K)
+    return {"name": "train_resume", "q": M31, "K": RESUME_K, "S": S, "spec": spec, "plan": plan,
+            "runs": {"CodedStateGuard.snapshot": [("gf_matmul", (RESUME_K, plan.ps_plan.n, plan.ps_plan.m, S))]}}
+
+
+def train_full_width(dev) -> dict:
+    """(a): six steps of the launcher at Qwen3-1.7B's full width and depth,
+    then one more step and one ``apply_updates`` under the profiler."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    run = train_main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model, ocfg, state, hist = run["model"], run["opt_cfg"], run["state"], run["history"]
+    cfg = model.cfg
+    params, opt = state["params"], state["opt"]
+    check(cfg.n_layers == 28 and cfg.d_model == 2048 and cfg.vocab_padded == 152064 and cfg.remat == "block"
+          and tuple(params["body"]["b0"]["mlp"]["w_up"].shape) == (28, 2048, 6144), "train: not Qwen3-1.7B's width")
+    check(all(t.is_cuda for t in tree.leaves(state)) and params["embed"].dtype == torch.bfloat16
+          and opt["m"]["embed"].dtype == torch.float32, "train: the state is not bf16 weights, float32 moments on the card")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == 6 and all(np.isfinite(losses)), f"train: losses {losses}")
+    uniform = float(np.log(cfg.vocab_size))
+    check(abs(losses[0] - uniform) <= TRAIN_LOSS_SLACK,
+          f"train: step 0's loss {losses[0]} is not within {TRAIN_LOSS_SLACK} of ln(vocab) = {uniform}")
+    stamps = [0.0] + [h["s"] for h in hist]
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[1:])
+    batch, seq = 8, 256
+    by = lambda t: sum(x.numel() * x.element_size() for x in tree.leaves(t))
+    record = {"arch": cfg.name, "argv": TRAIN_ARGV, "batch": batch, "seq": seq, "params": sum(
+        t.numel() for t in tree.leaves(params)), "state_bytes": {"params": by(params), "m": by(opt["m"]),
+                                                                 "v": by(opt["v"])},
+              "losses": losses, "grad_norms": [h["grad_norm"] for h in hist], "step_ms": step_ms,
+              "median_step_ms_2_to_6": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
+              "ln_vocab": uniform, "launcher_s": run["seconds"], "run_s": run_s, "held_bytes": held, "peak_bytes": peak,
+              "coded_every": 0,
+              "why_no_snapshot": "a snapshot adds 43x its state's bytes: 43 x 17.2 GB exceeds the card"}
+    ds = SyntheticLM(cfg)
+    b = to_device(ds.batch(len(hist), batch, seq), dev)
+    step = make_train_step(model, ocfg)
+    step(params, opt, b)
+    record["step_profile"] = profile_encode("train/step", lambda: step(params, opt, b), 1, top=8,
+                                            kind=train_kernel_kind)
+    # the optimizer alone, on gradients of the parameters' shapes and dtypes
+    record["apply_updates_profile"] = profile_encode("train/apply_updates",
+                                                     lambda: apply_updates(ocfg, params, params, opt), 1, top=4,
+                                                     kind=train_kernel_kind)
+    # the profiler slows the host: the busy time over an unprofiled step's wall estimates its busy share
+    record["busy_share_of_median_step"] = record["step_profile"]["device_busy_ms"] / median_ms
+    del run, state, params, opt, b
+    torch.cuda.empty_cache()
+    return record
+
+
+def train_small_vs_cpu(dev) -> dict:
+    """(b): the float32 smoke config, SMALL_TRAIN_STEPS steps on the card and
+    on the CPU from the same parameters and batches."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "train/small: TF32 matmuls are on")
+    model = build_model(smoke_config(TRAIN_ARCH).replace(dtype="float32"))
+    cpu_params = model.init(torch.Generator().manual_seed(SEED + 1100))
+    ds = SyntheticLM(model.cfg)
+    step = make_train_step(model, RESUME_OPT)
+    runs = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = tree.map(lambda t: t.to(d), cpu_params)
+        st = init_state(RESUME_OPT, p)
+        losses, lrs = [], []
+        for s in range(SMALL_TRAIN_STEPS):
+            p, st, m = step(p, st, to_device(ds.batch(s, SMALL_TRAIN_BATCH, SMALL_TRAIN_SEQ), d))
+            losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
+        check(all(t.device.type == d.type for t in tree.leaves((p, st))), f"train/small: the {where} run left {d}")
+        runs[where] = (p, st, losses, lrs)
+    (cp, cs, cl, lrs), (gp, gs, gl, _) = runs["cpu"], runs["card"]
+    bound_p = 2 * sum(lrs) * SMALL_STEP_SLACK + SMALL_TIGHT
+    worst = {"params": 0.0, "params_share_beyond_tight": 0.0, "moments_of_scale": 0.0,
+             "loss": max(abs(a - b) for a, b in zip(cl, gl))}
+    for a, b in zip(tree.leaves(gp), tree.leaves(cp)):
+        d = (a.cpu() - b).abs()
+        worst["params"] = max(worst["params"], float(d.max()))
+        worst["params_share_beyond_tight"] = max(worst["params_share_beyond_tight"],
+                                                 float((d > SMALL_TIGHT).float().mean()))
+    for a, b in zip(tree.leaves((gs["m"], gs["v"])), tree.leaves((cs["m"], cs["v"]))):
+        worst["moments_of_scale"] = max(worst["moments_of_scale"],
+                                        float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+    tol = {"params": bound_p, "params_share_beyond_tight": SMALL_FRACTION, "tight": SMALL_TIGHT,
+           "moments_of_scale": SMALL_MOMENT_SCALE, "loss": SMALL_LOSS_ATOL}
+    record = {"config": model.cfg.name, "dtype": "float32", "steps": SMALL_TRAIN_STEPS,
+              "batch": SMALL_TRAIN_BATCH, "seq": SMALL_TRAIN_SEQ, "tf32": False, "losses_cpu": cl,
+              "losses_card": gl, "max_err": worst, "tolerance": tol}
+    check(int(gs["step"]) == int(cs["step"]) == SMALL_TRAIN_STEPS
+          and all(worst[k] <= tol[k] for k in worst), f"train/small: the card and the CPU differ: {record}")
+    return record
+
+
+def train_resume(tcfg: dict, dev) -> dict:
+    """(c): tests/test_system.py on the card at its own cut: six steps
+    uninterrupted against three, a coded snapshot, the recovery of three
+    lost replicas and three more, and against three, a disk checkpoint
+    restored and three more, all bit for bit."""
+    model = resume_model()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 1200))
+    ostate = init_state(RESUME_OPT, params)
+    step = make_train_step(model, RESUME_OPT)
+    ds = SyntheticLM(model.cfg)
+
+    def run(p, o, steps, start=0):
+        for s in range(start, start + steps):
+            p, o, _ = step(p, o, to_device(ds.batch(s, RESUME_BATCH, RESUME_SEQ), dev))
+        return {"params": p, "opt": o}
+
+    want = run(params, ostate, 6)
+    again = run(params, ostate, 6)
+    check(same_bits(again, want), "train/resume: two uninterrupted runs on the card differ")
+    mid = run(params, ostate, 3)
+    guard = CodedStateGuard(K=RESUME_K, device=dev)
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    guard.snapshot(mid, step=3)
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    counted = check_launches("train_resume", "CodedStateGuard.snapshot", before, tcfg["runs"]["CodedStateGuard.snapshot"])
+    check(guard._shards.shape == (RESUME_K, tcfg["S"]),
+          f"train/resume: shards {guard._shards.shape}, not the {tcfg['S']} limbs phase 3 held")
+    host_ms: list = []
+    with timed(elastic, "recover_lost", host_ms):
+        t0 = time.perf_counter()
+        recovered, at = guard.fail_and_recover(RESUME_LOST)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t0) * 1e3
+    check(at == 3 and same_bits(recovered, mid), f"train/resume: fail_and_recover({RESUME_LOST}) is not bit-exact")
+    check(same_bits(run(recovered["params"], recovered["opt"], 3, start=3), want),
+          "train/resume: three steps after the coded recovery differ from the uninterrupted run")
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, mid, step=3)
+        restored, at = restore_checkpoint(d, tcfg["spec"], device=dev)
+    check(at == 3 and same_bits(restored, mid), "train/resume: the checkpoint restored other bits")
+    check(same_bits(run(restored["params"], restored["opt"], 3, start=3), want),
+          "train/resume: three steps after the disk restore differ from the uninterrupted run")
+    return {"config": model.cfg.name, "cut": "n_layers=1 of the smoke config, tests/test_system.py's own",
+            "opt": dataclasses.asdict(RESUME_OPT), "K": RESUME_K, "lost": RESUME_LOST,
+            "state_bytes": spec_bytes(tcfg["spec"]), "limbs_a_replica": tcfg["S"], "launches": counted,
+            "snapshot_ms": snapshot_ms, "recover_ms": recover_ms, "recover_lost_host_numpy_ms": host_ms[0],
+            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+            "coded_resume_bit_exact": True, "disk_resume_bit_exact": True}
+
+
+def train_phase(tcfg: dict, dev) -> tuple[dict, dict]:
+    """Training (``tcfg`` from :func:`train_config`), counted on its own:
+    (a) full width, (b) the card against the CPU, (c) the resumes. Returns
+    (launches, record)."""
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_cuda.launches = 0
+    record = {"full_width": train_full_width(dev)}
+    check(launches() == (0, 0), "train: the unguarded steps launched a hand kernel")
+    record["small_vs_cpu"] = train_small_vs_cpu(dev)
+    record["resume"] = train_resume(tcfg, dev)
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    check(counted["gf_matmul"] > 0, "the train path never launched gf_matmul")
+    record["launches"] = counted
+    torch.cuda.empty_cache()
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -1610,7 +1855,8 @@ def main() -> int:
     configs = make_configs()
     coded_cfgs = coded_configs()
     serve_cfg = serve_config()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg], P)
+    train_cfg = train_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg], P)
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
@@ -1681,11 +1927,15 @@ def main() -> int:
     serve_launches, served = serve_phase(serve_cfg, dev)
     say("serve", card=smi, **served)
 
+    # phase 8: training at full width, and the resumes at the reference test's cut, counted on its own
+    train_launches, trained = train_phase(train_cfg, dev)
+    say("train", card=smi, **trained)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
-                           + serve_launches[row["name"]])
+                           + serve_launches[row["name"]] + train_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -11,7 +11,8 @@ representation). :func:`state_from_reference` carries a whole state pytree
 of the reference's arrays across as tensors, bfloat16 leaves bit for bit, so
 that both packages encode the same bits; :func:`params_from_reference` does
 the same for a model's parameters, checked leaf by leaf against the port's
-model.
+model, and :func:`train_state_from_reference` for a train state's parameters
+and optimizer state.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ from .core.field import to_numpy, to_tensor  # noqa: F401  (re-exported)
 from .core.ir import CommRound, LocalOp, ScheduleIR, Transfer
 from .core.schedule import ButterflyPlan, DrawLoosePlan, PrepareShootPlan
 from .topo import hierarchical, model
+from .train.optimizer import state_specs
 
-__all__ = ["from_reference", "params_from_reference", "state_from_reference", "to_tensor", "to_numpy"]
+__all__ = ["from_reference", "params_from_reference", "state_from_reference", "to_tensor", "to_numpy",
+           "train_state_from_reference"]
 
 _PLAN_CLASSES = {
     cls.__name__: cls
@@ -138,22 +141,39 @@ def state_from_reference(state, device=None):
     return tree.map(lambda leaf: leaf_tensor(leaf).to(dev), state)
 
 
+def _checked_from_reference(state, specs, what: str, dev):
+    """``state`` (arrays) as tensors on ``dev``, after checking its structure,
+    every shape and every dtype against ``specs`` (meta tensors)."""
+    got, want = tree.structure(state), tree.structure(specs)
+    if got != want:
+        raise ValueError(f"{what} tree {got} is not the model's {want}")
+    names = list(tree.flatten_with_names(specs))
+    out = []
+    for name, leaf, spec in zip(names, tree.leaves(state), tree.leaves(specs)):
+        t = leaf_tensor(leaf)
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model has {tuple(spec.shape)} {spec.dtype}")
+        out.append(t.to(dev))
+    return tree.unflatten(want, out)
+
+
 def params_from_reference(params, model, device=None):
     """The reference's parameter pytree of ``model``'s configuration (numpy
     arrays, or anything with ``__array__``) as the port's, on ``device``
     (``None``: the card): the same nested dicts with the stacked ``body``
     leaves, bfloat16 carried bit for bit. Raises ``ValueError`` unless the
     structure, every shape and every dtype equal ``model.param_specs()``."""
+    return _checked_from_reference(params, model.param_specs(), "parameter", resolve_device(device))
+
+
+def train_state_from_reference(state, model, opt_cfg, device=None):
+    """The reference's train state ``{"params", "opt"}`` of ``model`` under
+    ``opt_cfg`` as the port's, on ``device`` (``None``: the card), bits
+    unchanged (bfloat16 moments too). Raises ``ValueError`` unless ``opt``
+    has the structure, shapes and dtypes of ``state_specs(opt_cfg, ...)``."""
     dev = resolve_device(device)
-    specs = model.param_specs()
-    got, want = tree.structure(params), tree.structure(specs)
-    if got != want:
-        raise ValueError(f"parameter tree {got} is not the model's {want}")
-    names = list(tree.flatten_with_names(specs))
-    out = []
-    for name, leaf, spec in zip(names, tree.leaves(params), tree.leaves(specs)):
-        t = leaf_tensor(leaf)
-        if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model has {tuple(spec.shape)} {spec.dtype}")
-        out.append(t.to(dev))
-    return tree.unflatten(tree.structure(specs), out)
+    if not isinstance(state, dict) or sorted(state) != ["opt", "params"]:
+        raise ValueError('a train state is {"params": ..., "opt": ...}')
+    specs = state_specs(opt_cfg, model.param_specs())
+    return {"params": params_from_reference(state["params"], model, dev),
+            "opt": _checked_from_reference(state["opt"], specs, "optimizer state", dev)}

@@ -19,7 +19,7 @@ Everything runs on the card unless ``--device cpu`` asks for the CPU. The
 weights are random from seed 0 unless ``--ckpt`` names a checkpoint
 directory (the reference's format, ``train.checkpoint``). Only a ``1x1``
 mesh runs: a larger one waits for the sharding substrate (ROADMAP.md queue
-A item 9).
+A3).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def main(argv=None):
         ap.error("--kill requires --coded K,R")
     if args.mesh != "1x1":
         ap.error(f"--mesh {args.mesh}: only 1x1 runs; a mesh waits for the sharding substrate "
-                 "(ROADMAP.md queue A item 9)")
+                 "(ROADMAP.md queue A3)")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)

@@ -13,7 +13,7 @@ and the SwiGLU MLP. Conventions follow the reference step by step:
   order of combination as the reference, not PyTorch's fused attention;
 * ``Ctx`` is the reference's sharding context; on one device ``cons`` is
   the identity and there is nothing to carry (the sharding substrate is
-  ROADMAP queue A item 9).
+  ROADMAP.md queue A3).
 
 The MoE block and the GELU MLP wait for a later slice.
 """

@@ -12,6 +12,7 @@ Public surface (used by train/, serve/, launch/):
     model.init(generator)   → params (on the generator's device)
     model.param_specs()     → the params' pytree as ``meta`` tensors
     model.forward(params, batch, ctx)          → (logits, aux, hidden)
+    model.loss(params, batch, ctx)             → (loss, {"ce", "aux", "loss"})
     model.init_cache(batch, s_max) / model.cache_dims()
     model.prefill(params, batch, ctx)          → forward
     model.decode_step(params, cache, tokens, pos, ctx) → (logits, cache)
@@ -29,6 +30,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..configs.base import ModelConfig
@@ -36,7 +38,7 @@ from ..core.field import resolve_device
 from . import layers as L
 
 #: ROADMAP queue A item under which each family that is not ported yet waits
-_NOT_PORTED = "ROADMAP.md queue A item 10 (models: {what})"
+_NOT_PORTED = "ROADMAP.md queue A4 (models: {what})"
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +139,14 @@ def _stack(trees: list):
     return tree.map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _layer(stacked, i: int):
-    """Layer ``i``'s view of a pytree stacked over layers."""
-    return tree.map(lambda a: a[i], stacked)
+def _unstack(stacked) -> list:
+    """Every layer's view of a pytree stacked over layers, each leaf split
+    by one ``unbind`` (writes through a view reach the stacked tensor). Its
+    backward writes the stacked gradient once, where indexing layer by layer
+    would add a zero-filled stacked gradient for every layer."""
+    leaves, treedef = tree.flatten(stacked)
+    per_leaf = [a.unbind(0) for a in leaves]
+    return [tree.unflatten(treedef, views) for views in zip(*per_leaf)]
 
 
 # ---------------------------------------------------------------------------
@@ -199,14 +206,20 @@ class Model(nn.Module):
 
     # -- trunk ----------------------------------------------------------------
     def _trunk(self, params, x, ctx):
-        """Full-seq forward through the body. Returns (x, aux)."""
+        """Full-seq forward through the body. Returns (x, aux). With
+        ``remat="block"`` and autograd recording, each block keeps only its
+        input for the backward pass and runs again there (the reference's
+        ``jax.checkpoint`` of each block)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         body_fns = [_KINDS[k]["fwd"] for k in self.body]
-        for r in range(self.repeats):
-            blk = _layer(params["body"], r)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        for blk in _unstack(params["body"]):
             for j, fn in enumerate(body_fns):
-                x, aux = fn(blk[f"b{j}"], x, cfg, ctx, aux)
+                if remat:
+                    x, aux = checkpoint(fn, blk[f"b{j}"], x, cfg, ctx, aux, use_reentrant=False)
+                else:
+                    x, aux = fn(blk[f"b{j}"], x, cfg, ctx, aux)
         return L.rmsnorm(params["ln_f"], x), aux
 
     # -- public forward --------------------------------------------------------
@@ -217,6 +230,16 @@ class Model(nn.Module):
         h, aux = self._trunk(params, x, ctx)
         logits = self._head(params, h)
         return logits, aux, h
+
+    def loss(self, params, batch, ctx=L.NO_CTX):
+        """Causal LM loss (+ the MoE aux term, zero in the dense family):
+        position t predicts label t + 1; labels below 0 are masked out."""
+        logits, aux, _ = self.forward(params, batch, ctx)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        ce = _xent(logits[:, :-1], labels[:, 1:], mask[:, 1:])
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "loss": total}
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, s_max: int, device=None):
@@ -238,8 +261,7 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(params, tokens).to(self.dtype)
         dec_fns = [_KINDS[k]["decode"] for k in self.body]
-        for r in range(self.repeats):
-            blk, bcache = _layer(params["body"], r), _layer(cache["body"], r)
+        for blk, bcache in zip(_unstack(params["body"]), _unstack(cache["body"])):
             for j, fn in enumerate(dec_fns):
                 x, _ = fn(blk[f"b{j}"], x, cfg, bcache[f"b{j}"], pos, ctx)
         logits = self._head(params, L.rmsnorm(params["ln_f"], x))
@@ -278,13 +300,21 @@ class Model(nn.Module):
         x = ctx.cons(x, ("batch", "seq", "d_model"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         pf_fns = [_KINDS[k]["prefill"] for k in self.body]
-        for r in range(self.repeats):
-            blk, bcache = _layer(params["body"], r), _layer(cache["body"], r)
+        for blk, bcache in zip(_unstack(params["body"]), _unstack(cache["body"])):
             for j, fn in enumerate(pf_fns):
                 x, aux, content = fn(blk[f"b{j}"], x, cfg, ctx, aux)
                 _write_slot(bcache[f"b{j}"], content, slot)
         logits = self._head(params, L.rmsnorm(params["ln_f"], x))
         return logits, cache
+
+
+def _xent(logits, labels, mask):
+    """Masked mean of float32 ``logsumexp - logit[label]`` (padded vocab
+    columns carry -1e30 and drop out of the sum)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,7 +1,9 @@
-# Training-side recovery tiers and the serving half of the train loop: the
-# disk checkpoint in the reference's format, the coded-parity state guard,
-# and the decode/prefill step factories the serving engines run. The
-# optimizer, data pipeline and train step wait for ROADMAP queue A item 11.
+# Training: the optimizer, the synthetic data pipeline, the train step and
+# the serving half of the train loop, and the two recovery tiers (the disk
+# checkpoint in the reference's format, the coded-parity state guard). The
+# sharding functions wait for ROADMAP.md queue A3.
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
+from .data import DataConfig, Prefetcher, SyntheticLM  # noqa: F401
 from .elastic import CodedStateGuard  # noqa: F401
-from .train_loop import make_ctx, make_decode_step, make_prefill_step  # noqa: F401
+from .optimizer import OptConfig, apply_updates, global_norm, init_state, schedule, state_specs  # noqa: F401
+from .train_loop import make_ctx, make_decode_step, make_prefill_step, make_train_step  # noqa: F401

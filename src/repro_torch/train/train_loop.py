@@ -1,20 +1,63 @@
-"""Serve step factories — the serving half of the reference's train loop.
+"""Train and serve step factories.
 
-``make_decode_step`` and ``make_prefill_step`` build the eager callables the
-serving engines run; the reference jit-compiles the same functions. The
-training step (``make_train_step``) and the sharding functions wait for
-ROADMAP queue A items 11 and 9.
+``make_train_step`` builds the eager train step (loss, gradients by
+``torch.autograd``, AdamW); ``make_decode_step`` and ``make_prefill_step``
+the callables the serving engines run. The reference jit-compiles the same
+functions. The sharding functions (``param_shardings`` and the others) wait
+for the sharding substrate (ROADMAP.md queue A3).
+
+Gradient accumulation: ``accum > 1`` splits the batch's leading dim into
+micro-batches and runs them one after the other (the reference's
+``lax.scan``), summing float32 gradients.
 """
 
 from __future__ import annotations
 
+import torch
+
+from .. import tree
 from ..models.layers import NO_CTX, Ctx
+from . import optimizer as opt
 
 
 def make_ctx() -> Ctx:
     """The model context. One device only: the reference's ``(mesh, rules)``
-    wait for the sharding substrate (ROADMAP queue A item 9)."""
+    wait for the sharding substrate (ROADMAP.md queue A3)."""
     return NO_CTX
+
+
+def make_train_step(model, opt_cfg: opt.OptConfig, accum: int = 1):
+    """``(params, opt_state, batch) → (new_params, new_opt_state, metrics)``
+    with ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` in ``metrics``
+    (``ce`` and ``aux`` of the last micro-batch, ``loss`` their mean). The
+    inputs are left as they are. Gradients are taken with respect to the
+    parameter pytree's own leaves, so the state keeps the reference's leaf
+    order and stacked layout."""
+    ctx = make_ctx()
+
+    def train_step(params, opt_state, batch):
+        leaves, treedef = tree.flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        tracked = tree.unflatten(treedef, live)
+        if accum == 1:
+            loss, metrics = model.loss(tracked, batch, ctx)
+            grads = torch.autograd.grad(loss, live)
+        else:
+            micro = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:])) for k, v in batch.items()}
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            loss = 0.0
+            for i in range(accum):
+                l, metrics = model.loss(tracked, {k: v[i] for k, v in micro.items()}, ctx)
+                for acc, g in zip(grads, torch.autograd.grad(l, live)):
+                    acc.add_(g)
+                loss = loss + l.detach()
+            grads = [g / accum for g in grads]
+            loss = loss / accum
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        new_params, new_state, om = opt.apply_updates(opt_cfg, params, tree.unflatten(treedef, grads), opt_state)
+        return new_params, new_state, {**metrics, **om, "loss": loss.detach()}
+
+    return train_step
 
 
 def make_decode_step(model):

@@ -47,7 +47,7 @@ def test_the_slice_is_all_there():
         "train", "train.checkpoint", "train.elastic", "serve", "serve.coded",
         "configs", "configs.base", "configs.registry", "configs.qwen3_1_7b", "models", "models.layers",
         "models.model", "models.inputs", "train.train_loop", "serve.scheduler", "serve.traffic", "serve.engine",
-        "launch", "launch.serve",
+        "launch", "launch.serve", "train.optimizer", "train.data", "launch.train",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -74,7 +74,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first",
-              "models-first", "configs-first", "launch-first"]
+              "models-first", "configs-first", "launch-first", "train-first"]
 )
 def test_import_order_does_not_matter(order):
     first = {
@@ -88,13 +88,14 @@ def test_import_order_does_not_matter(order):
         "models-first": "repro_torch.models",
         "configs-first": "repro_torch.configs",
         "launch-first": "repro_torch.launch.serve",
+        "train-first": "repro_torch.launch.train",
     }[order]
     r = run_fresh(f"""
         import importlib
         importlib.import_module({first!r})
         import repro_torch.kernels.butterfly.ops, repro_torch.core, repro_torch.dist, repro_torch.convert
         import repro_torch.topo, repro_torch.obs, repro_torch.coded, repro_torch.train, repro_torch.serve
-        import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+        import repro_torch.configs, repro_torch.models, repro_torch.launch.serve, repro_torch.launch.train
         print("ok")
     """)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -139,6 +140,11 @@ ENTRY_POINTS = {
     "init_cache": "build_model(smoke_config('qwen3-1.7b')).init_cache(1, 8)",
     "params_from_reference": "params_from_reference((m := build_model(smoke_config('qwen3-1.7b'))).param_specs(), m)",
     "launch.serve": "serve_main(['--arch', 'qwen3-1.7b', '--smoke'])",
+    "launch.train": "train_main(['--arch', 'qwen3-1.7b', '--smoke', '--steps', '1'])",
+    "Prefetcher": "Prefetcher(SyntheticLM(smoke_config('qwen3-1.7b')), 1, 4)",
+    "train_state_from_reference": "train_state_from_reference({'params': (m := build_model(smoke_config("
+                                  "'qwen3-1.7b'))).param_specs(), 'opt': state_specs(OptConfig(), m.param_specs())}, "
+                                  "m, OptConfig())",
 }
 
 
@@ -155,12 +161,15 @@ def test_entry_point_with_device_none_raises_without_a_card(name):
         from repro_torch.kernels.gf_matmul.ops import encode_direct
         from repro_torch.configs import smoke_config
         from repro_torch.convert import params_from_reference, state_from_reference, to_tensor
+        from repro_torch.convert import train_state_from_reference
         from repro_torch.launch.serve import main as serve_main
+        from repro_torch.launch.train import main as train_main
         from repro_torch.models import build_model, make_batch
         from repro_torch.coded import (build_lcc, build_parity_plan, encode_parity, encode_parity_collective,
                                        lcc_encode, lcc_encode_collective, shard_state_limbs, state_to_limbs)
         from repro_torch.serve import CodedServeGuard
         from repro_torch.train import CodedStateGuard, restore_checkpoint, save_checkpoint
+        from repro_torch.train import OptConfig, Prefetcher, SyntheticLM, state_specs
         A = np.arange(64, dtype=np.uint32).reshape(8, 8)
         x = np.arange(24, dtype=np.uint32).reshape(8, 3)
         try:

@@ -117,7 +117,7 @@ def test_smoke_config_and_layer_pattern_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", sorted(set(R_ARCHS) - {"qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b",
                                                         "internlm2-20b"}))
 def test_build_model_refuses_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
         build_model(smoke_config(arch))
 
 
@@ -361,4 +361,4 @@ def test_cache_dims_and_ctx():
                                                "v": (None, "batch", "kv_seq", "kv_heads", "head_dim")}}}
     x = torch.ones(2)
     assert NO_CTX.cons(x, ("batch",)) is x
-    assert make_ctx() is NO_CTX  # one device: nothing to carry until ROADMAP item 9
+    assert make_ctx() is NO_CTX  # one device: nothing to carry until ROADMAP.md queue A3

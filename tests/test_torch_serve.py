@@ -376,7 +376,7 @@ def test_engine_refuses_bad_requests_and_a_mesh(capsys):
     # a mesh is refused where a user can ask for one: the launcher
     with pytest.raises(SystemExit):
         serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--mesh", "2x4"])
-    assert "ROADMAP.md queue A item 9" in capsys.readouterr().err
+    assert "ROADMAP.md queue A3" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
