@@ -108,10 +108,30 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 against a disk checkpoint restored into three more, all bit
                 for bit, with the snapshot's ``gf_matmul`` shape among phase
                 3's.
-9. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path, the coded path, the serve path and the train path, error, time,
-   bound and plain time; the card's name and power limit; and last ``{"ok":
-   true, "device": {...}}``.
+9. ``ranks``    the encode as messages between processes: K spawned ranks
+                share the card (each on ``cuda:0``, a gloo group, port groups
+                staged through pinned host memory) and run the entry points of
+                ``repro_torch.dist.ranks`` on their own blocks, inputs from the
+                seed with numpy: at K = 8 and 2^20 elements a processor
+                ``ps_encode_ranks`` p = 1 and 2 (M31), ``butterfly_ranks``
+                forward then inverse (NTT), ``hierarchical_encode_ranks`` 4 × 2,
+                ``multilevel_encode_ranks`` 2 × 2 × 2, ``ps_encode_ranks`` with
+                ``pipeline="pipeline"`` and ``allgather_encode_ranks``; at the
+                coded cells' widths ``lcc_encode_ranks`` (N = 8: K = 6, R = 2,
+                39,148,204 limbs a shard) and, on a second pool of 16 ranks,
+                ``ps_encode_ranks`` at K = 16 and ``encode_parity_ranks`` flat
+                and (4, 4) (15,730,001 limbs a replica). Every rank's block
+                hashes like its row of the one-card executor's output, itself
+                equal to a plain ``x @ A mod q`` on the card; every rank runs
+                the budget, on the card, with the hand kernels, whose launches
+                the ranks count; each rank's median wall of 3 (after a
+                barrier) and, from one traced call, the wire part (round spans)
+                and the device part (LocalOp spans). Phase 3 holds and times
+                the kernels at the ranks' batch-1 shapes.
+10. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path, the coded path, the serve path, the train path and the ranks,
+   error, time, bound and plain time; the card's name and power limit; and
+   last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -121,29 +141,43 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import hashlib
 import json
+import math
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.coded import gradient_coding  # noqa: E402
 from repro_torch.configs import get, smoke_config  # noqa: E402
-from repro_torch.coded.lagrange_compute import build_lcc, lcc_decode, lcc_encode, lcc_generator  # noqa: E402
+from repro_torch.coded.lagrange_compute import (  # noqa: E402
+    build_lcc,
+    lcc_decode,
+    lcc_encode,
+    lcc_encode_collective,
+    lcc_encode_ranks,
+    lcc_generator,
+)
 from repro_torch.coded.rs_checkpoint import (  # noqa: E402
     build_parity_plan,
     encode_parity,
     encode_parity_collective,
+    encode_parity_ranks,
     shard_state_limbs,
 )
 from repro_torch.core.draw_loose import decode_dft, decode_draw_loose  # noqa: E402
@@ -152,8 +186,10 @@ from repro_torch.core.field import M31, NTT, Field, shoup_precompute, to_numpy, 
 from repro_torch.core.ir import LocalOp, ir_permute_count  # noqa: E402
 from repro_torch.core.matrices import butterfly_target_matrix, random_matrix  # noqa: E402
 from repro_torch.core.prepare_shoot import encode_oracle  # noqa: E402
-from repro_torch.core.schedule import draw_loose_target_matrix, plan_prepare_shoot  # noqa: E402
+from repro_torch.core.schedule import draw_loose_target_matrix, plan_butterfly, plan_prepare_shoot  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
+    allgather_encode,
+    butterfly,
     expected_hier_permute_count,
     expected_multilevel_permute_count,
     expected_permute_count,
@@ -161,6 +197,14 @@ from repro_torch.dist.collectives import (  # noqa: E402
     ir_encode,
     multilevel_encode,
     ps_encode,
+)
+from repro_torch.dist.ranks import (  # noqa: E402
+    allgather_encode_ranks,
+    butterfly_ranks,
+    hierarchical_encode_ranks,
+    ir_encode_ranks,
+    multilevel_encode_ranks,
+    ps_encode_ranks,
 )
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain  # noqa: E402
@@ -180,6 +224,7 @@ from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
 from repro_torch.serve.scheduler import bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     OptConfig,
@@ -423,10 +468,13 @@ def draw_loose_calls(plan, P: int) -> list[tuple]:
     return calls
 
 
-def ir_kernel_calls(ir, P: int) -> list[tuple]:
+def ir_kernel_calls(ir, P: int, batch: int | None = None) -> list[tuple]:
     """The kernel calls ``ir_encode(kernels="cuda")`` makes for ``ir``: a
     LocalOp with one general row (not uniformly 0 or 1 across processors) is
-    one butterfly_mac over its input slots, with several one gf_matmul_batched."""
+    one butterfly_mac over its input slots, with several one gf_matmul_batched.
+    ``batch`` is the processors a launch covers: all ``ir.K`` on one card
+    (``None``), 1 on each rank of ``ir_encode_ranks``."""
+    batch = ir.K if batch is None else batch
     calls = []
     for step in ir.steps:
         if not isinstance(step, LocalOp):
@@ -438,9 +486,9 @@ def ir_kernel_calls(ir, P: int) -> list[tuple]:
             if not (np.all(c[:, i] == 0, axis=0) | np.all(c[:, i] == 1, axis=0)).all()
         )
         if general == 1:
-            calls.append(("butterfly_mac", (c.shape[2], ir.K, P)))
+            calls.append(("butterfly_mac", (c.shape[2], batch, P)))
         elif general > 1:
-            calls.append(("gf_matmul", (ir.K, general, c.shape[2], P)))
+            calls.append(("gf_matmul", (batch, general, c.shape[2], P)))
     return calls
 
 
@@ -708,13 +756,15 @@ def check_butterfly_mac(dev, shapes: list) -> dict:
         err = max_abs_err(got, want)
         check(same(got, want), f"butterfly_mac != plain at the main-path shape {(radix, B, Pn)}, q={q}")
         del got, want
-        at_shapes.append({
+        record = {
             "shape": f"({radix}, {B}, {Pn})", "q": q, "from": who, "max_abs_err": err,
             "ms": cuda_ms(lambda: butterfly_mac_cuda(parts, tw, tw_sh, q), KERNEL_REPS),
             "plain_ms": cuda_ms(lambda: butterfly_mac_plain(parts, tw, tw_sh, q),
                                 max(3, KERNEL_REPS // 4), warmup=1),
             **bound(4 * (parts.numel() + 2 * tw.numel() + B * Pn), 2 * radix * B * Pn),
-        })
+        }
+        record["share_of_bound"] = record["bound_ms"] / record["ms"]
+        at_shapes.append(record)
         del parts
     return kernel_row("butterfly_mac", cases, worst, at_shapes)
 
@@ -855,27 +905,36 @@ def kernel_kind(key: str) -> str:
     return "elementwise"
 
 
+PROFILE_WINDOW = "chip_smoke.window"  # the profiler's own range around a profiled window
+
+
 def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> dict:
     """``reps`` encodes under ``torch.profiler``: wall and device-busy ms an
     encode, the idle share, device time by kind of kernel (``kind`` names a
-    kernel's kind), and the busiest device kernels by name. Busy time is the
-    union of the device intervals, so kernels that ran at once on two streams
-    count once; it can exceed neither the kernels' sum nor the wall time, and
-    the run fails if it does (rows counted twice)."""
+    kernel's kind), and the busiest device kernels by name. The wall is the
+    profiler's own range around the window (a ``record_function``, closed
+    after the device is synchronised), so wall and device intervals are read
+    from one clock. Busy time is the union of the device intervals, so
+    kernels that ran at once on two streams count once; it can exceed neither
+    the kernels' sum nor the wall time, and the run fails if it does (rows
+    counted twice)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with record_function(PROFILE_WINDOW):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    window = [ev for ev in prof.events() if ev.name == PROFILE_WINDOW and ev.device_type == DeviceType.CPU]
+    check(len(window) == 1, f"{name}: the profiler recorded {len(window)} windows, not one")
+    wall = (window[0].time_range.end - window[0].time_range.start) / 1e3 / reps
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # an operator's row repeats the time of the kernels it launched
+        if ev.device_type != DeviceType.CUDA or ev.key == PROFILE_WINDOW:
+            continue  # an operator's row repeats the time of the kernels it launched; the
+            # window's own range on the device timeline is no kernel
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -887,7 +946,8 @@ def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> 
     # busy time is the union of the device intervals: kernels on two streams
     # (an overlap LocalOp) may run at once, and then the sum exceeds it
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start)
+                   if ev.device_type == DeviceType.CUDA and ev.name != PROFILE_WINDOW
+                   and ev.time_range.end > ev.time_range.start)
     check(bool(spans), f"{name}: the profiler gave no device intervals")
     union_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -1829,6 +1889,351 @@ def train_phase(tcfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the encode as real messages between ranks on the one card
+# ---------------------------------------------------------------------------
+
+RANKS_K = 8  # the reference's own mesh (tests/test_distributed.py:18)
+RANKS_TIMEOUT_S = 120  # a rank's join and every gloo operation; the phase's deadline is a multiple
+RANKS_REPS = 3  # timed calls a configuration on each rank (median), each after a barrier
+RANKS_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
+
+
+def ranks_configs() -> list[dict]:
+    """The rank phase's configurations, host-side and picklable: the mesh,
+    the entry point and its arguments, the payload a rank, the seed, the
+    permutation budget, the matrix the encode computes (``target``) and the
+    kernel calls each rank makes (``runs``, batch 1). K = 8 at 2^20 elements
+    a processor, and the coded cells at their users' widths: LCC serving
+    (N = 8: K = 6, R = 2) at the ``lcc_serve`` shard and the coded checkpoint
+    (K = 16) at the ``coded_checkpoint`` replica."""
+    f_m, f_n = Field(M31), Field(NTT)
+    P = PAYLOAD
+    A8 = np.asarray(random_matrix(f_m, RANKS_K, seed=SEED + 1001))
+    A16 = np.asarray(random_matrix(f_m, 16, seed=SEED + 1002))
+    lplan = build_lcc(SERVE_K, R=SERVE_R)
+    cplan = build_parity_plan(CKPT_K)
+    S_lcc = -(-limb_count(serve_spec()) // SERVE_K)
+    S_ck = -(-limb_count(checkpoint_spec()) // CKPT_K)
+    flat8, flat16 = ((8,), ("enc",), "enc"), ((16,), ("dp",), "dp")
+    bf = plan_butterfly(RANKS_K, 1, NTT)
+    rows = [
+        # name, (mesh shape, axis names, encode axes), kind, q, A, p, pipeline, payload, seed
+        ("ps_p1", flat8, "ps", M31, A8, 1, "", P, SEED + 1100),
+        ("ps_p2", flat8, "ps", M31, A8, 2, "", P, SEED + 1200),
+        ("butterfly", flat8, "butterfly", NTT, None, 1, "", P, SEED + 1300),
+        ("butterfly_inverse", flat8, "butterfly_inverse", NTT, None, 1, "", P, None),
+        ("hierarchical", ((4, 2), ("inter", "intra"), ("inter", "intra")), "hier", M31, A8, 1, "", P, SEED + 1400),
+        ("multilevel", ((2, 2, 2), ("pod", "slice", "chip"), ("pod", "slice", "chip")), "ml", M31, A8, 1, "", P,
+         SEED + 1500),
+        ("pipelined", flat8, "ps", M31, A8, 1, "pipeline", P, SEED + 1600),
+        ("allgather", flat8, "allgather", M31, A8, 1, "", P, SEED + 1700),
+        ("lcc_serve", flat8, "lcc", NTT, None, 1, "", S_lcc, SEED + 1800),
+        ("ps_16", flat16, "ps", M31, A16, 1, "", P, SEED + 1900),
+        ("coded_checkpoint", flat16, "parity", M31, None, 1, "", S_ck, SEED + 2000),
+        ("coded_checkpoint(4, 4)", ((4, 4), ("dcn", "ici"), ("dcn", "ici")), "parity", M31, None, 1, "", S_ck,
+         SEED + 2000),
+    ]
+    cfgs = []
+    for name, (shape, names, axes), kind, q, A, p, pipe, S, seed in rows:
+        K = math.prod(shape)
+        cfg = {"name": name, "world": K, "shape": shape, "names": names, "axes": axes, "kind": kind, "q": q,
+               "A": A, "p": p, "pipeline": pipe, "S": S, "seed": seed, "limbs": kind in ("lcc", "parity"),
+               "traced": name == "multilevel", "data_rows": K}
+        if kind == "ps":
+            plan = plan_prepare_shoot(K, p)
+            ir = PIPELINES[pipe].apply(plan.to_ir(A, q=q), FullyConnected(K), 1 << 16) if pipe else plan.to_ir(A, q=q)
+            cfg.update(ir=ir, budget=expected_permute_count(plan), target=A)
+        elif kind in ("butterfly", "butterfly_inverse"):
+            cfg.update(ir=bf.to_ir(inverse=kind == "butterfly_inverse"), budget=bf.H * bf.p,
+                       target=butterfly_target_matrix(f_n, K, 2))
+        elif kind == "hier":
+            plan = plan_hierarchical(K, 1, 2)
+            cfg.update(ir=plan.to_ir(A, q=q), budget=expected_hier_permute_count(plan), target=A)
+        elif kind == "ml":
+            plan = plan_multilevel(K, 1, (2, 2, 2))
+            cfg.update(ir=plan.to_ir(A, q=q), budget=expected_multilevel_permute_count(plan), target=A)
+        elif kind == "allgather":
+            cfg.update(ir=None, budget=None, target=A)
+        elif kind == "lcc":
+            plan = plan_prepare_shoot(lplan.N, lplan.p)
+            G = lcc_generator(lplan)
+            cfg.update(ir=plan.to_ir(G, q=q), budget=expected_permute_count(plan), target=G, data_rows=lplan.K)
+        else:  # the coded checkpoint's parity, flat or two-level
+            plan = plan_prepare_shoot(K, 1) if len(shape) == 1 else plan_hierarchical(K, 1, shape[1])
+            budget = expected_permute_count(plan) if len(shape) == 1 else expected_hier_permute_count(plan)
+            cfg.update(ir=plan.to_ir(cplan.A, q=q), budget=budget, target=np.asarray(cplan.A))
+        cfg["runs"] = {"rank": ir_kernel_calls(cfg["ir"], S, batch=1) if cfg["ir"] is not None else []}
+        cfgs.append(cfg)
+    return cfgs
+
+
+# the entry point :func:`rank_fn` calls for each kind of configuration
+RANK_ENTRIES = {"ps": "ps_encode_ranks", "butterfly": "butterfly_ranks", "butterfly_inverse": "butterfly_ranks",
+                "hier": "hierarchical_encode_ranks", "ml": "multilevel_encode_ranks",
+                "allgather": "allgather_encode_ranks", "lcc": "lcc_encode_ranks", "parity": "encode_parity_ranks"}
+
+
+def rank_row(cfg: dict, k: int) -> np.ndarray:
+    """Processor k's packet of a configuration, from the seed with numpy:
+    residues below q, or 16-bit limbs on the coded paths; LCC's padding
+    rows are zero."""
+    if k >= cfg["data_rows"]:
+        return np.zeros(cfg["S"], dtype=np.uint32)
+    high = 1 << 16 if cfg["limbs"] else cfg["q"]
+    return np.random.default_rng([cfg["seed"], k]).integers(0, high, size=cfg["S"], dtype=np.uint32)
+
+
+def rank_fn(cfg: dict, mesh):
+    """The rank entry point a user calls for the configuration."""
+    kind, q, axes = cfg["kind"], cfg["q"], cfg["axes"]
+    if kind == "ps":
+        return ps_encode_ranks(mesh, axes, cfg["A"], p=cfg["p"], q=q, pipeline=cfg["pipeline"])[0]
+    if kind in ("butterfly", "butterfly_inverse"):
+        return butterfly_ranks(mesh, axes, q=q, inverse=kind == "butterfly_inverse")[0]
+    if kind == "hier":
+        return hierarchical_encode_ranks(mesh, *axes, cfg["A"], q=q)[0]
+    if kind == "ml":
+        return multilevel_encode_ranks(mesh, axes, cfg["A"], q=q)[0]
+    if kind == "allgather":
+        return allgather_encode_ranks(mesh, axes, cfg["A"], q=q)
+    if kind == "lcc":
+        return lcc_encode_ranks(mesh, axes, build_lcc(SERVE_K, R=SERVE_R))
+    return encode_parity_ranks(mesh, axes, build_parity_plan(CKPT_K))
+
+
+def one_card_fn(cfg: dict):
+    """The one-card executor of the same configuration."""
+    kind, q = cfg["kind"], cfg["q"]
+    if kind == "ps":
+        return ps_encode(cfg["A"], p=cfg["p"], q=q, pipeline=cfg["pipeline"])[0]
+    if kind in ("butterfly", "butterfly_inverse"):
+        return butterfly(cfg["world"], q=q, inverse=kind == "butterfly_inverse")[0]
+    if kind == "hier":
+        return hierarchical_encode(cfg["A"], k_intra=cfg["shape"][1], q=q)[0]
+    if kind == "ml":
+        return multilevel_encode(cfg["A"], cfg["shape"], q=q)[0]
+    if kind == "allgather":
+        return allgather_encode(cfg["A"], q=q)
+    if kind == "lcc":
+        return lcc_encode_collective(build_lcc(SERVE_K, R=SERVE_R))
+    return encode_parity_collective(build_parity_plan(CKPT_K), cfg["shape"])
+
+
+def row_hash(row: np.ndarray) -> str:
+    return hashlib.blake2b(np.ascontiguousarray(row).view(np.uint8), digest_size=16).hexdigest()
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_run(cfg: dict, rank: int, dev, carried: dict) -> dict:
+    """One configuration on this rank: the counted call, RANKS_REPS timed
+    calls after barriers, and (IR configurations) one traced call, whose
+    round spans give the wire part and whose LocalOp spans the device part."""
+    mesh = make_mesh(cfg["shape"], cfg["names"], device=dev)
+    k = mesh.index(cfg["axes"])
+    if cfg["kind"] == "butterfly_inverse":
+        x = carried.pop("butterfly")
+    else:
+        x = torch.from_numpy(rank_row(cfg, k).view(np.int32)).to(dev)[None]
+    fn = rank_fn(cfg, mesh)
+    dist.barrier()
+    before = launches()
+    out = fn(x)
+    sync(dev)
+    counted = tuple(a - b for a, b in zip(launches(), before))
+    if cfg["name"] == "butterfly":
+        carried["butterfly"] = out
+    res = {"name": cfg["name"], "rank": rank, "k": k, "hash": row_hash(to_numpy(out)[0]),
+           "launches": counted, "device": str(fn.device), "transport": fn.transport,
+           "kernels": getattr(fn, "kernels", None), "permutes": getattr(fn, "permutes_run", None),
+           "permute_count": getattr(fn, "permute_count", None)}
+    walls = []
+    for _ in range(RANKS_REPS):
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        fn(x)
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res.update(wall_ms=statistics.median(walls), walls_ms=walls)
+    if cfg["ir"] is not None:
+        tracer = Tracer()
+        topo = Hierarchy(levels=tuple(reversed(cfg["shape"]))) if len(cfg["shape"]) > 1 else None
+        traced = ir_encode_ranks(mesh, cfg["axes"], fn.ir, q=cfg["q"], tracer=tracer, topo=topo,
+                                 metrics=MetricsRegistry())
+        same_out = same(traced(x), out)
+        rounds = [s for s in tracer.spans if "comm_round" in s.attrs]
+        res.update(
+            traced_equal=same_out, traced_permutes=traced.permutes_run,
+            traced_ms=next(s.dur_us for s in tracer.spans if s.name == "ir_encode") / 1e3,
+            wire_ms=sum(s.dur_us for s in rounds) / 1e3,
+            device_ms=sum(s.dur_us for s in tracer.spans if s.name.startswith("local[")) / 1e3,
+            round_levels=[s.attrs.get("level") for s in rounds],
+            round_ppermutes=sum(s.attrs["ppermutes"] for s in rounds))
+    del out
+    return res
+
+
+def rank_worker(rank: int, world: int, init: str, cfgs: list, go, out, device_type: str):
+    """A rank of the phase: joins the gloo group, says it is ready, waits for
+    the parent's go, runs every configuration and sends each result. It
+    computes on card 0 (``device_type`` "cuda") or, to rehearse the phase
+    without a card, on the CPU."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank lives on this host
+        dev = torch.device("cpu")
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        torch.zeros(1, device=dev)  # the context, before the clock starts
+        out.put(("ready", rank, None))
+        if not go.wait(RANKS_DEADLINE_S):
+            raise TimeoutError("the parent never said go")
+        carried: dict = {}
+        for cfg in cfgs:
+            out.put(("ok", rank, rank_run(cfg, rank, dev, carried)))
+        dist.destroy_process_group()
+        out.put(("done", rank, None))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("error", rank, traceback.format_exc()))
+
+
+def rank_reference(cfg: dict, dev, carried: dict) -> tuple[list, dict]:
+    """The parent's side of a configuration, on the card: the whole (K, S)
+    input from the same seeds, the one-card executor's output, a plain
+    ``x @ target mod q`` (the inverse butterfly: x itself), both equal, and
+    each row's hash. Returns (row hashes, record)."""
+    K = cfg["world"]
+    if cfg["kind"] == "butterfly_inverse":
+        x, want = carried.pop("butterfly")
+    else:
+        x = torch.from_numpy(np.stack([rank_row(cfg, k) for k in range(K)]).view(np.int32)).to(dev)
+        want = None
+    out = one_card_fn(cfg)(x)
+    if cfg["kind"] == "butterfly":
+        carried["butterfly"] = (out, x)
+    if want is None:
+        want = plain_matrix_encode(x, cfg["target"], cfg["q"])
+    check(same(out, want), f"ranks/{cfg['name']}: the one-card executor != plain x @ A mod q on the card")
+    host = to_numpy(out)
+    del x, out, want
+    return [row_hash(host[k]) for k in range(K)], {"checked_columns_plain_on_card": cfg["S"]}
+
+
+def ranks_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
+    """Every configuration on K ranks that share the card, counted on the
+    ranks: one spawned pool for K = 8 and one for K = 16, started at once, so
+    that their start-up overlaps the parent's references. Every rank's block
+    must hash like the same row of the one-card executor's output (itself
+    equal to a plain ``x @ A mod q``), every rank must run the budget, and
+    both kernels must have run in the ranks. Returns (launches, record)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")  # the parent has initialised CUDA: no fork
+    pools, tmp = [], tempfile.TemporaryDirectory()
+    try:
+        for world in sorted({c["world"] for c in cfgs}):
+            mine = [c for c in cfgs if c["world"] == world]
+            go, out = ctx.Event(), ctx.Queue()
+            init = "file://" + os.path.join(tmp.name, f"store{world}")
+            procs = [ctx.Process(target=rank_worker, args=(r, world, init, mine, go, out, dev.type), daemon=True)
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            pools.append({"world": world, "cfgs": mine, "go": go, "out": out, "procs": procs})
+        t_ref = time.perf_counter()
+        refs, carried = {}, {}
+        for cfg in cfgs:
+            refs[cfg["name"]] = rank_reference(cfg, dev, carried)
+            torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_ref
+        results, pool_s, ready_s = {}, {}, {}
+        for pool in pools:
+            t_pool = time.perf_counter()
+            pool["go"].set()
+            want = pool["world"] * (len(pool["cfgs"]) + 2)  # ready, one per configuration, done
+            got, deadline = 0, time.monotonic() + RANKS_DEADLINE_S
+            while got < want:
+                try:
+                    status, rank, value = pool["out"].get(timeout=5)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(pool["procs"]) if p.exitcode not in (None, 0)]
+                    check(not dead, f"ranks: rank(s) {dead} of the K={pool['world']} pool died")
+                    check(time.monotonic() < deadline,
+                          f"ranks: the K={pool['world']} pool did not finish within {RANKS_DEADLINE_S} s")
+                    continue
+                check(status != "error", f"ranks: rank {rank} of the K={pool['world']} pool raised:\n{value}")
+                got += 1
+                if status == "ok":
+                    results.setdefault(value["name"], {})[rank] = value
+                elif status == "ready":  # the last rank's join, from the phase's start
+                    ready_s[pool["world"]] = time.perf_counter() - t0
+            pool_s[pool["world"]] = time.perf_counter() - t_pool
+    finally:
+        for pool in pools:
+            for p in pool["procs"]:
+                if p.is_alive():
+                    p.terminate()
+            for p in pool["procs"]:
+                p.join(30)
+        tmp.cleanup()
+
+    total = {"gf_matmul": 0, "butterfly_mac": 0}
+    record = {}
+    for cfg in cfgs:
+        name, K = cfg["name"], cfg["world"]
+        hashes, ref_record = refs[name]
+        per = results[name]
+        check(sorted(per) == list(range(K)), f"ranks/{name}: answers from ranks {sorted(per)}")
+        check(sorted(v["k"] for v in per.values()) == list(range(K)), f"ranks/{name}: processor indices")
+        expect = count_calls(cfg["runs"]["rank"])
+        for rank, v in per.items():
+            check(v["hash"] == hashes[v["k"]],
+                  f"ranks/{name}: rank {rank}'s block != row {v['k']} of the one-card executor and plain x @ A")
+            check(v["device"] == "cuda:0", f"ranks/{name}: rank {rank} ran on {v['device']}")
+            check(v["launches"] == expect, f"ranks/{name}: rank {rank} launched (gf, bf)={v['launches']}, "
+                                           f"expected {expect}")
+            if cfg["ir"] is not None:
+                check(v["kernels"] == "cuda" and v["transport"] == "gloo_exchange",
+                      f"ranks/{name}: rank {rank} ran kernels={v['kernels']} over {v['transport']}")
+                check(v["permutes"] == v["permute_count"] == cfg["budget"] == v["traced_permutes"]
+                      == v["round_ppermutes"],
+                      f"ranks/{name}: rank {rank} ran {v['permutes']} permutations, the budget is {cfg['budget']}")
+                check(v["traced_equal"], f"ranks/{name}: rank {rank}'s traced call != its untraced call")
+                if cfg["traced"]:
+                    check(v["round_levels"] == [0, 1, 2], f"ranks/{name}: round levels {v['round_levels']}")
+            total["gf_matmul"] += v["launches"][0]
+            total["butterfly_mac"] += v["launches"][1]
+        walls = [v["wall_ms"] for v in per.values()]
+        rec = {"K": K, "mesh": dict(zip(cfg["names"], cfg["shape"])), "q": cfg["q"], "p": cfg["p"],
+               "payload_elems": cfg["S"], "entry": RANK_ENTRIES[cfg["kind"]], "budget": cfg["budget"],
+               "kernel_calls_a_rank": [f"{kk} {sh}" for kk, sh in cfg["runs"]["rank"]],
+               "launches": {"gf_matmul": sum(v["launches"][0] for v in per.values()),
+                            "butterfly_mac": sum(v["launches"][1] for v in per.values())},
+               "wall_ms_median_over_ranks": statistics.median(walls), "wall_ms_max_over_ranks": max(walls),
+               **ref_record, "bit_exact_ranks": K}
+        if cfg["ir"] is not None:
+            r0 = per[0]
+            rec.update(rank0_traced_ms=r0["traced_ms"], rank0_wire_ms=r0["wire_ms"], rank0_device_ms=r0["device_ms"],
+                       wire_ms_median_over_ranks=statistics.median(v["wire_ms"] for v in per.values()),
+                       device_ms_median_over_ranks=statistics.median(v["device_ms"] for v in per.values()))
+        record[name] = rec
+    for k, n in total.items():
+        check(n > 0, f"the rank path never launched {k}")
+    record["seconds"] = {"phase": time.perf_counter() - t0, "references": ref_s,
+                         **{f"K{w}_ready_after": s for w, s in ready_s.items()},
+                         **{f"K{w}_after_go": s for w, s in pool_s.items()}}
+    record["wire"] = "gloo over loopback TCP between processes on one host, staged through pinned host memory"
+    return total, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -1856,7 +2261,8 @@ def main() -> int:
     coded_cfgs = coded_configs()
     serve_cfg = serve_config()
     train_cfg = train_config()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg], P)
+    ranks_cfgs = ranks_configs()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs, P)
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
@@ -1931,11 +2337,16 @@ def main() -> int:
     train_launches, trained = train_phase(train_cfg, dev)
     say("train", card=smi, **trained)
 
+    # phase 9: the encode on K ranks that share the card, counted on the ranks
+    ranks_launches, ranked = ranks_phase(ranks_cfgs, dev)
+    say("ranks", card=smi, launches=ranks_launches, **ranked)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
-                           + serve_launches[row["name"]] + train_launches[row["name"]])
+                           + serve_launches[row["name"]] + train_launches[row["name"]]
+                           + ranks_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -42,6 +42,7 @@ from ..core.matrices import distinct_points, lagrange_matrix
 from ..core.prepare_shoot import encode_universal
 from ..core.schedule import plan_draw_loose
 from ..dist.collectives import ps_encode
+from ..dist.ranks import ps_encode_ranks
 from .rs_checkpoint import as_residues
 
 
@@ -136,9 +137,21 @@ def lcc_encode_collective(plan: LCCPlan, *, device=None, kernels: str | None = N
     the padded Lagrange generator as the compiled prepare-and-shoot round
     schedule (``dist.collectives.ps_encode``) on one device (``None``: the
     card), the N hosts being the tensor's first axis. Input rows K..N−1 must
-    be the zero padding (:func:`lcc_pad`). The multi-rank
-    ``torch.distributed`` form waits for the distributed executor."""
+    be the zero padding (:func:`lcc_pad`). The multi-rank form, one host a
+    rank, is :func:`lcc_encode_ranks`."""
     fn, _ = ps_encode(lcc_generator(plan), p=plan.p, q=plan.q, device=device, kernels=kernels)
+    return fn
+
+
+def lcc_encode_ranks(mesh, axis: str, plan: LCCPlan, *, kernels: str | None = None):
+    """The mesh path, one host a rank (``repro_torch.dist.ranks``): a callable
+    mapping this rank's ``(1, *payload)`` block to its coded block, the
+    reference's ``lcc_encode_collective(mesh, axis, plan)``. ``axis`` must
+    hold N = K + R ranks; ranks K..N−1 hold the zero padding."""
+    N = mesh.axis_size(axis)
+    if N != plan.N:
+        raise ValueError(f"mesh axis {axis!r} has {N} ranks, need N={plan.N}")
+    fn, _ = ps_encode_ranks(mesh, axis, lcc_generator(plan), p=plan.p, q=plan.q, kernels=kernels)
     return fn
 
 
@@ -202,6 +215,7 @@ __all__ = [
     "lcc_pad",
     "lcc_encode",
     "lcc_encode_collective",
+    "lcc_encode_ranks",
     "lcc_decode",
     "lcc_compute_and_decode",
 ]

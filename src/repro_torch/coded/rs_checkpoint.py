@@ -45,6 +45,7 @@ from ..core.matrices import cauchy_matrix
 from ..core.prepare_shoot import encode_universal
 from ..core.schedule import counted_c2, plan_prepare_shoot
 from ..dist.collectives import hierarchical_encode, multilevel_encode, ps_encode
+from ..dist.ranks import hierarchical_encode_ranks, multilevel_encode_ranks, ps_encode_ranks
 
 
 def as_residues(x) -> torch.Tensor:
@@ -181,8 +182,7 @@ def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
     (``ps_encode``), two sizes the two-level ``hierarchical_encode`` with
     ``k_intra = sizes[1]``, more the recursive ``multilevel_encode``. Every
     variant is bit-exact (same modular sums, reassociated). The multi-rank
-    ``torch.distributed`` form, one replica a rank, waits for the
-    distributed executor."""
+    form, one replica a rank, is :func:`encode_parity_ranks`."""
     sizes = (plan.K,) if sizes is None else tuple(int(s) for s in sizes)
     if math.prod(sizes) != plan.K:
         raise ValueError(f"sizes {sizes} hold {math.prod(sizes)} replicas, the plan has K={plan.K}")
@@ -193,6 +193,25 @@ def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
         fn, _ = hierarchical_encode(plan.A, k_intra=sizes[1], **kw)
     else:
         fn, _ = multilevel_encode(plan.A, sizes, **kw)
+    return fn
+
+
+def encode_parity_ranks(mesh, axes, plan: ParityPlan):
+    """The mesh path, one replica a rank (``repro_torch.dist.ranks``): a
+    callable mapping this rank's ``(1, S)`` limbs to its ``(1, S)`` parity
+    packet, the reference's ``encode_parity_collective(mesh, axis, plan)``.
+    ``axes`` is one axis name (flat prepare-and-shoot) or a tuple of them
+    outermost → innermost: one is flat, two the two-level
+    ``hierarchical_encode_ranks``, more the recursive
+    ``multilevel_encode_ranks``."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    kw = dict(p=plan.p, q=plan.q)
+    if len(axes) == 1:
+        fn, _ = ps_encode_ranks(mesh, axes[0], plan.A, **kw)
+    elif len(axes) == 2:
+        fn, _ = hierarchical_encode_ranks(mesh, axes[0], axes[1], plan.A, **kw)
+    else:
+        fn, _ = multilevel_encode_ranks(mesh, axes, plan.A, **kw)
     return fn
 
 

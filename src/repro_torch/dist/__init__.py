@@ -1,9 +1,11 @@
-"""Executors of compiled round schedules on one device.
+"""Executors of compiled round schedules.
 
 Layering: ``core`` computes plans (host numpy), ``topo`` prices and rewrites
-them on a topology; ``dist`` lowers them onto a device, the K processors
-being the leading tensor axis. The multi-rank ``torch.distributed`` form of
-the same executor is a later slice of the port.
+them on a topology; ``dist`` lowers them onto devices. Two forms share every
+plan, lowering and budget: on one device the K processors are the leading
+tensor axis (``collectives``); on a mesh of ranks each processor is a
+process and each port group a ``torch.distributed`` exchange of messages
+(``ranks``, over gloo; NCCL across cards is a later slice, ROADMAP A2).
 """
 
 from .collectives import (  # noqa: F401
@@ -18,4 +20,13 @@ from .collectives import (  # noqa: F401
     multilevel_encode,
     ps_encode,
     shoot_round_slots,
+)
+from .ranks import (  # noqa: F401
+    allgather_encode_ranks,
+    butterfly_ranks,
+    gloo_exchange,
+    hierarchical_encode_ranks,
+    ir_encode_ranks,
+    multilevel_encode_ranks,
+    ps_encode_ranks,
 )

@@ -45,7 +45,9 @@ level, then one digit-reduction shoot per outer level, innermost first.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -170,6 +172,192 @@ def _wait(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+class _Group(NamedTuple):
+    """One port group of a CommRound, compiled: the transfers' (src, dst)
+    pairs, the slots each sender ships and where they land, ``store`` or
+    ``add``, the baked receive coefficients (``None``: none) and the
+    executor's own routing of the group (``route``)."""
+
+    pairs: tuple
+    src_slots: tuple
+    dst_slots: tuple
+    mode: str
+    coef: tuple | None
+    route: object
+
+
+def _compile_ops(ir: ScheduleIR, bake, kernels: str, route, unit: str) -> list:
+    """The executor's program for ``ir``: ``("comm", [_Group], round_no)``
+    for each CommRound with transfers and ``("local", out_slots, in_slots,
+    spec)`` for each LocalOp. ``bake`` turns a ``(K, …)`` coefficient array
+    into the executor's constants, ``route`` a port group into its routing,
+    and ``unit`` names a processor in the store-coverage error."""
+    K = ir.K
+    ops = []
+    round_no = -1
+    for step in ir.steps:
+        if isinstance(step, CommRound):
+            round_no += 1
+            groups = []
+            for g in round_port_groups(step):
+                if g.mode == "store" and len(g.pairs) != K:
+                    raise ValueError(
+                        f"store-mode port group must cover every {unit} "
+                        f"(got {len(g.pairs)} of {K})"
+                    )
+                coef = None
+                if g.coeffs_by_dst is not None:
+                    c = np.ones((K, len(g.slots)), dtype=np.uint32)
+                    for dst, cs in g.coeffs_by_dst.items():
+                        if cs is not None:
+                            c[dst] = cs
+                    coef = bake(c)
+                groups.append(
+                    _Group(
+                        g.pairs,
+                        tuple(ss for ss, _ in g.slots),
+                        tuple(ds for _, ds in g.slots),
+                        g.mode,
+                        coef,
+                        route(g),
+                    )
+                )
+            if groups:
+                ops.append(("comm", groups, round_no))
+        elif isinstance(step, LocalOp):
+            if step.coeffs is None:
+                raise ValueError(
+                    "structure-only IR (LocalOp.coeffs=None) cannot execute — "
+                    "recompile with the generator matrix"
+                )
+            ops.append(
+                ("local", step.out_slots, step.in_slots, _lower_local(step, bake, kernels))
+            )
+        else:  # pragma: no cover
+            raise TypeError(f"unknown IR step {type(step).__name__}")
+    return ops
+
+
+def _apply_local(out_slots, in_slots, spec, buf, zero, npay, *, kernels: str, q: int):
+    """One LocalOp on a slot buffer of ``(R, *payload)`` tensors, R being the
+    processors the executor holds (all K on one card, 1 on a rank) and the
+    leading dim of the baked coefficients."""
+    R = zero.shape[0]
+    xs = [buf.get(s, zero) for s in in_slots]  # all reads pre-op
+    new = dict(buf) if spec["update"] else {}
+    if spec["dense"]:  # the per-coefficient "torch" loop
+        c, csh = spec["coef"]
+        for i, os_ in enumerate(out_slots):
+            acc = None
+            for j in range(len(in_slots)):
+                term = shoup_mul(
+                    xs[j], _bcast(c[:, i, j], npay), _bcast(csh[:, i, j], npay), q
+                )
+                acc = term if acc is None else madd(acc, term, q)
+            new[os_] = acc
+        return new
+    for i in spec["zero"]:
+        new[out_slots[i]] = zero
+    for i, js in spec["adds"]:
+        acc = zero
+        for j in js:
+            acc = xs[j] if acc is zero else madd(acc, xs[j], q)
+        new[out_slots[i]] = acc
+    if spec["gen"]:
+        c, csh = spec["coef"]
+        if kernels == "cuda":
+            # imported here: the kernel packages themselves import core.field
+            from ..kernels.butterfly.ops import butterfly_mac
+            from ..kernels.gf_matmul.ops import gf_matmul_batched
+
+            P = math.prod(zero.shape[1:])
+            if len(spec["gen"]) == 1:
+                parts = torch.stack(xs, dim=0).reshape(len(in_slots), R, P)
+                out = butterfly_mac(
+                    parts, c[:, 0, :].contiguous(), csh[:, 0, :].contiguous(), q=q
+                )[:, None]  # (R, 1, P)
+            else:
+                stacked = torch.stack(xs, dim=1).reshape(R, len(in_slots), P)
+                out = gf_matmul_batched(c, stacked, q=q)  # (R, n_gen, P)
+            for r, i in enumerate(spec["gen"]):
+                new[out_slots[i]] = out[:, r].reshape(zero.shape)
+        else:  # "fused": madd-fold of row-batched Shoup multiplies — each
+            # term is (R, n_gen, *pay) and folds at once, so the full
+            # (R, n_gen, n_in, *pay) product never exists
+            acc = None
+            for j in range(len(in_slots)):
+                term = shoup_mul(
+                    xs[j][:, None], _bcast(c[:, :, j], npay), _bcast(csh[:, :, j], npay), q
+                )
+                acc = term if acc is None else madd(acc, term, q)
+            for r, i in enumerate(spec["gen"]):
+                new[out_slots[i]] = acc[:, r]
+    return new
+
+
+def _stepper(ops: list, dev: torch.device, apply_comm, apply_local):
+    """``(apply_op, join)`` of an executor: ``apply_op(op, buf, zero, npay,
+    pending)`` runs one compiled step, an ``overlap=True`` LocalOp on a
+    second CUDA stream (see :func:`ir_encode`), and ``join(pending, slots)``
+    makes the main stream wait for the second-stream work that writes any of
+    ``slots`` (all of it when ``slots`` is None). ``pending`` maps a slot to
+    the event after which the second stream has written it."""
+    overlapping = dev.type == "cuda" and any(
+        op[0] == "local" and op[3]["overlap"] for op in ops
+    )
+    side = torch.cuda.Stream(dev) if overlapping else None
+
+    def reads(op) -> set:
+        """The slots whose data ``op`` reads."""
+        if op[0] == "local":
+            return set(op[2])
+        out = set()
+        for g in op[1]:
+            out.update(g.src_slots)
+            if g.mode == "add":
+                out.update(g.dst_slots)
+        return out
+
+    def join(pending: dict, slots):
+        for s in list(pending) if slots is None else [s for s in slots if s in pending]:
+            torch.cuda.current_stream(dev).wait_event(pending.pop(s))
+
+    def apply_op(op, buf, zero, npay, pending):
+        if pending:
+            join(pending, reads(op))
+        if op[0] == "comm":
+            return apply_comm(op[1], buf, zero, npay)
+        if side is None or not op[3]["overlap"]:
+            return apply_local(op[1], op[2], op[3], buf, zero, npay)
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            new = apply_local(op[1], op[2], op[3], buf, zero, npay)
+            done = torch.cuda.Event()
+            done.record(side)
+        for s in op[2]:  # inputs the second stream reads
+            if s in buf:
+                buf[s].record_stream(side)
+        zero.record_stream(side)
+        for s in op[1]:  # outputs the main stream will read
+            new[s].record_stream(main)
+            pending[s] = done
+        return new
+
+    return apply_op, join
+
+
+def _execute(ops: list, apply_op, join, out_slot, x, zero, npay):
+    """Run an executor's compiled ``ops`` on x, untraced: nothing waits for
+    the device."""
+    buf = {INPUT_SLOT: x}
+    pending: dict = {}
+    for op in ops:
+        buf = apply_op(op, buf, zero, npay, pending)
+    join(pending, None)
+    return buf.get(out_slot, zero)
+
+
 # ---------------------------------------------------------------------------
 # THE generic executor: any ScheduleIR whose rounds are permutations
 # ---------------------------------------------------------------------------
@@ -239,6 +427,8 @@ def ir_encode(
     The callable carries ``ir`` (the schedule it runs), ``permute_count``
     (gathers per call, equal to ``ir_permute_count(ir)``), ``permutes_run``
     (gathers the last call really ran) and ``kernels`` (the resolved mode).
+    The multi-rank form, one processor a process, is
+    :func:`repro_torch.dist.ranks.ir_encode_ranks`.
     """
     dev = resolve_device(device)
     kernels = _resolve_kernels(kernels, dev)
@@ -248,186 +438,47 @@ def ir_encode(
         arr = np.asarray(arr).astype(np.uint32)
         return to_tensor(arr, dev), to_tensor(shoup_precompute(arr, q), dev)
 
-    # ("comm", [(pairs, src_of_dst, non_receivers, src_slots, dst_slots, mode, coef)], round_no)
-    # | ("local", out_slots, in_slots, spec)
-    ops = []
-    round_no = -1
-    for step in ir.steps:
-        if isinstance(step, CommRound):
-            round_no += 1
-            groups = []
-            for g in round_port_groups(step):
-                if g.mode == "store" and len(g.pairs) != K:
-                    raise ValueError(
-                        "store-mode port group must cover every processor "
-                        f"(got {len(g.pairs)} of {K})"
-                    )
-                coef = None
-                if g.coeffs_by_dst is not None:
-                    c = np.ones((K, len(g.slots)), dtype=np.uint32)
-                    for dst, cs in g.coeffs_by_dst.items():
-                        if cs is not None:
-                            c[dst] = cs
-                    coef = bake(c)
-                src_of_dst = np.zeros(K, dtype=np.int64)
-                receives = np.zeros(K, dtype=bool)
-                for src, dst in g.pairs:
-                    src_of_dst[dst] = src
-                    receives[dst] = True
-                non_receivers = np.nonzero(~receives)[0]
-                groups.append(
-                    (
-                        g.pairs,
-                        torch.as_tensor(src_of_dst, device=dev),
-                        torch.as_tensor(non_receivers, device=dev)
-                        if non_receivers.size
-                        else None,
-                        tuple(ss for ss, _ in g.slots),
-                        tuple(ds for _, ds in g.slots),
-                        g.mode,
-                        coef,
-                    )
-                )
-            if groups:
-                ops.append(("comm", groups, round_no))
-        elif isinstance(step, LocalOp):
-            if step.coeffs is None:
-                raise ValueError(
-                    "structure-only IR (LocalOp.coeffs=None) cannot execute — "
-                    "recompile with the generator matrix"
-                )
-            ops.append(
-                ("local", step.out_slots, step.in_slots, _lower_local(step, bake, kernels))
-            )
-        else:  # pragma: no cover
-            raise TypeError(f"unknown IR step {type(step).__name__}")
+    def route(g):
+        """(src_of_dst, non_receivers): the gather index of the group, and
+        the rows it does not reach (``None``: it reaches every row)."""
+        src_of_dst = np.zeros(K, dtype=np.int64)
+        receives = np.zeros(K, dtype=bool)
+        for src, dst in g.pairs:
+            src_of_dst[dst] = src
+            receives[dst] = True
+        non_receivers = np.nonzero(~receives)[0]
+        return (
+            torch.as_tensor(src_of_dst, device=dev),
+            torch.as_tensor(non_receivers, device=dev) if non_receivers.size else None,
+        )
+
+    ops = _compile_ops(ir, bake, kernels, route, "processor")
 
     def apply_comm(groups, buf, zero, npay):
         updates = []
-        for _, src_of_dst, non_receivers, src_slots, dst_slots, mode, coef in groups:
-            payload = torch.stack([buf.get(s, zero) for s in src_slots], dim=1)
+        for g in groups:
+            src_of_dst, non_receivers = g.route
+            payload = torch.stack([buf.get(s, zero) for s in g.src_slots], dim=1)
             recv = payload.index_select(0, src_of_dst)  # one port = one gather
             run.permutes_run += 1
             if non_receivers is not None:
                 recv.index_fill_(0, non_receivers, 0)  # recv is a fresh tensor
-            if coef is not None:
-                recv = shoup_mul(recv, _bcast(coef[0], npay), _bcast(coef[1], npay), q)
-            for i, ds in enumerate(dst_slots):
-                updates.append((ds, recv[:, i], mode))
+            if g.coef is not None:
+                recv = shoup_mul(recv, _bcast(g.coef[0], npay), _bcast(g.coef[1], npay), q)
+            for i, ds in enumerate(g.dst_slots):
+                updates.append((ds, recv[:, i], g.mode))
         for ds, v, mode in updates:  # sends all read pre-round state
             buf[ds] = v if mode == "store" else (madd(buf[ds], v, q) if ds in buf else v)
         return buf
 
-    def apply_local(out_slots, in_slots, spec, buf, zero, npay):
-        xs = [buf.get(s, zero) for s in in_slots]  # all reads pre-op
-        new = dict(buf) if spec["update"] else {}
-        if spec["dense"]:  # the per-coefficient "torch" loop
-            c, csh = spec["coef"]
-            for i, os_ in enumerate(out_slots):
-                acc = None
-                for j in range(len(in_slots)):
-                    term = shoup_mul(
-                        xs[j], _bcast(c[:, i, j], npay), _bcast(csh[:, i, j], npay), q
-                    )
-                    acc = term if acc is None else madd(acc, term, q)
-                new[os_] = acc
-            return new
-        for i in spec["zero"]:
-            new[out_slots[i]] = zero
-        for i, js in spec["adds"]:
-            acc = zero
-            for j in js:
-                acc = xs[j] if acc is zero else madd(acc, xs[j], q)
-            new[out_slots[i]] = acc
-        if spec["gen"]:
-            c, csh = spec["coef"]
-            if kernels == "cuda":
-                # imported here: the kernel packages themselves import core.field
-                from ..kernels.butterfly.ops import butterfly_mac
-                from ..kernels.gf_matmul.ops import gf_matmul_batched
-
-                P = math.prod(zero.shape[1:])
-                if len(spec["gen"]) == 1:
-                    parts = torch.stack(xs, dim=0).reshape(len(in_slots), K, P)
-                    out = butterfly_mac(
-                        parts, c[:, 0, :].contiguous(), csh[:, 0, :].contiguous(), q=q
-                    )[:, None]  # (K, 1, P)
-                else:
-                    stacked = torch.stack(xs, dim=1).reshape(K, len(in_slots), P)
-                    out = gf_matmul_batched(c, stacked, q=q)  # (K, n_gen, P)
-                for r, i in enumerate(spec["gen"]):
-                    new[out_slots[i]] = out[:, r].reshape(zero.shape)
-            else:  # "fused": madd-fold of row-batched Shoup multiplies — each
-                # term is (K, n_gen, *pay) and folds at once, so the full
-                # (K, n_gen, n_in, *pay) product never exists
-                acc = None
-                for j in range(len(in_slots)):
-                    term = shoup_mul(
-                        xs[j][:, None], _bcast(c[:, :, j], npay), _bcast(csh[:, :, j], npay), q
-                    )
-                    acc = term if acc is None else madd(acc, term, q)
-                for r, i in enumerate(spec["gen"]):
-                    new[out_slots[i]] = acc[:, r]
-        return new
-
-    overlapping = dev.type == "cuda" and any(
-        op[0] == "local" and op[3]["overlap"] for op in ops
-    )
-    side = torch.cuda.Stream(dev) if overlapping else None
-
-    def reads(op) -> set:
-        """The slots whose data ``op`` reads."""
-        if op[0] == "local":
-            return set(op[2])
-        out = set()
-        for _, _, _, src_slots, dst_slots, mode, _ in op[1]:
-            out.update(src_slots)
-            if mode == "add":
-                out.update(dst_slots)
-        return out
-
-    def join(pending: dict, slots):
-        """Make the main stream wait for the second-stream work that writes
-        any of ``slots`` (all of it when ``slots`` is None)."""
-        for s in list(pending) if slots is None else [s for s in slots if s in pending]:
-            torch.cuda.current_stream(dev).wait_event(pending.pop(s))
-
-    def apply_op(op, buf, zero, npay, pending):
-        """One IR step on the slot buffer. ``pending`` maps a slot to the
-        event after which the second stream has written it."""
-        if pending:
-            join(pending, reads(op))
-        if op[0] == "comm":
-            return apply_comm(op[1], buf, zero, npay)
-        if side is None or not op[3]["overlap"]:
-            return apply_local(op[1], op[2], op[3], buf, zero, npay)
-        main = torch.cuda.current_stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            new = apply_local(op[1], op[2], op[3], buf, zero, npay)
-            done = torch.cuda.Event()
-            done.record(side)
-        for s in op[2]:  # inputs the second stream reads
-            if s in buf:
-                buf[s].record_stream(side)
-        zero.record_stream(side)
-        for s in op[1]:  # outputs the main stream will read
-            new[s].record_stream(main)
-            pending[s] = done
-        return new
-
-    def execute(x, zero, npay):
-        """Run ``ops`` on x, untraced: nothing waits for the device."""
-        buf = {INPUT_SLOT: x}
-        pending: dict = {}
-        for op in ops:
-            buf = apply_op(op, buf, zero, npay, pending)
-        join(pending, None)
-        return buf.get(ir.out_slot, zero)
+    apply_local = functools.partial(_apply_local, kernels=kernels, q=q)
+    apply_op, join = _stepper(ops, dev, apply_comm, apply_local)
 
     traced = None
     if tracer is not None:
-        traced = _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics)
+        traced = _traced_runner(
+            ir, ops, apply_op, join, tracer, topo, metrics, wait=lambda: _wait(dev)
+        )
 
     def run(x):
         x = to_tensor(x, dev)
@@ -438,7 +489,7 @@ def ir_encode(
         npay = x.ndim - 1
         if traced is not None:
             return traced(x, zero, npay)
-        return execute(x, zero, npay)
+        return _execute(ops, apply_op, join, ir.out_slot, x, zero, npay)
 
     run.ir = ir
     run.permute_count = sum(len(op[1]) for op in ops if op[0] == "comm")
@@ -448,14 +499,15 @@ def ir_encode(
     return run
 
 
-def _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics):
-    """The opt-in per-round path of :func:`ir_encode`: the IR's steps in
-    dispatch groups, each inside a tracer span bracketed by
-    :func:`_wait`. Groups, span names and attributes are the reference's
-    (``repro.dist.collectives._traced_runner``): an overlap LocalOp followed
-    by a comm round is one group, ``round[r]`` spans carry the round's
-    metadata, other LocalOps get ``local[i]`` spans, ``i`` being the group's
-    index. The values are those of the untraced path."""
+def _traced_runner(ir, ops, apply_op, join, tracer, topo, metrics, *, wait):
+    """The opt-in per-round path of an executor: the IR's steps in dispatch
+    groups, each inside a tracer span that ``wait()`` brackets (the device
+    synchronised; on ranks, also a barrier). Groups, span names and
+    attributes are the reference's (``repro.dist.collectives._traced_runner``):
+    an overlap LocalOp followed by a comm round is one group, ``round[r]``
+    spans carry the round's metadata, other LocalOps get ``local[i]`` spans,
+    ``i`` being the group's index. The values are those of the untraced
+    path."""
     if topo is None:
         topo = FullyConnected(ir.K)
     reg = metrics if metrics is not None else get_registry()
@@ -481,12 +533,12 @@ def _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics):
         wire_slots = 0
         n_transfers = 0
         max_slots = 0
-        for pairs, _, _, src_slots, _, _, _ in op[1]:
-            n_transfers += len(pairs)
-            wire_slots += len(pairs) * len(src_slots)
-            max_slots = max(max_slots, len(src_slots))
-            for s, d in pairs:
-                msgs[(s, d)] = msgs.get((s, d), 0) + len(src_slots)
+        for g in op[1]:
+            n_transfers += len(g.pairs)
+            wire_slots += len(g.pairs) * len(g.src_slots)
+            max_slots = max(max_slots, len(g.src_slots))
+            for s, d in g.pairs:
+                msgs[(s, d)] = msgs.get((s, d), 0) + len(g.src_slots)
         feats = round_features([msgs], topo)
         overlap_op = next((o for o in grp if o[0] == "local"), None)
         comm_meta[idx] = {
@@ -507,7 +559,7 @@ def _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics):
         for op in grp:
             buf = apply_op(op, buf, zero, npay, pending)
         join(pending, None)
-        _wait(dev)
+        wait()
         return buf
 
     def run(x, zero, npay):
@@ -522,7 +574,7 @@ def _traced_runner(ir, ops, apply_op, join, dev, tracer, topo, metrics):
             payload_elems=payload_elems,
         ):
             buf = {INPUT_SLOT: x}
-            _wait(dev)
+            wait()
             for idx, grp in enumerate(grouped):
                 meta = comm_meta.get(idx)
                 if meta is None:

@@ -47,7 +47,7 @@ def test_the_slice_is_all_there():
         "train", "train.checkpoint", "train.elastic", "serve", "serve.coded",
         "configs", "configs.base", "configs.registry", "configs.qwen3_1_7b", "models", "models.layers",
         "models.model", "models.inputs", "train.train_loop", "serve.scheduler", "serve.traffic", "serve.engine",
-        "launch", "launch.serve", "train.optimizer", "train.data", "launch.train",
+        "launch", "launch.serve", "train.optimizer", "train.data", "launch.train", "dist.ranks", "launch.mesh",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
