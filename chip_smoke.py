@@ -13,14 +13,27 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phase 4 hands it, with its time, its plain version's
-                time, its bound and its share of the bound at each of those.
+                that phases 4 and 6-9 hand it, as they hand it, with its
+                time, its wrapper's host time, its plain version's time, its
+                bound and its share of the bound at each of those. A
+                kernel's time is that of 30 back-to-back launches between
+                one pair of CUDA events, over 30, each launch with its checks
+                and output made beforehand (``*_launcher``); where one call
+                moves under 100 MB the launches rotate over copies of its
+                inputs that pass 100 MB (2x the L2), as the caller finds them
+                cold. ``host_us`` is one call of the wrapper, enqueue only.
                 ``gf_matmul`` is held at every M from 1 to 17, K in 1..9 and
                 33, N % 4 in {0, 1, 2, 3}, with an operand at a 4-byte offset,
                 on all-(q-1) operands at every row tile, and at a batch of
                 65,537, so that every row tile of the row kernel and both
                 forms of the general kernel run; each main-path shape's
-                record names the row tile it gets. A 1 GiB device ``copy_`` gives the bytes/s
+                record names the row tile it gets. ``butterfly_mac`` (the
+                row form: parts read through a row table, or one source a
+                slot) is held at every pair of source and output 16-byte
+                phases, rows of head or tail alone, gathered, repeated and
+                identity rows, radix 1 to 8 and the cap of 64, a batch of
+                65,537 and offsets past 2^31 elements, and the run fails
+                unless the cases reached every path. A 1 GiB device ``copy_`` gives the bytes/s
                 the card's memory attains, the yardstick of "near the bound".
 4. ``universal`` (K=64, M31), ``dft`` (K=64, NTT), ``draw_loose`` (K=48, NTT),
                 each with 2^20 payload elements a processor, through
@@ -37,8 +50,11 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``plan_two_level_dft(64, 1, NTT, 8)``), with the same checks
                 and the permutation count equal to the budget function. Then
                 each encode's median wall time and, under ``torch.profiler``,
-                its device-busy time, idle share, time by kind of kernel and
-                busiest device kernels by name; ``pipelined`` is also timed
+                its device-busy time, idle share, time by kind of kernel,
+                busiest device kernels by name and the kind of kernel that
+                runs just before each ``butterfly_mac`` (none may be a gather
+                or a copy on ``dft`` and ``draw_loose``'s ``a2a_encode`` and
+                on ``lcc_square``); ``pipelined`` is also timed
                 beside the same IR with its overlap LocalOps run in order.
 5. ``traced``   ``multilevel`` through ``ir_encode(tracer=Tracer(),
                 topo=Hierarchy(levels=(4, 4, 4)))`` twice: bit-equal to the
@@ -207,12 +223,19 @@ from repro_torch.dist.ranks import (  # noqa: E402
     ps_encode_ranks,
 )
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain  # noqa: E402
-from repro_torch.kernels.butterfly.ops import butterfly_mac  # noqa: E402
+from repro_torch.kernels.butterfly.kernel import (  # noqa: E402
+    MAX_SOURCES,
+    butterfly_mac_plain,
+    butterfly_mac_rows_cuda,
+    butterfly_mac_rows_launcher,
+    butterfly_mac_rows_plain,
+)
+from repro_torch.kernels.butterfly.ops import butterfly_mac, butterfly_mac_rows  # noqa: E402
 from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     GENERAL,
     ROW_TILES,
     gf_matmul_cuda,
+    gf_matmul_launcher,
     gf_matmul_plain,
     launch_plan,
 )
@@ -258,7 +281,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 PAYLOAD = 1 << 20  # elements a processor: 4 MiB packets
-KERNEL_REPS = 12  # timed runs of each kernel (median)
+PLAIN_REPS = 3  # timed runs of each plain version (median)
+TIMED_LAUNCHES = 30  # back-to-back launches of a kernel between one pair of events
+COLD_BYTES = 100 * 10**6  # a kernel call that moves less is timed over rotating copies of its inputs (2x the L2)
 ENCODE_REPS = 3  # timed runs of each encode (median), and encodes a profile
 SAMPLE_COLS = 4096  # payload columns held against the host oracle
 SEED = 0
@@ -318,6 +343,55 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(launchers: list, n: int = TIMED_LAUNCHES) -> float:
+    """Device ms one launch takes: ``n`` back-to-back launches between one
+    pair of CUDA events, over ``n``. Each launcher enqueues one launch with
+    its operand checks and output allocation done beforehand (``*_launcher``
+    of the kernel modules), and the ``n`` launches are captured once in a
+    CUDA graph and replayed, so that the host's pace (tens of µs a Python
+    launch) cannot space them out: the events see the device. The launches
+    cycle over the launchers, which hold copies of the inputs where one call
+    moves less than ``COLD_BYTES`` (the L2 then holds none of them, as the
+    caller would find it). Warmed up by one launch of each and one replay."""
+    for launch in launchers:
+        launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            launchers[i % len(launchers)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / n
+
+
+def host_us(call, n: int = TIMED_LAUNCHES) -> float:
+    """Host µs one call of a kernel's wrapper takes to return (checks,
+    output, enqueue; no synchronise): on the ranks, the cost of a LocalOp
+    that the device does not see."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def copies_for(nbytes: int) -> int:
+    """How many copies of a call's inputs rotate so that their bytes pass
+    ``COLD_BYTES``: 1 where one call moves that much already."""
+    return max(1, -(-COLD_BYTES // max(nbytes, 1)))
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -445,12 +519,15 @@ def make_configs() -> list[dict]:
 
 def a2a_kernel_calls(cfg: dict, P: int) -> list[tuple]:
     """The kernel calls ``a2a_encode`` makes for one configuration, in order:
-    ``("gf_matmul", (batch, M, K, N))`` or ``("butterfly_mac", (radix, B, P))``."""
+    ``("gf_matmul", (batch, M, K, N))`` or ``("butterfly_mac", (radix, B, P,
+    rows))``, ``rows`` being ``"gathered"`` (one source every part reads
+    through a row table: a butterfly round) or ``"slots"`` (one source a part,
+    row b of each: a LocalOp's input slots)."""
     plan, K = cfg["plan"], cfg["K"]
     if cfg["kind"] == "general":  # shoot_init: w[k] = coefT[k] @ buf[k]
         return [("gf_matmul", (K, plan.n, plan.m, P))]
     if cfg["kind"] == "dft":  # one launch a butterfly round
-        return [("butterfly_mac", (plan.radix, K, P))] * plan.H
+        return [("butterfly_mac", (plan.radix, K, P, "gathered"))] * plan.H
     return draw_loose_calls(plan, P)
 
 
@@ -462,16 +539,17 @@ def draw_loose_calls(plan, P: int) -> list[tuple]:
     if plan.draw_plan is not None:  # M processors, (Z, P) as their payload
         d = plan.draw_plan
         calls.append(("gf_matmul", (plan.M, d.n, d.m, plan.Z * P)))
-    if plan.loose_plan is not None:  # Z processors, (M, P) as their payload
+    if plan.loose_plan is not None:  # M butterflies of Z points over the (M·Z, P) rows
         lp = plan.loose_plan
-        calls += [("butterfly_mac", (lp.radix, plan.Z, plan.M * P))] * lp.H
+        calls += [("butterfly_mac", (lp.radix, plan.M * plan.Z, P, "gathered"))] * lp.H
     return calls
 
 
 def ir_kernel_calls(ir, P: int, batch: int | None = None) -> list[tuple]:
     """The kernel calls ``ir_encode(kernels="cuda")`` makes for ``ir``: a
     LocalOp with one general row (not uniformly 0 or 1 across processors) is
-    one butterfly_mac over its input slots, with several one gf_matmul_batched.
+    one butterfly_mac over its input slots (at most ``MAX_SOURCES`` of them),
+    with several, or more slots, one gf_matmul_batched.
     ``batch`` is the processors a launch covers: all ``ir.K`` on one card
     (``None``), 1 on each rank of ``ir_encode_ranks``."""
     batch = ir.K if batch is None else batch
@@ -485,9 +563,9 @@ def ir_kernel_calls(ir, P: int, batch: int | None = None) -> list[tuple]:
             for i in range(c.shape[1])
             if not (np.all(c[:, i] == 0, axis=0) | np.all(c[:, i] == 1, axis=0)).all()
         )
-        if general == 1:
-            calls.append(("butterfly_mac", (c.shape[2], batch, P)))
-        elif general > 1:
+        if general == 1 and c.shape[2] <= MAX_SOURCES:
+            calls.append(("butterfly_mac", (c.shape[2], batch, P, "slots")))
+        elif general >= 1:
             calls.append(("gf_matmul", (batch, general, c.shape[2], P)))
     return calls
 
@@ -603,16 +681,20 @@ def check_gf_matmul(dev, shapes: list) -> dict:
         check(same(got, want), f"gf_matmul_batched != plain at the main-path shape {(B, M, K, N)}, q={q}")
         m_tile = launch_plan(M, N, b.data_ptr(), got.data_ptr())
         del got, want
+        nbytes = 4 * (a.numel() + b.numel() + B * M * N)
+        inputs = [(a, b)] + [(a.clone(), b.clone()) for _ in range(copies_for(nbytes) - 1)]
+        launchers = [gf_matmul_launcher(x, y, q)[0] for x, y in inputs]
         record = {
             "shape": f"batch {B} x ({M}x{K}).({K}x{N})", "q": q, "from": who, "max_abs_err": err,
             "m_tile": m_tile,
-            "ms": cuda_ms(lambda: gf_matmul_cuda(a, b, q), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: gf_matmul_plain(a, b, q), max(3, KERNEL_REPS // 4), warmup=1),
-            **bound(4 * (a.numel() + b.numel() + B * M * N), 2 * B * M * K * N),
+            "ms": kernel_ms(launchers), "input_copies": len(inputs),
+            "host_us": host_us(lambda: gf_matmul_cuda(a, b, q)),
+            "plain_ms": cuda_ms(lambda: gf_matmul_plain(a, b, q), PLAIN_REPS, warmup=1),
+            **bound(nbytes, 2 * B * M * K * N),
         }
         record["share_of_bound"] = record["bound_ms"] / record["ms"]
         at_shapes.append(record)
-        del a, b
+        del a, b, inputs, launchers
     return kernel_row("gf_matmul", cases, worst, at_shapes)
 
 
@@ -702,6 +784,135 @@ def attained_copy(dev) -> dict:
             "share_of_peak": moved / (ms / 1e3) / HBM_BYTES_PER_S}
 
 
+OFFSET_ROW_WORDS = (1 << 30) + 1  # 3 such rows put the last past 2^31 elements
+
+
+def butterfly_table(radix: int, B: int) -> np.ndarray:
+    """The row table of a butterfly's first round over B rows (B % radix ==
+    0): idx[ρ, b] is b with its lowest radix digit replaced by ρ, as a DFT
+    round and the loose step of draw-and-loose hand the kernel."""
+    b = np.arange(B)
+    return np.stack([b - b % radix + r for r in range(radix)]).astype(np.int32)
+
+
+def row_paths(sources, idx_np, B: int, P: int, out_ptr: int) -> set:
+    """The paths through the kernel that a launch's rows take: each (source
+    phase, output phase) pair of 16-byte alignment (in words) that some part
+    reads at, and "head", "tail" and "body" where some row has one."""
+    out_phase = (out_ptr // 4 + np.arange(B, dtype=np.int64) * P) % 4
+    radix = len(sources) if idx_np is None else idx_np.shape[0]
+    codes = set()
+    for r in range(radix):
+        x = sources[r if len(sources) > 1 else 0]
+        rows = np.arange(B, dtype=np.int64) if idx_np is None else idx_np[r].astype(np.int64)
+        stride = x.stride(0) if x.shape[0] > 1 else P
+        src_phase = (x.data_ptr() // 4 + rows * stride) % 4
+        codes |= set(np.unique(src_phase * 4 + out_phase).tolist())
+    paths = {(c // 4, c % 4) for c in codes}
+    head = np.minimum((4 - out_phase) % 4, P)
+    body = (P - head) // 4
+    tail = P - head - 4 * body
+    paths |= {name for name, n in (("head", head), ("body", body), ("tail", tail)) if n.max() > 0}
+    return paths
+
+
+def hold_rows(sources, tw_np: np.ndarray, q: int, idx_np, what: str, reached: set, host: bool = False) -> int:
+    """The kernel against the plain version on the same operands, bit for
+    bit, and on small cases the plain version against the host oracle over
+    the rows gathered in numpy. Adds the launch's paths (``row_paths``) to
+    ``reached``; returns the error."""
+    dev = sources[0].device
+    B, radix = tw_np.shape
+    P = sources[0].shape[1]
+    tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, q), dev)
+    idx = None if idx_np is None else torch.as_tensor(idx_np, device=dev)
+    want = butterfly_mac_rows_plain(sources, tw, tw_sh, q, idx=idx)
+    got = butterfly_mac_rows_cuda(sources, tw, tw_sh, q, idx=idx)
+    equal = same(got, want)  # the error only where they differ: int64 copies of 13 GB do not fit
+    worst = 0 if equal else max_abs_err(got, want)
+    check(equal, f"butterfly_mac_rows != plain at {what}, q={q}")
+    reached |= row_paths(sources, idx_np, B, P, got.data_ptr())
+    del got
+    if host:
+        f = Field(q)
+        oracle = np.zeros((B, P), dtype=np.uint64)
+        for r in range(radix):
+            x = to_numpy(sources[r if len(sources) > 1 else 0])
+            part = x[:B] if idx_np is None else x[idx_np[r]]
+            oracle = f.add(oracle, f.mul(part, tw_np[:, r : r + 1]))
+        check(np.array_equal(to_numpy(want), oracle.astype(np.uint32)),
+              f"butterfly_mac_rows plain != host oracle at {what}, q={q}")
+    return worst
+
+
+def check_butterfly_rows(dev) -> tuple[int, int, set]:
+    """The row form at every path it has: every (source, output) pair of
+    16-byte phases (sources that are views at word offsets 0-3 with rows P +
+    1 to P + 3 apart, outputs of every P % 4); gathered, repeated and
+    identity rows; one source for every part and one a part; radix 1 to 8
+    and the cap; rows of head or tail alone; a batch of 65,537; and offsets
+    past 2^31 elements in a source and in the output. Returns (cases, worst,
+    reached)."""
+    cases, worst, reached = 0, 0, set()
+    rng = np.random.default_rng(SEED + 60)
+
+    def twiddles(B, radix, q):
+        tw_np = rng.integers(0, q, size=(B, radix), dtype=np.uint32)
+        tw_np[0, 0] = q - 1  # a dual near 2^32
+        return tw_np
+
+    for P in (4100, 4097, 4098, 4099):  # output rows at every phase
+        for radix in (2, 3, 4):
+            q = M31 if (P + radix) % 2 else NTT
+            srcs, idx = [], []
+            for r in range(radix):
+                off, stride, rows = (r + P) % 4, P + 1 + r % 3, 9 + r
+                flat = rand_residues((off + rows * stride,), q, dev, seed=7000 + 10 * P + r)
+                srcs.append(flat[off:].view(rows, stride)[:, :P])
+                idx.append(rng.integers(0, rows, size=9))
+            worst = max(worst, hold_rows(srcs, twiddles(9, radix, q), q, np.stack(idx).astype(np.int32),
+                                         f"views at word offsets, P={P}, radix {radix}", reached, host=True))
+            cases += 1
+    for radix in range(1, 9):
+        for q, P in ((M31, 1029), (NTT, 1032)):
+            srcs = [rand_residues((7 + r, P), q, dev, seed=7100 + 10 * radix + r) for r in range(radix)]
+            worst = max(worst, hold_rows(srcs, twiddles(7, radix, q), q, None,
+                                         f"identity rows, radix {radix}, P={P}", reached, host=True))
+            shared = rand_residues((20, P + 1), q, dev, seed=7200 + radix)
+            idx = rng.integers(0, 20, size=(radix, 16)).astype(np.int32)
+            idx[:, ::3] = 5  # a row read many times
+            worst = max(worst, hold_rows([shared], twiddles(16, radix, q), q, idx,
+                                         f"one gathered source, radix {radix}, P={P + 1}", reached, host=True))
+            cases += 2
+    srcs = [rand_residues((3, 37), NTT, dev, seed=7300 + r) for r in range(MAX_SOURCES)]
+    worst = max(worst, hold_rows(srcs, twiddles(3, MAX_SOURCES, NTT), NTT, None, "radix at the cap", reached,
+                                 host=True))
+    cases += 1
+    for P in (1, 2, 3, 5, 6, 7):  # rows of head and tail, with a body of at most one chunk
+        x = rand_residues((6, P), M31, dev, seed=7400 + P)
+        worst = max(worst, hold_rows([x], twiddles(5, 2, M31), M31, rng.integers(0, 6, size=(2, 5)).astype(np.int32),
+                                     f"P={P}", reached, host=True))
+        cases += 1
+    for P in (8, 6):  # a batch the old grid's y axis could not hold
+        x = rand_residues((65540, P), NTT, dev, seed=7500 + P)
+        worst = max(worst, hold_rows([x], twiddles(65537, 2, NTT), NTT,
+                                     rng.integers(0, 65540, size=(2, 65537)).astype(np.int32),
+                                     f"batch 65537, P={P}", reached))
+        cases += 1
+    # offsets past 2^31 elements: rows 2^30 + 1 words apart, in a source and in the output
+    X = rand_residues((3, OFFSET_ROW_WORDS), M31, dev, seed=7600)
+    worst = max(worst, hold_rows([X[:, :4099]], twiddles(3, 2, M31), M31,
+                                 np.array([[2, 0, 1], [1, 2, 2]], dtype=np.int32),
+                                 "source rows 2^30 + 1 words apart", reached))
+    worst = max(worst, hold_rows([X], twiddles(3, 1, M31), M31, None, "output of 3 x (2^30 + 1)", reached))
+    cases += 2
+    del X
+    torch.cuda.empty_cache()
+    want = {(sp, op) for sp in range(4) for op in range(4)} | {"head", "body", "tail"}
+    check(want <= reached, f"butterfly_mac_rows' checks missed the paths {sorted(want - reached, key=str)}")
+    return cases, worst, reached
+
+
 def check_butterfly_mac(dev, shapes: list) -> dict:
     worst = 0
     cases = 0
@@ -736,37 +947,56 @@ def check_butterfly_mac(dev, shapes: list) -> dict:
         want = butterfly_mac_plain(parts.reshape(2, 16, -1), tw, tw_sh, q).reshape(16, 3, 5, 7)
         check(same(got, want), f"butterfly_mac != plain on all q-1, q={q}")
         cases += 1
-    before = butterfly_mac_cuda.launches
+    before = butterfly_mac_rows_cuda.launches
     z = butterfly_mac(
         torch.zeros((2, 4, 0), dtype=torch.int32, device=dev),
         torch.zeros((4, 2), dtype=torch.int32, device=dev),
         torch.zeros((4, 2), dtype=torch.int32, device=dev),
         q=M31,
     )
-    check(z.shape == (4, 0) and butterfly_mac_cuda.launches == before, "zero-size guard of butterfly_mac")
+    check(z.shape == (4, 0) and butterfly_mac_rows_cuda.launches == before, "zero-size guard of butterfly_mac")
+    n, w, reached = check_butterfly_rows(dev)
+    cases, worst = cases + n, max(worst, w)
 
-    # every shape the main path hands the kernel: one round over B processors
+    # every shape the main path hands the kernel, as the main path hands it:
+    # one source read through a butterfly round's table, or one source a slot
     at_shapes = []
-    for i, ((radix, B, Pn), q, who) in enumerate(shapes):
-        parts = rand_residues((radix, B, Pn), q, dev, seed=21 + 2 * i)
+    for i, ((radix, B, Pn, rows), q, who) in enumerate(shapes):
+        if rows == "gathered":
+            srcs, idx_np = (rand_residues((B, Pn), q, dev, seed=21 + 2 * i),), butterfly_table(radix, B)
+        else:
+            srcs = tuple(rand_residues((B, Pn), q, dev, seed=21 + 2 * i + 1000 * r) for r in range(radix))
+            idx_np = None
         tw_np = np.random.default_rng(22 + 2 * i).integers(0, q, size=(B, radix), dtype=np.uint32)
         tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, q), dev)
-        got = butterfly_mac(parts, tw, tw_sh, q=q)
-        want = butterfly_mac_plain(parts, tw, tw_sh, q)
+        idx = None if idx_np is None else torch.as_tensor(idx_np, device=dev)
+        want = butterfly_mac_rows_plain(srcs, tw, tw_sh, q, idx=idx)
+        got = butterfly_mac_rows_cuda(srcs, tw, tw_sh, q, idx=idx)
         err = max_abs_err(got, want)
-        check(same(got, want), f"butterfly_mac != plain at the main-path shape {(radix, B, Pn)}, q={q}")
+        check(same(got, want), f"butterfly_mac_rows != plain at the main-path shape {(radix, B, Pn, rows)}, q={q}")
         del got, want
+        # the bound reads each input once: the rows the table names (a DFT
+        # round reads each of its B rows for radix outputs), the twiddles and
+        # the table, and writes the output once
+        rows_read = radix * B if idx_np is None else len(np.unique(idx_np))
+        nbytes = 4 * (rows_read * Pn + B * Pn + 2 * B * radix + (0 if idx_np is None else radix * B))
+        inputs = [srcs] + [tuple(x.clone() for x in srcs) for _ in range(copies_for(nbytes) - 1)]
+        launchers = [butterfly_mac_rows_launcher(x, tw, tw_sh, q, idx=idx)[0] for x in inputs]
         record = {
-            "shape": f"({radix}, {B}, {Pn})", "q": q, "from": who, "max_abs_err": err,
-            "ms": cuda_ms(lambda: butterfly_mac_cuda(parts, tw, tw_sh, q), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: butterfly_mac_plain(parts, tw, tw_sh, q),
-                                max(3, KERNEL_REPS // 4), warmup=1),
-            **bound(4 * (parts.numel() + 2 * tw.numel() + B * Pn), 2 * radix * B * Pn),
+            "shape": f"({radix}, {B}, {Pn}), {rows}", "q": q, "from": who, "max_abs_err": err,
+            "ms": kernel_ms(launchers), "input_copies": len(inputs),
+            "host_us": host_us(lambda: butterfly_mac_rows(srcs, tw, tw_sh, q=q, idx=idx)),
+            "plain_ms": cuda_ms(lambda: butterfly_mac_rows_plain(srcs, tw, tw_sh, q, idx=idx), PLAIN_REPS, warmup=1),
+            **bound(nbytes, 2 * radix * B * Pn),
         }
         record["share_of_bound"] = record["bound_ms"] / record["ms"]
         at_shapes.append(record)
-        del parts
-    return kernel_row("butterfly_mac", cases, worst, at_shapes)
+        del launchers
+        del srcs, inputs
+        torch.cuda.empty_cache()
+    row = kernel_row("butterfly_mac", cases, worst, at_shapes)
+    row["paths_reached"] = sorted(map(str, reached))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -792,13 +1022,13 @@ def drive_encode(cfg: dict, dev, P: int):
     run_a2a = lambda: a2a_encode(x, A, plan=plan, q=q)[0]  # noqa: E731
     fn = ir_encode(ir, q=q, kernels="cuda")
 
-    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     out_a2a = run_a2a()
     torch.cuda.synchronize()
-    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     out_ir = fn(x)
     torch.cuda.synchronize()
-    g2, b2 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g2, b2 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     peak = torch.cuda.max_memory_allocated()
 
     a2a_expect = count_calls(a2a_kernel_calls(cfg, P))
@@ -860,10 +1090,10 @@ def drive_entry(cfg: dict, dev, P: int):
     calls = ir_kernel_calls(fn.ir, P)
     check(calls == ir_kernel_calls(cfg["ir"], P),
           f"{name}: the entry point runs other kernel shapes than phase 3 held")
-    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     out = fn(x)
     torch.cuda.synchronize()
-    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     expect = count_calls(calls)
     check((g1 - g0, b1 - b0) == expect,
@@ -917,7 +1147,11 @@ def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> 
     from one clock. Busy time is the union of the device intervals, so
     kernels that ran at once on two streams count once; it can exceed neither
     the kernels' sum nor the wall time, and the run fails if it does (rows
-    counted twice)."""
+    counted twice). ``butterfly_mac_fed_by`` counts, by kind, the device
+    kernel that ran just before each ``butterfly_mac`` launch on its stream,
+    with the int64 -> int32 narrowing (``is_narrowing``) a kind of its own: a
+    gather or another copy there is one that feeds the kernel its parts;
+    ``butterfly_mac_fed_by_names`` names the gathers and copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -945,9 +1179,22 @@ def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> 
     kernel_sum = sum(r[1] for r in rows)
     # busy time is the union of the device intervals: kernels on two streams
     # (an overlap LocalOp) may run at once, and then the sum exceeds it
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA and ev.name != PROFILE_WINDOW
-                   and ev.time_range.end > ev.time_range.start)
+    device_events = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                            and ev.name != PROFILE_WINDOW and ev.time_range.end > ev.time_range.start),
+                           key=lambda ev: ev.time_range.start)
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in device_events]
+    fed_by: dict = {}
+    fed_names: dict = {}
+    last_on_stream: dict = {}
+    for ev in device_events:
+        stream = getattr(ev, "device_resource_id", None)
+        if "butterfly_mac" in ev.name:
+            before = last_on_stream.get(stream)
+            feeder = "nothing" if before is None else "narrowing" if is_narrowing(before.name) else kind(before.name)
+            fed_by[feeder] = fed_by.get(feeder, 0) + 1
+            if feeder in ("gathers", "copies"):
+                fed_names[before.name] = fed_names.get(before.name, 0) + 1
+        last_on_stream[stream] = ev
     check(bool(spans), f"{name}: the profiler gave no device intervals")
     union_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -971,7 +1218,32 @@ def profile_encode(name: str, fn, reps: int, top: int = 6, kind=kernel_kind) -> 
         "idle_share": 1.0 - busy / wall,
         "ms_by_kind": by_kind,
         "device_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:top]],
+        "butterfly_mac_fed_by": fed_by,
+        "butterfly_mac_fed_by_names": fed_names,
     }
+
+
+def is_narrowing(name: str) -> bool:
+    """Whether a device kernel is the cast that ends a Shoup multiply,
+    ``core.field._narrow``'s ``.to(torch.int32)`` of a contiguous int64
+    tensor: PyTorch's copy kernel with a loader that casts (its dtypes
+    differ) and an ``int`` functor (it writes int32). A layout copy
+    (``movedim(...).contiguous()`` of int32 parts) keeps its dtype and has no
+    casting loader."""
+    return "direct_copy_kernel_cuda" in name and "LoadWithCast" in name and "lambda(int)" in name
+
+
+def check_not_fed(what: str, profile: dict, scales: int):
+    """The encode's ``butterfly_mac`` launches read their parts where they
+    lie: on the device timeline no gather and no copy runs just before one
+    (the row form's callers build no ``(radix, B, P)`` stack), but for the
+    int64 -> int32 narrowing (``is_narrowing``) that ends each of the
+    encode's ``scales`` local scales a run, just before a loose step: it is
+    the scale's own output."""
+    fed = profile["butterfly_mac_fed_by"]
+    check(sum(fed.values()) > 0, f"{what}: the profile saw no butterfly_mac launch")
+    check(not fed.get("gathers") and not fed.get("copies") and fed.get("narrowing", 0) <= scales * ENCODE_REPS,
+          f"{what}: a gather or a copy feeds butterfly_mac ({fed}; {profile['butterfly_mac_fed_by_names']})")
 
 
 def traced_phase(cfg: dict, dev, P: int) -> dict:
@@ -990,12 +1262,12 @@ def traced_phase(cfg: dict, dev, P: int) -> dict:
     tracer = Tracer()
     fn = ir_encode(ir, q=q, tracer=tracer, topo=topo)
     calls = 2
-    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g0, b0 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     for i in range(calls):
         out = fn(x)
         check(same(out, want), f"traced: call {i} != the untraced encode")
         check(fn.permutes_run == budget, f"traced: {fn.permutes_run} permutations, the budget is {budget}")
-    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    g1, b1 = gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
     expect = count_calls(ir_kernel_calls(ir, P))
     check((g1 - g0, b1 - b0) == (calls * expect[0], calls * expect[1]),
           f"traced: launched (gf, bf)={(g1 - g0, b1 - b0)}, expected {calls} x {expect}")
@@ -1157,7 +1429,7 @@ def coded_configs() -> list[dict]:
 
 
 def launches() -> tuple[int, int]:
-    return gf_matmul_cuda.launches, butterfly_mac_cuda.launches
+    return gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches
 
 
 def check_launches(name: str, entry: str, before: tuple, calls: list):
@@ -1374,14 +1646,14 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
     own: every count is 0 before it and read after it. Then each
     configuration's times. Returns (launches, records)."""
     gf_matmul_cuda.launches = 0
-    butterfly_mac_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
     records, timers = {}, {}
     for cfg, drive in zip(cfgs, (drive_coded_checkpoint, drive_lcc_serve, drive_lcc_square)):
         records[cfg["name"]], timers[cfg["name"]] = drive(cfg, dev)
         torch.cuda.empty_cache()
     records["grad_coding"] = drive_grad_coding(dev)
     torch.cuda.empty_cache()
-    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
     for k, n in counted.items():
         check(n > 0, f"the coded path never launched {k}")
     # times (these repeats are not part of the counted run)
@@ -1392,6 +1664,8 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
             record[f"{entry}_ms"] = wall_ms(run, ENCODE_REPS)
         record["profile"] = {entry: profile_encode(f"{name}/{entry}", run, ENCODE_REPS)
                              for entry, run in entries.items()}
+        if name == "lcc_square":
+            check_not_fed(f"{name}/lcc_encode", record["profile"]["lcc_encode"], 1)  # the forward encode's scale
         timers[name] = None
         torch.cuda.empty_cache()
     return counted, records
@@ -1631,7 +1905,7 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
                         "state_bytes": spec_bytes(scfg["spec"]), "limbs_a_shard": scfg["S"]}}
 
     gf_matmul_cuda.launches = 0
-    butterfly_mac_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
     rep_a = eng.serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (a)
     greedy = tokens_of(rep_a)
     record["greedy"] = check_report("greedy", rep_a, trace, cfg.vocab_size)
@@ -1665,7 +1939,7 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
           f"serve/fixed: first tokens equal the continuous engine's for "
           f"{record['fixed']['first_tokens_equal_continuous']} of {FIXED_PROMPTS} prompts")
     record["prefill_vs_refeed"] = prefill_vs_refeed(model, params, dev)  # (f)
-    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
     check(counted["gf_matmul"] > 0, "the serve path never launched gf_matmul")
     record["launches"] = counted
     record["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -1877,12 +2151,12 @@ def train_phase(tcfg: dict, dev) -> tuple[dict, dict]:
     (a) full width, (b) the card against the CPU, (c) the resumes. Returns
     (launches, record)."""
     gf_matmul_cuda.launches = 0
-    butterfly_mac_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
     record = {"full_width": train_full_width(dev)}
     check(launches() == (0, 0), "train: the unguarded steps launched a hand kernel")
     record["small_vs_cpu"] = train_small_vs_cpu(dev)
     record["resume"] = train_resume(tcfg, dev)
-    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_cuda.launches}
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
     check(counted["gf_matmul"] > 0, "the train path never launched gf_matmul")
     record["launches"] = counted
     torch.cuda.empty_cache()
@@ -2263,16 +2537,17 @@ def main() -> int:
     train_cfg = train_config()
     ranks_cfgs = ranks_configs()
     shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs, P)
+    t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
         check_butterfly_mac(dev, shapes["butterfly_mac"]),
     ]
-    say("kernels", card=smi, copy_1GiB=attained_copy(dev), kernels=rows)
+    say("kernels", card=smi, copy_1GiB=attained_copy(dev), kernels=rows, seconds=time.perf_counter() - t_kernels)
     torch.cuda.empty_cache()
 
     # phase 4: the main path, with every count set to 0 just before it
     gf_matmul_cuda.launches = 0
-    butterfly_mac_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
     records, timers = {}, {}
     for cfg in configs:
         if cfg["kind"] == "topology":
@@ -2285,7 +2560,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     main_path_launches = {
         "gf_matmul": gf_matmul_cuda.launches,
-        "butterfly_mac": butterfly_mac_cuda.launches,
+        "butterfly_mac": butterfly_mac_rows_cuda.launches,
     }
     for k, n in main_path_launches.items():
         check(n > 0, f"the main path never launched {k}")
@@ -2309,6 +2584,8 @@ def main() -> int:
         record["profile"] = {
             entry: profile_encode(f"{name}/{entry}", run, ENCODE_REPS) for entry, run in entries.items()
         }
+        if name in ("dft", "draw_loose"):  # draw-and-loose scales once before its loose step
+            check_not_fed(f"{name}/a2a_encode", record["profile"]["a2a_encode"], int(name == "draw_loose"))
         say(name, card=smi, **record)
         del entries
         timers[name] = None
@@ -2316,11 +2593,11 @@ def main() -> int:
 
     # phase 5: the traced path, counted on its own
     gf_matmul_cuda.launches = 0
-    butterfly_mac_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
     traced = traced_phase(next(c for c in configs if c["name"] == "multilevel"), dev, P)
     check(gf_matmul_cuda.launches > 0, "the traced path never launched gf_matmul")
     say("traced", card=smi, launches={"gf_matmul": gf_matmul_cuda.launches,
-                                      "butterfly_mac": butterfly_mac_cuda.launches}, **traced)
+                                      "butterfly_mac": butterfly_mac_rows_cuda.launches}, **traced)
     torch.cuda.empty_cache()
 
     # phase 6: the coded path, counted on its own

@@ -5,24 +5,28 @@
 * Lagrange matrices via inverse-Vandermonde ∘ forward-Vandermonde — Theorem 4
 
 All twiddles/coefficients are schedule constants with Shoup duals.
-``index_select`` with the per-round digit-group permutations is the local
-stand-in for one port of a communication round (see dist/collectives.py).
 Tensors are ``int32`` bit patterns of canonical residues (``core.field``)
 and every function runs on the device where its input lies.
 
-One butterfly round is ``out[k] = Σ_ρ tw[k, ρ] · v[k with digit_t = ρ]``. On a
-CUDA device the radix gathered parts go through the hand-written
-``butterfly_mac`` kernel (``kernels/butterfly/ops.py``), one launch a round;
-on the CPU the round is the reference's chain of Shoup multiplies and
-``madd``.
+One butterfly round is ``out[k] = Σ_ρ tw[k, ρ] · v[k with digit_t = ρ]``: the
+row gather with the per-round digit-group permutation is the local stand-in
+for one port of a communication round (see dist/collectives.py). It is one
+call of ``butterfly_mac_rows`` (``kernels/butterfly/ops.py``), which reads the
+rows of ``v`` through the round's ``(radix, K)`` index table: one launch of
+the hand-written kernel a round on a CUDA device, its plain PyTorch version on
+the CPU, over the same tables. The loose step of draw-and-loose runs M such
+butterflies at once over the ``(M·Z, payload)`` rows in their own order, with
+tables expanded over the M groups, so nothing is transposed or gathered first.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from .field import Field, madd, shoup_mul, shoup_precompute, to_tensor
+from .field import Field, shoup_mul, shoup_precompute, to_tensor
 from .prepare_shoot import encode_universal
 from .schedule import (
     ButterflyPlan,
@@ -38,30 +42,50 @@ def _bcast(coef, npay):
     return coef.reshape(coef.shape + (1,) * npay)
 
 
-def _butterfly_constants(plan: ButterflyPlan, inverse: bool, dev: torch.device):
-    """Per round t: (twiddles, their Shoup duals, gather index) on ``dev``.
-    ``src[rho, k]`` is k with digit_t replaced by rho. Uploaded once for each
-    (plan, direction, device), see ``schedule.plan_constants``."""
+def _butterfly_constants(plan: ButterflyPlan, inverse: bool, dev: torch.device, groups: int = 1):
+    """Per round t: (twiddles, their Shoup duals, row table) on ``dev``, for
+    ``groups`` independent butterflies whose rows lie group-major (row
+    ``g·K + k``): ``idx[ρ, g·K + k] = g·K + (k with digit_t replaced by ρ)``
+    and every group takes the plan's twiddle rows. Uploaded once for each
+    (plan, direction, device, groups), see ``schedule.plan_constants``."""
 
     def make():
-        k = np.arange(plan.K)
+        K = plan.K
+        k = np.arange(K)
+        base = (np.arange(groups) * K).repeat(K)  # g·K for row g·K + k
         consts = []
         for t in range(plan.H):
             step = plan.radix**t
             digit = (k // step) % plan.radix
             src = np.stack([k + (rho - digit) * step for rho in range(plan.radix)])
+            tw = plan.inv_twiddles[t] if inverse else plan.twiddles[t]
+            tw_sh = plan.inv_twiddles_shoup[t] if inverse else plan.twiddles_shoup[t]
             consts.append(
                 (
-                    to_tensor(plan.inv_twiddles[t] if inverse else plan.twiddles[t], dev),
-                    to_tensor(
-                        plan.inv_twiddles_shoup[t] if inverse else plan.twiddles_shoup[t], dev
-                    ),
-                    torch.as_tensor(src, device=dev),
+                    to_tensor(np.tile(tw, (groups, 1)), dev),
+                    to_tensor(np.tile(tw_sh, (groups, 1)), dev),
+                    torch.as_tensor((np.tile(src, groups) + base).astype(np.int32), device=dev),
                 )
             )
         return consts
 
-    return plan_constants(plan, ("butterfly", inverse, dev), make)
+    return plan_constants(plan, ("butterfly", inverse, dev, groups), make)
+
+
+def _butterfly_rows(rows: torch.Tensor, plan: ButterflyPlan, inverse: bool, groups: int = 1) -> torch.Tensor:
+    """``groups`` butterflies over the ``(groups·K, P)`` rows, group-major:
+    one ``butterfly_mac_rows`` a round, reading the last round's rows through
+    the round's table. Returns a new ``(groups·K, P)`` tensor."""
+    # imported here: the kernel package itself imports core.field
+    from ..kernels.butterfly.ops import butterfly_mac_rows
+
+    if rows.numel() == 0:
+        return rows.clone()
+    consts = _butterfly_constants(plan, inverse, rows.device, groups)
+    for t in range(plan.H - 1, -1, -1) if inverse else range(plan.H):
+        tw, tw_sh, idx = consts[t]
+        rows = butterfly_mac_rows((rows,), tw, tw_sh, q=plan.q, idx=idx)
+    return rows
 
 
 def butterfly_apply(
@@ -71,30 +95,8 @@ def butterfly_apply(
 
     Round t: out[k] = Σ_ρ tw[k, ρ] · v[k with digit_t = ρ]  (Eq. 9/10).
     """
-    radix, H, q = plan.radix, plan.H, plan.q
-    npay = v.ndim - 1
-    consts = _butterfly_constants(plan, inverse, v.device)
-    if v.is_cuda:
-        # imported here: the kernel package itself imports core.field
-        from ..kernels.butterfly.ops import butterfly_mac
-    for t in range(H - 1, -1, -1) if inverse else range(H):
-        tw, tw_sh, src = consts[t]
-        if v.is_cuda:
-            # one gather for all radix parts, then one kernel launch
-            parts = v.index_select(0, src.reshape(-1)).reshape(radix, *v.shape)
-            v = butterfly_mac(parts, tw, tw_sh, q=q)
-            continue
-        acc = None
-        for rho in range(radix):
-            term = shoup_mul(
-                v.index_select(0, src[rho]),
-                _bcast(tw[:, rho], npay),
-                _bcast(tw_sh[:, rho], npay),
-                q,
-            )
-            acc = term if acc is None else madd(acc, term, q)
-        v = acc
-    return v
+    out = _butterfly_rows(v.reshape(plan.K, math.prod(v.shape[1:])), plan, inverse)
+    return out.reshape(v.shape)
 
 
 def encode_dft(x: torch.Tensor, plan: ButterflyPlan) -> torch.Tensor:
@@ -142,13 +144,9 @@ def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
     F = _scale(F, plan)
 
     # ---- loose: M parallel Z-point butterflies (batched over i) -----------
-    if plan.loose_plan is not None:
-        Ft = torch.movedim(F, 0, 1)  # (Z, M, *payload)
-        out = butterfly_apply(Ft, plan.loose_plan)
-        out = torch.movedim(out, 1, 0)
-    else:
-        out = F
-    return out.reshape(K, *payload)
+    if plan.loose_plan is not None:  # the rows j + Z*i of F, in their own order
+        F = _butterfly_rows(F.reshape(K, math.prod(payload)), plan.loose_plan, False, groups=M)
+    return F.reshape(K, *payload)
 
 
 def decode_draw_loose(y: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
@@ -158,9 +156,8 @@ def decode_draw_loose(y: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
     payload = y.shape[1:]
     v = y.reshape(M, Z, *payload)
     if plan.loose_plan is not None:
-        vt = torch.movedim(v, 0, 1)
-        vt = butterfly_apply(vt, plan.loose_plan, inverse=True)
-        v = torch.movedim(vt, 1, 0)
+        rows = v.reshape(K, math.prod(payload))
+        v = _butterfly_rows(rows, plan.loose_plan, True, groups=M).reshape(M, Z, *payload)
     v = _scale(v, plan, inverse=True)
     if plan.draw_plan is not None:
         Vinv = plan_constants(

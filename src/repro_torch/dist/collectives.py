@@ -162,6 +162,8 @@ def _lower_local(step: LocalOp, bake, kernels: str) -> dict:
     spec["gen"] = tuple(gen_rows)
     if gen_rows:
         spec["coef"] = bake(c[:, gen_rows, :])
+        if kernels == "cuda" and len(gen_rows) == 1:  # butterfly_mac_rows' (R, n_in) twiddles
+            spec["row"] = bake(np.ascontiguousarray(c[:, gen_rows[0], :]))
     return spec
 
 
@@ -267,15 +269,15 @@ def _apply_local(out_slots, in_slots, spec, buf, zero, npay, *, kernels: str, q:
         c, csh = spec["coef"]
         if kernels == "cuda":
             # imported here: the kernel packages themselves import core.field
-            from ..kernels.butterfly.ops import butterfly_mac
+            from ..kernels.butterfly.kernel import MAX_SOURCES
+            from ..kernels.butterfly.ops import butterfly_mac_rows
             from ..kernels.gf_matmul.ops import gf_matmul_batched
 
             P = math.prod(zero.shape[1:])
-            if len(spec["gen"]) == 1:
-                parts = torch.stack(xs, dim=0).reshape(len(in_slots), R, P)
-                out = butterfly_mac(
-                    parts, c[:, 0, :].contiguous(), csh[:, 0, :].contiguous(), q=q
-                )[:, None]  # (R, 1, P)
+            if len(spec["gen"]) == 1 and len(in_slots) <= MAX_SOURCES:
+                # each input slot is one source, read where it lies
+                tw, tw_sh = spec["row"]
+                out = butterfly_mac_rows([x.reshape(R, P) for x in xs], tw, tw_sh, q=q)[:, None]  # (R, 1, P)
             else:
                 stacked = torch.stack(xs, dim=1).reshape(R, len(in_slots), P)
                 out = gf_matmul_batched(c, stacked, q=q)  # (R, n_gen, P)

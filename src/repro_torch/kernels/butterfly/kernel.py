@@ -1,15 +1,23 @@
-"""The fused butterfly-round multiply-accumulate on the card: ctypes wrapper
-of ``csrc/butterfly_mac.cu`` and the plain PyTorch version of the same
-function,
+"""The butterfly-round multiply-accumulate on the card: ctypes wrapper of
+``csrc/butterfly_mac.cu`` and the plain PyTorch version of the same
+function, over gathered rows:
 
-    out[b, n] = Σ_ρ tw[b, ρ] · parts[ρ, b, n]   (mod q).
+    out[b, n] = Σ_ρ tw[b, ρ] · X_ρ[idx[ρ, b], n]   (mod q).
 
-``butterfly_mac_cuda`` is the only door to the kernel: dense ``int32``
-bit-pattern tensors on one CUDA device in, a new tensor out, launched on
-PyTorch's current stream without synchronising; it raises if the launch is
-refused and adds one to ``butterfly_mac_cuda.launches`` where it launches and
-nowhere else. ``butterfly_mac_plain`` is the same function through
-``core.field``'s Shoup multiply, on any device.
+Each ``X_ρ`` is a 2-D ``(rows_ρ, P)`` ``int32`` bit-pattern tensor whose
+columns are contiguous (its rows may be any stride apart: a slice of a wider
+buffer is read where it lies). ``sources`` holds one tensor a ρ, or one tensor
+that every ρ reads (a DFT round over one vector). ``idx`` is an optional
+``(radix, B)`` ``int32`` table of row indices; without it the row is ``b``.
+
+``butterfly_mac_rows_cuda`` is the only door to the kernel: operands on one
+CUDA device in, a new dense ``(B, P)`` tensor out, launched on PyTorch's
+current stream without synchronising; it raises if the launch is refused and
+adds one to ``butterfly_mac_rows_cuda.launches`` where it launches and
+nowhere else. ``butterfly_mac_rows_plain`` is the same function through
+``core.field``'s Shoup multiply on any device: torch gathers the rows, then
+folds them as ``butterfly_mac_plain`` does; the CPU takes it, and the on-card
+checks hold the kernel against it bit for bit.
 """
 
 from __future__ import annotations
@@ -21,13 +29,21 @@ import torch
 from ...core.field import _csub_wide, _narrow, _shoup_wide, _wide
 from .._build import load_library
 
+#: base pointers the kernel takes by value: the most sources, and the most
+#: radix, of one launch
+MAX_SOURCES = 64
+
 
 def _library():
     lib = load_library("butterfly_mac")
-    fn = lib.butterfly_mac_launch
+    fn = lib.butterfly_mac_rows_launch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p,  # parts
+            ctypes.POINTER(ctypes.c_void_p),  # bases
+            ctypes.POINTER(ctypes.c_longlong),  # row strides (elements)
+            ctypes.POINTER(ctypes.c_longlong),  # rows
+            ctypes.c_int,  # n_sources
+            ctypes.c_void_p,  # idx (null: row b)
             ctypes.c_void_p,  # tw
             ctypes.c_void_p,  # tw_sh
             ctypes.c_void_p,  # out
@@ -35,56 +51,141 @@ def _library():
             ctypes.c_longlong,  # B
             ctypes.c_longlong,  # P
             ctypes.c_uint,  # q
+            ctypes.c_int,  # device
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_operands(parts, tw, tw_sh, q: int):
-    if parts.ndim != 3:
-        raise ValueError(f"expected parts (radix, B, P), got {tuple(parts.shape)}")
-    radix, B, _ = parts.shape
-    if tuple(tw.shape) != (B, radix) or tuple(tw_sh.shape) != (B, radix):
-        raise ValueError(
-            f"tw and tw_sh must be ({B}, {radix}), got {tuple(tw.shape)}, {tuple(tw_sh.shape)}"
-        )
-    for t in (parts, tw, tw_sh):
+def _check_rows(sources, tw, tw_sh, idx, q: int) -> tuple[int, int, int]:
+    """(radix, B, P) of a call, after every check that needs no value of a
+    device tensor. Every operand lies on one device: neither door moves one."""
+    sources = tuple(sources)
+    operands = (*sources, tw, tw_sh) + (() if idx is None else (idx,))
+    if len({t.device for t in operands}) > 1:
+        raise ValueError(f"butterfly_mac_rows needs every operand on one device, got "
+                         f"{sorted({str(t.device) for t in operands})}")
+    if tw.ndim != 2 or tw_sh.shape != tw.shape:
+        raise ValueError(f"tw and tw_sh must be one (B, radix) shape, got {tuple(tw.shape)}, {tuple(tw_sh.shape)}")
+    B, radix = tw.shape
+    if not 1 <= radix <= MAX_SOURCES:
+        raise ValueError(f"radix {radix} is outside [1, {MAX_SOURCES}] (the kernel's base-pointer cap)")
+    if len(sources) not in (1, radix):
+        raise ValueError(f"expected 1 or {radix} sources, got {len(sources)}")
+    for t in operands:
         if t.dtype != torch.int32:
-            raise TypeError(f"operands must be int32 bit patterns, got {t.dtype}")
+            raise TypeError(f"operands must be int32 (bit patterns, row indices), got {t.dtype}")
+    P = sources[0].shape[-1] if sources[0].ndim == 2 else -1
+    for x in sources:
+        if x.ndim != 2 or x.shape[1] != P:
+            raise ValueError(f"every source must be (rows, {P}), got {tuple(x.shape)}")
+        if P > 1 and x.stride(1) != 1:
+            raise ValueError("a source's columns must be contiguous")
+    if idx is None:
+        if any(x.shape[0] < B for x in sources):
+            raise ValueError(f"without idx every source needs B = {B} rows")
+    elif tuple(idx.shape) != (radix, B):
+        raise ValueError(f"idx must be ({radix}, {B}), got {tuple(idx.shape)}")
     if not (2 < q < (1 << 31)):
         raise ValueError(f"q={q} out of supported range (3, 2^31)")
+    return radix, B, P
 
 
-def butterfly_mac_cuda(
-    parts: torch.Tensor, tw: torch.Tensor, tw_sh: torch.Tensor, q: int
-) -> torch.Tensor:
-    """One fused pass by the CUDA kernel. parts: (radix, B, P); tw, tw_sh:
-    (B, radix), the twiddles and their Shoup duals; all contiguous on one
-    CUDA device."""
-    _check_operands(parts, tw, tw_sh, q)
-    for t in (parts, tw, tw_sh):
-        if not t.is_cuda or t.device != parts.device:
-            raise ValueError(f"butterfly_mac_cuda needs every operand on one CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("butterfly_mac_cuda needs contiguous operands")
-    radix, B, P = parts.shape
-    if min(radix, B, P) < 1:
-        raise ValueError(f"butterfly_mac_cuda takes no empty operand, got {tuple(parts.shape)}")
+def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None):
+    """``(launch, out)``: every check, the output ``out`` (a dense (B, P)
+    tensor) and the C arguments made once; each ``launch()`` enqueues one pass
+    of the kernel into ``out`` on PyTorch's current stream and counts it.
+    ``butterfly_mac_rows_cuda`` is one launch of a fresh launcher; a timing
+    loop calls ``launch`` alone, so that its events see the device and not
+    the checks. tw and tw_sh contiguous (B, radix), idx contiguous (radix, B)
+    int32; every operand on one CUDA device. The kernel traps on a row index outside its source (the
+    next synchronise raises)."""
+    sources = tuple(sources)
+    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q)
+    dev = tw.device
+    index = tw.get_device()  # -1 off the card
+    tables = (tw, tw_sh) if idx is None else (tw, tw_sh, idx)
+    if index < 0:
+        raise ValueError(f"butterfly_mac_rows_cuda needs its operands on a CUDA device, got {dev}")
+    if not all(t.is_contiguous() for t in tables):
+        raise ValueError("butterfly_mac_rows_cuda needs contiguous tw, tw_sh and idx")
+    if B < 1 or P < 1:
+        raise ValueError(f"butterfly_mac_rows_cuda takes no empty operand, got B={B}, P={P}")
+    n = len(sources)
+    bases = (ctypes.c_void_p * n)(*(x.data_ptr() for x in sources))
+    strides = (ctypes.c_longlong * n)(*(x.stride(0) if x.shape[0] > 1 else P for x in sources))
+    rows = (ctypes.c_longlong * n)(*(x.shape[0] for x in sources))
     fn = _library()
-    with torch.cuda.device(parts.device):
-        out = torch.empty((B, P), dtype=torch.int32, device=parts.device)
-        err = fn(
-            parts.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), out.data_ptr(),
-            radix, B, P, q, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"butterfly_mac_launch failed with CUDA error {err}")
-    butterfly_mac_cuda.launches += 1
+    out = torch.empty((B, P), dtype=torch.int32, device=dev)
+    args = (bases, strides, rows, n, None if idx is None else idx.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
+            out.data_ptr(), radix, B, P, q, index)
+
+    def launch():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if torch.cuda.current_device() == index:
+            err = fn(*args, stream)
+        else:  # the C launcher works on the current device
+            with torch.cuda.device(index):
+                err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"butterfly_mac_rows_launch failed with CUDA error {err}")
+        butterfly_mac_rows_cuda.launches += 1
+
+    launch.operands = (sources, tables, out)  # the C arguments are their addresses: keep them alive
+    return launch, out
+
+
+def butterfly_mac_rows_cuda(sources, tw, tw_sh, q: int, *, idx=None) -> torch.Tensor:
+    """One pass of the CUDA kernel over the rows that ``idx`` names (see the
+    module's docstring and ``butterfly_mac_rows_launcher``): a new (B, P)."""
+    launch, out = butterfly_mac_rows_launcher(sources, tw, tw_sh, q, idx=idx)
+    launch()
     return out
 
 
-butterfly_mac_cuda.launches = 0
+butterfly_mac_rows_cuda.launches = 0
+
+
+def butterfly_mac_rows_plain(
+    sources, tw, tw_sh, q: int, *, idx=None, chunk_bytes: int = 1 << 28
+) -> torch.Tensor:
+    """The same function in plain PyTorch: the rows gathered by torch, then
+    ``radix`` Shoup multiplies folded by modular adds in ``int64``, over
+    column chunks sized so the temporaries stay near ``chunk_bytes``. Refuses
+    a row index outside its source."""
+    sources = tuple(sources)
+    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q)
+    dev = tw.device
+    out = torch.zeros((B, max(P, 0)), dtype=torch.int32, device=dev)
+    if B < 1 or P < 1:
+        return out
+    source = (lambda r: sources[r]) if len(sources) > 1 else (lambda r: sources[0])
+    if idx is None:
+        rows = torch.arange(B, device=dev).expand(radix, B)
+    else:
+        rows = idx.to(torch.int64)
+        for r in range(radix):
+            if int(rows[r].min()) < 0 or int(rows[r].max()) >= source(r).shape[0]:
+                raise ValueError(f"idx[{r}] names a row outside its source of {source(r).shape[0]} rows")
+    c = _wide(tw)
+    c_pre = _wide(tw_sh)
+    step = max(1, chunk_bytes // (8 * B))
+    for n0 in range(0, P, step):
+        acc = None
+        for r in range(radix):
+            x = source(r)
+            part = x[:, n0 : n0 + step].index_select(0, rows[r])
+            term = _shoup_wide(_wide(part), c[:, r : r + 1], c_pre[:, r : r + 1], q)
+            acc = term if acc is None else _csub_wide(acc + term, q)
+        out[:, n0 : n0 + step] = _narrow(acc)
+    return out
+
+
+def _dense_sources(parts: torch.Tensor):
+    if parts.ndim != 3:
+        raise ValueError(f"expected parts (radix, B, P), got {tuple(parts.shape)}")
+    return tuple(parts.unbind(0))
 
 
 def butterfly_mac_plain(
@@ -95,23 +196,8 @@ def butterfly_mac_plain(
     *,
     chunk_bytes: int = 1 << 28,
 ) -> torch.Tensor:
-    """The same function in plain PyTorch: ``radix`` Shoup multiplies folded
-    by modular adds in ``int64``, over column chunks sized so the temporaries
-    stay near ``chunk_bytes``."""
-    _check_operands(parts, tw, tw_sh, q)
-    radix, B, P = parts.shape
-    out = torch.zeros((B, P), dtype=torch.int32, device=parts.device)
-    if min(radix, B, P) < 1:
-        return out
-    c = _wide(tw.to(parts.device))
-    c_pre = _wide(tw_sh.to(parts.device))
-    step = max(1, chunk_bytes // (8 * B))
-    for n0 in range(0, P, step):
-        acc = None
-        for r in range(radix):
-            term = _shoup_wide(
-                _wide(parts[r, :, n0 : n0 + step]), c[:, r : r + 1], c_pre[:, r : r + 1], q
-            )
-            acc = term if acc is None else _csub_wide(acc + term, q)
-        out[:, n0 : n0 + step] = _narrow(acc)
-    return out
+    """The dense case in plain PyTorch (``butterfly_mac_rows_plain`` with
+    ``parts[ρ]`` as source ρ)."""
+    if parts.ndim == 3 and tuple(tw.shape) != (parts.shape[1], parts.shape[0]):
+        raise ValueError(f"tw and tw_sh must be {(parts.shape[1], parts.shape[0])}, got {tuple(tw.shape)}")
+    return butterfly_mac_rows_plain(_dense_sources(parts), tw, tw_sh, q, chunk_bytes=chunk_bytes)

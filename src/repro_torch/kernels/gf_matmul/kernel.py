@@ -77,9 +77,13 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, q: int):
         raise ValueError(f"q={q} must be an odd modulus in (2, 2^31)")
 
 
-def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
-    """C[z] = (A[z] @ B[z]) mod q by the CUDA kernel. a: (batch, M, K),
-    b: (batch, K, N), canonical residues, contiguous, on one CUDA device.
+def gf_matmul_launcher(a: torch.Tensor, b: torch.Tensor, q: int):
+    """``(launch, out)``: every check, the output ``out`` and the launch plan
+    made once; each ``launch()`` enqueues one product into ``out`` on
+    PyTorch's current stream and counts it. ``gf_matmul_cuda`` is one launch
+    of a fresh launcher; a timing loop calls ``launch`` alone, so that its
+    events see the device and not the checks. a: (batch, M, K), b: (batch,
+    K, N), canonical residues, contiguous, on one CUDA device.
     ``launch_plan`` chooses the kernel and its row tile by shape."""
     _check_operands(a, b, q)
     if not a.is_contiguous() or not b.is_contiguous():
@@ -91,17 +95,31 @@ def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     if min(batch, M, K, N) < 1:
         raise ValueError(f"gf_matmul_cuda takes no empty operand, got {tuple(a.shape)} @ {tuple(b.shape)}")
     fn = _library()
-    with torch.cuda.device(a.device):
-        out = torch.empty((batch, M, N), dtype=torch.int32, device=a.device)
-        m_tile = launch_plan(M, N, b.data_ptr(), out.data_ptr())
-        err = fn(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K, N, q, m_tile, a.device.index,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        form = "the general kernel" if m_tile == GENERAL else f"row tile {m_tile}"
-        raise RuntimeError(f"gf_matmul_launch ({form}) failed with CUDA error {err}")
-    gf_matmul_cuda.launches += 1
+    dev, index = a.device, a.get_device()
+    out = torch.empty((batch, M, N), dtype=torch.int32, device=dev)
+    m_tile = launch_plan(M, N, b.data_ptr(), out.data_ptr())
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K, N, q, m_tile, index)
+
+    def launch():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if torch.cuda.current_device() == index:
+            err = fn(*args, stream)
+        else:  # the C launcher works on the current device
+            with torch.cuda.device(index):
+                err = fn(*args, stream)
+        if err != 0:
+            form = "the general kernel" if m_tile == GENERAL else f"row tile {m_tile}"
+            raise RuntimeError(f"gf_matmul_launch ({form}) failed with CUDA error {err}")
+        gf_matmul_cuda.launches += 1
+
+    launch.operands = (a, b, out)  # the C arguments are their addresses: keep them alive
+    return launch, out
+
+
+def gf_matmul_cuda(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """C[z] = (A[z] @ B[z]) mod q by the CUDA kernel (see ``gf_matmul_launcher``)."""
+    launch, out = gf_matmul_launcher(a, b, q)
+    launch()
     return out
 
 

@@ -105,25 +105,28 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     leaves = list(leaves)
     if len(leaves) != treedef.num_leaves:
         raise ValueError(f"{len(leaves)} leaves for a tree of {treedef.num_leaves}")
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.keys, kids))
-        if td.kind == "OrderedDict":
-            return OrderedDict(zip(td.keys, kids))
-        if td.kind == "defaultdict":
-            return defaultdict(td.node, zip(td.keys, kids))
-        if td.kind == "namedtuple":
-            return td.node(*kids)
-        return kids if td.kind == "list" else tuple(kids)
 
-    return build(treedef)
+def _build(td: TreeDef, it) -> Any:
+    # a module-level function, not a closure that calls itself: such a closure
+    # is a reference cycle that would hold every leaf until Python's cyclic
+    # collector ran, so a train step's gradients and its last state would
+    # outlive it by a time that depends on the whole process's history
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.keys, kids))
+    if td.kind == "OrderedDict":
+        return OrderedDict(zip(td.keys, kids))
+    if td.kind == "defaultdict":
+        return defaultdict(td.node, zip(td.keys, kids))
+    if td.kind == "namedtuple":
+        return td.node(*kids)
+    return kids if td.kind == "list" else tuple(kids)
 
 
 def leaves(tree) -> list:

@@ -18,10 +18,12 @@ and the other cases hold the port against the reference's exact host oracle
 generator.
 """
 
+import gc
 import os
 import subprocess
 import sys
 import textwrap
+import weakref
 from collections import OrderedDict, namedtuple
 
 import numpy as np
@@ -139,6 +141,25 @@ def test_tree_namedtuple_and_subclasses_as_jax():
     assert type(back["p"]) is Pair and type(back["o"]) is OrderedDict
     assert jax.tree.structure(back) == r_treedef
     assert list(tree.flatten_with_names(t)) == ["d", "p/b", "p/a/1", "t"]
+
+
+def test_tree_unflatten_holds_no_leaf_in_a_reference_cycle():
+    """A rebuilt tree's leaves are freed by reference counting alone, with
+    Python's cyclic collector off."""
+    t = {"a": [torch.zeros(3), (torch.ones(2), None)], "b": OrderedDict(c=torch.arange(4))}
+    leaves, treedef = tree.flatten(t)
+    refs = [weakref.ref(x) for x in leaves]
+    gc.collect()
+    gc.disable()
+    try:
+        back = tree.unflatten(treedef, [x.clone() for x in leaves])
+        rebuilt = [weakref.ref(x) for x in tree.leaves(back)]
+        del back
+        assert all(r() is None for r in rebuilt)
+        del t, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_tree_rejects_mismatches():

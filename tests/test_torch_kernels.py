@@ -23,8 +23,13 @@ from repro.kernels.gf_matmul.ref import gf_matmul_host
 from repro_torch.convert import to_numpy, to_tensor
 from repro_torch.dist.collectives import ir_encode
 from repro_torch.core.schedule import plan_prepare_shoot
-from repro_torch.kernels.butterfly.kernel import butterfly_mac_cuda, butterfly_mac_plain
-from repro_torch.kernels.butterfly.ops import butterfly_mac, butterfly_mac_reference
+from repro_torch.kernels.butterfly.kernel import (
+    MAX_SOURCES,
+    butterfly_mac_plain,
+    butterfly_mac_rows_cuda,
+    butterfly_mac_rows_plain,
+)
+from repro_torch.kernels.butterfly.ops import butterfly_mac, butterfly_mac_reference, butterfly_mac_rows
 from repro_torch.kernels.butterfly.ref import butterfly_mac_ref
 from repro_torch.kernels.gf_matmul.kernel import (
     GENERAL,
@@ -309,8 +314,8 @@ def test_cuda_only_doors_raise_on_the_cpu():
         gf_matmul_cuda(a, b, q)
     parts, tw = t(rand_u32((2, 4, 8), q, 3)), t(rand_u32((4, 2), q, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        butterfly_mac_cuda(parts, tw, tw, q)
-    assert gf_matmul_cuda.launches == 0 and butterfly_mac_cuda.launches == 0
+        butterfly_mac_rows_cuda(parts.unbind(0), tw, tw, q)
+    assert gf_matmul_cuda.launches == 0 and butterfly_mac_rows_cuda.launches == 0
     A = rand_u32((8, 8), q, 5)
     with pytest.raises(ValueError, match="CUDA"):
         ir_encode(plan_prepare_shoot(8, 1).to_ir(A, q=q), q=q, device="cpu", kernels="cuda")
@@ -335,3 +340,154 @@ def test_wrappers_refuse_wrong_operands():
         )
     with pytest.raises(ValueError, match="odd"):
         gf_matmul_plain(torch.zeros((1, 2, 2), dtype=torch.int32), torch.zeros((1, 2, 2), dtype=torch.int32), 1 << 20)
+
+
+# ---------------------------------------------------------------------------
+# butterfly_mac_rows: the kernel's row form, out[b] = Σ_ρ tw[b, ρ]·X_ρ[idx[ρ, b]]
+# ---------------------------------------------------------------------------
+
+
+def rows_case(radix, B, P, idx_mode, src_mode, q, seed):
+    """Seeded numpy sources, row table and twiddles of one case, and the
+    (radix, B, P) parts they gather to (numpy fancy indexing). ``src_mode``:
+    ``shared`` (one source every ρ reads), ``per`` (source ρ with B + ρ + 1
+    rows) or ``strided`` (source ρ a column window of a wider array, starting
+    one word in, so its rows are P + 5 apart and their 16-byte phases vary).
+    ``idx_mode``: ``identity`` (no table), ``gathered`` (random rows) or
+    ``repeated`` (two rows only, each read many times)."""
+    rng = np.random.default_rng(seed)
+    n_src = 1 if src_mode == "shared" else radix
+    rows = [B + (0 if idx_mode == "identity" else 3) + (r if src_mode != "shared" else 0) for r in range(n_src)]
+    wide = [rng.integers(0, q, size=(n, P + 5), dtype=np.uint32) for n in rows]
+    srcs_np = [w[:, 1 : 1 + P] if src_mode == "strided" else np.ascontiguousarray(w[:, :P]) for w in wide]
+    srcs = [to_tensor(w, "cpu")[:, 1 : 1 + P] if src_mode == "strided" else t(x) for w, x in zip(wide, srcs_np)]
+    source = (lambda r: r) if n_src > 1 else (lambda r: 0)
+    if idx_mode == "identity":
+        idx = None
+        parts = np.stack([srcs_np[source(r)][:B] for r in range(radix)])
+    else:
+        if idx_mode == "gathered":
+            idx = np.stack([rng.integers(0, rows[source(r)], size=B) for r in range(radix)])
+        else:
+            idx = np.stack([np.where(np.arange(B) % 3 == 0, rows[source(r)] - 1, 0) for r in range(radix)])
+        idx = idx.astype(np.int32)
+        parts = np.stack([srcs_np[source(r)][idx[r]] for r in range(radix)])
+    tw = rng.integers(0, q, size=(B, radix), dtype=np.uint32)
+    tw[0, 0] = q - 1  # a Shoup dual just below 2^32
+    tw_sh = np.asarray(shoup_precompute(tw, q))
+    return srcs, idx, parts, tw, tw_sh
+
+
+ROWS_CASES = [
+    # radix 1 to 8 and the cap, every P % 4, every row table, every kind of source
+    (1, 5, 33, "identity", "per"),
+    (2, 8, 64, "gathered", "shared"),
+    (2, 7, 65, "repeated", "shared"),
+    (2, 9, 66, "gathered", "strided"),
+    (3, 9, 67, "identity", "strided"),
+    (3, 6, 100, "gathered", "per"),
+    (4, 16, 129, "repeated", "per"),
+    (4, 3, 130, "gathered", "strided"),
+    (5, 11, 131, "gathered", "per"),
+    (6, 4, 132, "identity", "per"),
+    (7, 5, 61, "repeated", "strided"),
+    (8, 8, 62, "gathered", "per"),
+    (8, 1, 63, "gathered", "shared"),
+    (2, 1, 1, "identity", "per"),
+    (2, 2, 3, "gathered", "strided"),
+    (MAX_SOURCES, 3, 37, "gathered", "per"),
+    (MAX_SOURCES, 2, 20, "identity", "shared"),
+]
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+@pytest.mark.parametrize("radix,B,P,idx_mode,src_mode", ROWS_CASES)
+def test_butterfly_mac_rows_vs_pallas_interpret_and_host(q, radix, B, P, idx_mode, src_mode):
+    srcs, idx, parts, tw, tw_sh = rows_case(radix, B, P, idx_mode, src_mode, q, seed=radix * 100 + B + P)
+    idx_t = None if idx is None else torch.as_tensor(idx)
+    got = to_numpy(butterfly_mac_rows(srcs, t(tw), t(tw_sh), q=q, idx=idx_t))
+    want = np.asarray(
+        ref_butterfly_mac(jnp.asarray(parts), jnp.asarray(tw), jnp.asarray(tw_sh), q=q, interpret=True)
+    )
+    assert got.dtype == want.dtype == np.uint32 and got.shape == (B, P)
+    assert np.array_equal(got, want)
+    f = Field(q)
+    host = np.zeros((B, P), dtype=np.uint64)
+    for r in range(radix):
+        host = f.add(host, f.mul(parts[r], tw[:, r : r + 1]))
+    assert np.array_equal(got.astype(np.uint64), host)
+    # the dense form over the gathered parts, and the plain version's column chunks
+    assert np.array_equal(got, to_numpy(butterfly_mac_plain(t(parts), t(tw), t(tw_sh), q)))
+    chunked = butterfly_mac_rows_plain(srcs, t(tw), t(tw_sh), q, idx=idx_t, chunk_bytes=8 * B * 7)
+    assert np.array_equal(got, to_numpy(chunked))
+
+
+META_TW = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+
+
+def _refused(**change):
+    """A call of the row form with one operand changed."""
+    q = M31
+    x = t(rand_u32((6, 16), q, 1))
+    args = {"sources": (x, x), "tw": t(rand_u32((4, 2), q, 2)), "tw_sh": t(rand_u32((4, 2), q, 3)),
+            "idx": torch.tensor([[0, 1, 2, 5], [5, 4, 3, 0]], dtype=torch.int32)}
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize(
+    "change,error,match",
+    [
+        ({"sources": (t(rand_u32((6, 16), M31, 1)),) * (MAX_SOURCES + 1),
+          "tw": t(rand_u32((4, MAX_SOURCES + 1), M31, 2)), "tw_sh": t(rand_u32((4, MAX_SOURCES + 1), M31, 3)),
+          "idx": torch.zeros((MAX_SOURCES + 1, 4), dtype=torch.int32)}, ValueError, "cap"),
+        ({"sources": (t(rand_u32((6, 16), M31, 1)), t(rand_u32((6, 15), M31, 1)))}, ValueError, "every source"),
+        ({"sources": (t(rand_u32((6, 16), M31, 1)),) * 3}, ValueError, "sources"),
+        ({"sources": (torch.zeros((6, 16), dtype=torch.int64),) * 2}, TypeError, "int32"),
+        ({"tw": torch.zeros((4, 2), dtype=torch.int64)}, TypeError, "int32"),
+        ({"idx": torch.zeros((2, 4), dtype=torch.int64)}, TypeError, "int32"),
+        ({"idx": torch.tensor([[0, 1, 2, 6], [0, 0, 0, 0]], dtype=torch.int32)}, ValueError, "outside"),
+        ({"idx": torch.tensor([[0, 1, 2, 3], [0, -1, 0, 0]], dtype=torch.int32)}, ValueError, "outside"),
+        ({"idx": torch.zeros((2, 3), dtype=torch.int32)}, ValueError, "idx must be"),
+        ({"idx": None, "sources": (t(rand_u32((3, 16), M31, 1)),) * 2}, ValueError, "needs B"),
+        ({"sources": (t(rand_u32((16, 6), M31, 1)).T,) * 2}, ValueError, "contiguous"),
+        ({"tw_sh": t(rand_u32((4, 3), M31, 3))}, ValueError, "one \\(B, radix\\) shape"),
+        # operands on two devices (the meta device stands in for the card): refused, never moved
+        ({"tw": META_TW, "tw_sh": META_TW}, ValueError, "one device"),
+        ({"sources": (t(rand_u32((6, 16), M31, 1)), torch.zeros((6, 16), dtype=torch.int32, device="meta"))},
+         ValueError, "one device"),
+        ({"idx": torch.zeros((2, 4), dtype=torch.int32, device="meta")}, ValueError, "one device"),
+    ],
+)
+def test_butterfly_mac_rows_refuses(change, error, match):
+    """The plain version, the dispatching wrapper and the kernel's door all
+    refuse the same operands, and nothing launches. A row index outside its
+    source is the exception at the door: finding it would read the device
+    table back, so the kernel checks it and traps, and the door refuses
+    these CPU operands for their device instead."""
+    args = _refused(**change)
+    doors = (butterfly_mac_rows_plain,) if match == "outside" else (butterfly_mac_rows_plain, butterfly_mac_rows_cuda)
+    if match == "outside":
+        with pytest.raises(ValueError, match="CUDA"):
+            butterfly_mac_rows_cuda(args["sources"], args["tw"], args["tw_sh"], M31, idx=args["idx"])
+    for fn in doors:
+        with pytest.raises(error, match=match):
+            fn(args["sources"], args["tw"], args["tw_sh"], M31, idx=args["idx"])
+    with pytest.raises(error, match=match):
+        butterfly_mac_rows(args["sources"], args["tw"], args["tw_sh"], q=M31, idx=args["idx"])
+    assert butterfly_mac_rows_cuda.launches == 0
+
+
+def test_butterfly_mac_rows_door_needs_the_card_and_a_form_that_takes_the_radix():
+    """The kernel has one form, and it takes every radix up to the cap: at 9
+    and at the cap the door gets as far as the device, and refuses these CPU
+    operands for it."""
+    args = _refused()
+    with pytest.raises(ValueError, match="CUDA"):
+        butterfly_mac_rows_cuda(args["sources"], args["tw"], args["tw_sh"], M31, idx=args["idx"])
+    for radix in (9, MAX_SOURCES):
+        srcs = (t(rand_u32((3, 8), M31, 5)),) * (radix - 1) + (t(rand_u32((3, 8), M31, 6)),)
+        tw = t(rand_u32((3, radix), M31, 7))
+        with pytest.raises(ValueError, match="CUDA"):
+            butterfly_mac_rows_cuda(srcs, tw, tw, M31)
+    assert butterfly_mac_rows_cuda.launches == 0

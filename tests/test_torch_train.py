@@ -34,7 +34,9 @@ orders, so each float comparison states its tolerance:
   most 0.4 %.
 """
 
+import gc
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -380,6 +382,24 @@ def test_train_loss_decreases():
         losses.append(float(metrics["loss"]))
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0] - 0.5, losses[:3] + losses[-3:]
+
+
+def test_train_step_frees_the_replaced_state_without_the_cyclic_collector():
+    """The state a step replaces, and its gradients, are freed by reference
+    counting alone: nothing of a step lives on in a reference cycle, whose
+    release would wait for Python's cyclic collector (and so, on the card,
+    move the train step's peak bytes with the whole process's history)."""
+    m, p, st, step, ds = _setup()
+    gc.collect()
+    gc.disable()
+    try:
+        p1, s1, _ = step(p, st, to_device(ds.batch(0, 2, 16), "cpu"))
+        refs = [weakref.ref(x) for x in tree.leaves((p1, s1["m"], s1["v"]))]
+        p2, s2, _ = step(p1, s1, to_device(ds.batch(1, 2, 16), "cpu"))
+        del p1, s1
+        assert refs and all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 # ---------------------------------------------------------------------------
