@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-9 hand it, as they hand it, with its
+                that phases 4 and 6-10 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -103,8 +103,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 width) is among phase 3's. Prints tokens/s, TTFT and e2e
                 p50/p99, each snapshot's and the recovery's ms (with the host
                 numpy inside it), prefill ms per bucket, one decode tick's ms,
-                the idle share of a profiled decode chunk, the launches and
-                the peak device bytes.
+                the idle share of a profiled decode chunk, the launches, the
+                peak device bytes and those of ``Model.init``.
 8. ``train``    training of Qwen3-1.7B, with its own launch counts: (a) six
                 steps of ``launch.train.main`` at full width and depth (28
                 layers, bf16 weights drawn on the card from the seed, float32
@@ -144,10 +144,31 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 barrier) and, from one traced call, the wire part (round spans)
                 and the device part (LocalOp spans). Phase 3 holds and times
                 the kernels at the ranks' batch-1 shapes.
-10. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path, the coded path, the serve path, the train path and the ranks,
-   error, time, bound and plain time; the card's name and power limit; and
-   last ``{"ok": true, "device": {...}}``.
+10. ``moe``     the MoE family at the full width of Snowflake Arctic
+                (``arctic-480b``: d_model 7168, 56 heads, 8 KV heads x 128,
+                128 experts top-2 with expert_ff 4864 and a dense residual
+                SwiGLU of 4864, vocab 32,000, capacity factor 1.25), cut to 2
+                of its 35 layers (one holds 27.2 GB of bf16 weights), drawn on
+                the card from the seed after the card is emptied (under 1 GB
+                held as it starts), with its own launch counts: the serve
+                phase's engine and trace (a) greedy under the baseline rules
+                (scatter dispatch), with the (token, slot) pairs capacity
+                drops in each prefill; (b) greedy under the ``moe_gather``
+                profile's rules, tokens equal to (a)'s, and both forms' logits
+                on one 500-token prefill and one tick, equal; (c) greedy under
+                ``CodedServeGuard(K=6, R=2)`` with one kill, tokens equal to
+                (a)'s, the guard's ``gf_matmul`` shape among phase 3's; (d) the
+                float32 smoke config on the card against the CPU: logits of
+                ``forward``, ``decode_step`` and ``prefill_into_cache`` within
+                1e-4 and every router choice equal. Prints tokens/s, TTFT and
+                e2e p50/p99, a tick's ms beside its bytes bound (every weight
+                but ``embed`` read once), prefill ms per bucket, the idle
+                share of a profiled decode chunk, init and peak bytes, the
+                snapshot and recovery ms.
+11. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path, the coded path, the serve path, the train path, the ranks and the
+   MoE serve path, error, time, bound and plain time; the card's name and
+   power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -181,6 +202,7 @@ import torch.distributed as dist  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.coded import gradient_coding  # noqa: E402
 from repro_torch.configs import get, smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.coded.lagrange_compute import (  # noqa: E402
     build_lcc,
     lcc_decode,
@@ -241,6 +263,7 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
 from repro_torch.serve import coded as serve_coded  # noqa: E402
 from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
@@ -248,6 +271,7 @@ from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
 from repro_torch.serve.scheduler import bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.profiles import BASELINE, profile_with, rules_for  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     OptConfig,
@@ -1837,9 +1861,10 @@ def small_reference(dev) -> dict:
             "tokens_equal": True, "fixed_tokens_equal": True}
 
 
-def serve_timings(model, params, eng, trace, dev) -> dict:
+def serve_timings(model, params, eng, trace, dev, kind=kernel_kind, what: str = "serve") -> dict:
     """Prefill ms of each bucket, one decode tick's ms with every slot
-    active, and one decode chunk under the profiler (not counted)."""
+    active, and one decode chunk under the profiler (not counted; ``kind``
+    names a kernel's kind)."""
     state = eng.init_state()
     cache = model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device=dev)
     V = model.cfg.vocab_size
@@ -1866,7 +1891,7 @@ def serve_timings(model, params, eng, trace, dev) -> dict:
         state["active"].cpu()
 
     chunk()
-    out["decode_chunk_profile"] = profile_encode("serve/decode_chunk", chunk, 1)
+    out["decode_chunk_profile"] = profile_encode(f"{what}/decode_chunk", chunk, 1, kind=kind)
     return out
 
 
@@ -1888,6 +1913,7 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
     params = model.init(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     leaves = tree.leaves(params)
     check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in leaves), "serve: the weights are not bf16 on the card")
     check(cfg.n_layers == 28 and cfg.d_model == 2048 and cfg.vocab_padded == 152064
@@ -1897,7 +1923,8 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
     eng = serve_engine(model, params)
     record = {"arch": cfg.name, "params": sum(t.numel() for t in leaves),
               "param_bytes": sum(t.numel() * t.element_size() for t in leaves), "init_s": init_s,
-              "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS, "buckets": SERVE_BUCKETS, "max_new": SERVE_MAX_NEW,
+              "init_peak_bytes": init_peak, "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS,
+              "buckets": SERVE_BUCKETS, "max_new": SERVE_MAX_NEW,
               "sync_every": SERVE_SYNC, "trace": {"requests": len(trace), "rate_rps": SERVE_RATE, "seed": SEED + 1001,
                                                   "prompt_lens": [len(r.prompt) for r in trace],
                                                   "budgets": [r.max_new_tokens for r in trace]},
@@ -2507,6 +2534,240 @@ def ranks_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
     record["wire"] = "gloo over loopback TCP between processes on one host, staged through pinned host memory"
     return total, record
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family at the full width of Snowflake Arctic
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "arctic-480b"
+# Depth cut from 35 to 2 layers, no width cut: one layer holds 27.2 GB of
+# bf16 weights, so two (with embed and lm_head) come to 55.4 GB and a third
+# would leave under 3 GB of the card for the context, the activations and
+# the guard.
+MOE_LAYERS = 2
+MOE_LAYER_BYTES = 27_224_207_360  # experts, attention, dense residual, float32 router, norms
+MOE_HELD_MAX = 1 << 30  # what earlier phases may still hold on the card as the phase starts
+MOE_GATHER = profile_with("gather", moe_gather=True)
+MOE_FORMS_PLEN = 500  # prompt of the direct scatter-versus-gather check (bucket 512, where capacity drops)
+# (d): the float32 smoke config on the card against the CPU
+MOE_SMALL_TOKENS, MOE_SMALL_STEPS, MOE_SMALL_PLEN, MOE_SMALL_BUCKET = (2, 24), 4, 30, 32
+
+
+def moe_config() -> dict:
+    """Phase 10's configuration, host-side: Arctic cut to MOE_LAYERS layers,
+    the engine state's spec and shard width, the guard's plan and the kernel
+    call of one snapshot (``runs``)."""
+    cfg = get(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    spec = serve_state_spec(model)
+    plan = build_lcc(SERVE_K, R=SERVE_R)
+    lps = plan_prepare_shoot(plan.N, plan.p)
+    S = -(-limb_count(spec) // SERVE_K)
+    return {"name": "moe", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
+            "runs": {"ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))]}}
+
+
+@contextlib.contextmanager
+def routed(sink: list):
+    """Keep the (T, k) expert choices of every ``moe_block`` call made while
+    the block runs, on the device (no host sync), in call order."""
+    route = model_layers.moe_route
+
+    def keep(router, xt, cfg):
+        out = route(router, xt, cfg)
+        sink.append(out[2].detach())
+        return out
+
+    model_layers.moe_route = keep
+    try:
+        yield
+    finally:
+        model_layers.moe_route = route
+
+
+def drops(eidx: torch.Tensor, cfg) -> int:
+    """(token, slot) pairs of one ``moe_block`` call past their expert's
+    capacity (the block drops them)."""
+    load = torch.bincount(eidx.reshape(-1), minlength=cfg.moe.n_experts)
+    return int((load - model_layers.moe_capacity(eidx.shape[0], cfg)).clamp_min(0).sum())
+
+
+def moe_drops(choices: list, cfg) -> dict:
+    """Drops in each prefill (its MOE_LAYERS calls summed) and in the decode
+    ticks (T = the slot count: none may drop) of one serve."""
+    prefills, ticks = [], []
+    i = 0
+    while i < len(choices):
+        T = choices[i].shape[0]
+        group = choices[i: i + MOE_LAYERS]
+        check(len(group) == MOE_LAYERS and all(c.shape[0] == T for c in group), "moe: a call is missing its layers")
+        (ticks if T == SERVE_SLOTS else prefills).append({"tokens": T, "dropped": sum(drops(c, cfg) for c in group)})
+        i += MOE_LAYERS
+    check(all(t["dropped"] == 0 for t in ticks), "moe: a decode tick dropped a (token, slot) pair")
+    return {"prefills": prefills, "decode_calls": len(ticks), "decode_dropped": 0}
+
+
+def moe_forms(model, params, dev, rules: dict) -> dict:
+    """(b)'s direct check: one MOE_FORMS_PLEN-token prompt prefilled at
+    bucket 512 (where capacity drops pairs) into slot 0, then one decode tick
+    of every slot, under each form's rules: the last logits of both."""
+    V = model.cfg.vocab_size
+    prompt = np.random.default_rng(SEED + 1102).integers(1, V, size=MOE_FORMS_PLEN).astype(np.int32)
+    bucket = bucket_for(MOE_FORMS_PLEN, SERVE_BUCKETS)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :MOE_FORMS_PLEN] = prompt
+    toks = torch.from_numpy(toks).to(dev)
+    nxt = torch.from_numpy(np.random.default_rng(SEED + 1103).integers(1, V, size=(SERVE_SLOTS, 1))
+                           .astype(np.int32)).to(dev)
+    pos = torch.tensor([MOE_FORMS_PLEN] + [0] * (SERVE_SLOTS - 1), dtype=torch.int32, device=dev)
+    out = {}
+    for form, r in rules.items():
+        cache = model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device=dev)
+        last, cache = make_prefill_step(model, into_cache=True, rules=r)(params, cache, toks, 0, MOE_FORMS_PLEN)
+        lg, _ = make_decode_step(model, rules=r)(params, cache, nxt, pos)
+        out[form] = (last[0, :V], lg[:, 0, :V])
+        check(bool(torch.isfinite(last).all() and torch.isfinite(lg).all()), f"moe/forms: {form} logits not finite")
+    (pa, da), (pb, db) = out["scatter"], out["gather"]
+    rec = {"plen": MOE_FORMS_PLEN, "bucket": bucket,
+           "prefill_last_logits_max_abs_diff": float((pa - pb).abs().max()),
+           "decode_logits_max_abs_diff": float((da - db).abs().max()),
+           "equal": bool(torch.equal(pa, pb) and torch.equal(da, db))}
+    check(rec["equal"], f"moe/forms: the gather form's logits differ from the scatter form's: {rec}")
+    return rec
+
+
+def moe_small_vs_cpu(dev) -> dict:
+    """(d): the float32 smoke config of the same architecture on the card
+    against the CPU, from the same parameters: ``forward``, MOE_SMALL_STEPS
+    ``decode_step``s and ``prefill_into_cache`` at a bucket where capacity
+    drops, logits within SMALL_LOGITS_ATOL; the router's expert choices of
+    every call equal."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "moe/small: TF32 matmuls are on")
+    cfg = smoke_config(MOE_ARCH).replace(dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(SEED + 1104))
+    rng = np.random.default_rng(SEED + 1105)
+    toks = rng.integers(0, cfg.vocab_size, size=MOE_SMALL_TOKENS).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, size=(MOE_SMALL_STEPS, 3, 1)).astype(np.int32)
+    tb = np.zeros((1, MOE_SMALL_BUCKET), np.int32)
+    tb[0, :MOE_SMALL_PLEN] = rng.integers(1, cfg.vocab_size, size=MOE_SMALL_PLEN)
+    runs = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = tree.map(lambda t: t.to(d), cpu_params)
+        choices: list = []
+        with routed(choices):
+            fwd = model.forward(p, {"tokens": torch.from_numpy(toks).to(d)})[0]
+            cache = model.init_cache(3, 64, device=d)
+            dec = []
+            for t in range(MOE_SMALL_STEPS):
+                lg, cache = model.decode_step(p, cache, torch.from_numpy(steps[t]).to(d),
+                                              torch.tensor([t, 2 * t, 5], dtype=torch.int32, device=d))
+                dec.append(lg)
+            pf, _ = model.prefill_into_cache(p, model.init_cache(3, 64, device=d), torch.from_numpy(tb).to(d), 1)
+        runs[where] = ([fwd.cpu(), torch.stack(dec).cpu(), pf.cpu()], [c.cpu() for c in choices])
+    errs = {k: float((a - b)[..., : cfg.vocab_size].abs().max())
+            for k, a, b in zip(("forward", "decode_step", "prefill_into_cache"), runs["cpu"][0], runs["card"][0])}
+    (cc, gc) = runs["cpu"][1], runs["card"][1]
+    pairs = sum(c.numel() for c in cc)
+    equal = sum(int((a == b).sum()) for a, b in zip(cc, gc)) if len(cc) == len(gc) else 0
+    rec = {"config": cfg.name, "dtype": "float32", "tf32": False, "logits_max_abs_err": errs,
+           "tolerance": SMALL_LOGITS_ATOL, "router_calls": len(cc), "router_choices": pairs,
+           "router_choices_equal": equal,
+           "capacity_drops_in_prefill": sum(drops(c, cfg) for c in cc[-cfg.n_layers:])}
+    check(all(e <= SMALL_LOGITS_ATOL for e in errs.values()), f"moe/small: card and CPU logits differ: {rec}")
+    check(len(cc) == len(gc) and equal == pairs, f"moe/small: the router chose other experts on the card: {rec}")
+    return rec
+
+
+def moe_phase(mcfg: dict, dev) -> tuple[dict, dict]:
+    """The MoE family at Arctic's full width, MOE_LAYERS layers deep
+    (``mcfg`` from :func:`moe_config`), counted on its own: (a) greedy under
+    the baseline rules (scatter dispatch), (b) greedy under the
+    ``moe_gather`` profile's rules, equal to (a), and the two forms' logits
+    on one prefill and one tick, (c) greedy under the guard with one kill,
+    equal to (a), (d) the float32 smoke config on the card against the CPU.
+    Returns (launches, record)."""
+    model = mcfg["model"]
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < MOE_HELD_MAX, f"moe: earlier phases still hold {held} bytes of the card")
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1100)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    by = lambda t: sum(x.numel() * x.element_size() for x in tree.leaves(t))  # noqa: E731
+    mc = cfg.moe
+    check(cfg.d_model == 7168 and cfg.n_heads == 56 and cfg.n_kv_heads == 8 and cfg.head_dim == 128
+          and mc.n_experts == 128 and mc.top_k == 2 and mc.expert_ff == 4864 and mc.dense_residual_ff == 4864
+          and cfg.vocab_size == 32000 and mc.capacity_factor == 1.25 and cfg.n_layers == MOE_LAYERS
+          and tuple(params["body"]["b0"]["moe"]["w_gate"].shape) == (MOE_LAYERS, 128, 7168, 4864),
+          "moe: not Arctic's width")
+    check(all(t.is_cuda for t in tree.leaves(params)) and params["body"]["b0"]["moe"]["router"].dtype == torch.float32
+          and all(t.dtype == torch.bfloat16 for k, t in tree.flatten_with_names(params).items()
+                  if not k.endswith("router")), "moe: the weights are not bf16 (a float32 router) on the card")
+    check(by(params["body"]) == MOE_LAYERS * MOE_LAYER_BYTES, f"moe: the body holds {by(params['body'])} bytes")
+    shape = ShapeSpec("moe", "decode", SERVE_POSITIONS, SERVE_SLOTS)
+    rules = {"scatter": rules_for(cfg, shape, BASELINE), "gather": rules_for(cfg, shape, MOE_GATHER)}
+    check(not rules["scatter"].has("moe_gather") and rules["gather"].has("moe_gather"), "moe: the rules' flags")
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=cfg.vocab_size, seed=SEED + 1001)
+    engines = {form: ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=SERVE_POSITIONS,
+                                      buckets=SERVE_BUCKETS, max_new_tokens=SERVE_MAX_NEW, metrics=MetricsRegistry(),
+                                      rules=r) for form, r in rules.items()}
+    weights_but_embed = by(params) - by(params["embed"])
+    record = {"arch": cfg.name, "layers": f"{MOE_LAYERS} of {get(MOE_ARCH).n_layers}",
+              "params": sum(t.numel() for t in tree.leaves(params)), "param_bytes": by(params),
+              "layer_bytes": MOE_LAYER_BYTES, "held_bytes": held, "free_bytes_at_start": free_bytes,
+              "total_bytes": total_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
+              "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS, "buckets": SERVE_BUCKETS, "max_new": SERVE_MAX_NEW,
+              "sync_every": SERVE_SYNC, "trace": {"requests": len(trace), "rate_rps": SERVE_RATE, "seed": SEED + 1001},
+              "capacity": {"factor": mc.capacity_factor, "decode": model_layers.moe_capacity(SERVE_SLOTS, cfg),
+                           **{f"prefill_{b}": model_layers.moe_capacity(b, cfg) for b in SERVE_BUCKETS}},
+              "decode_tick_bound": {"bytes": weights_but_embed, "ms": weights_but_embed / HBM_BYTES_PER_S * 1e3,
+                                    "what": "every weight but embed read once a tick"},
+              "guard": {"K": SERVE_K, "R": SERVE_R, "q": NTT, "kills": SERVE_ENGINE_KILL,
+                        "state_bytes": spec_bytes(mcfg["spec"]), "limbs_a_shard": mcfg["S"],
+                        "gf_matmul_shape": mcfg["runs"]["ContinuousEngine.serve(guard)"][0][1]}}
+
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+    choices: list = []
+    with routed(choices):
+        rep_a = engines["scatter"].serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (a)
+    greedy = tokens_of(rep_a)
+    record["greedy"] = check_report("moe/greedy", rep_a, trace, cfg.vocab_size)
+    record["capacity_drops"] = moe_drops(choices, cfg)
+    del choices
+    check(launches() == (0, 0), "moe: the unguarded run launched a hand kernel")
+    rep_b = engines["gather"].serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (b)
+    record["gather"] = check_report("moe/gather", rep_b, trace, cfg.vocab_size)
+    record["gather"]["tokens_equal_scatter"] = tokens_of(rep_b) == greedy
+    check(record["gather"]["tokens_equal_scatter"],
+          "moe: the gather form's greedy tokens differ from the scatter form's")
+    record["forms"] = moe_forms(model, params, dev, rules)
+    rep_c, record["greedy_guarded"] = guarded_run(mcfg, engines["scatter"], trace, dev, collective=False,  # (c)
+                                                  greedy=True)
+    check(tokens_of(rep_c) == greedy, "moe: greedy tokens after a kill and recovery differ from the unfailed run's")
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+    check(counted["gf_matmul"] > 0, "the MoE serve path never launched gf_matmul")
+    record["launches"] = counted
+    record["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record.update(serve_timings(model, params, engines["scatter"], trace, dev, kind=train_kernel_kind, what="moe"))
+    record["decode_tick_share_of_bound"] = record["decode_tick_bound"]["ms"] / record["decode_tick_ms"]
+    del params, engines
+    torch.cuda.empty_cache()
+    record["small_vs_cpu"] = moe_small_vs_cpu(dev)  # (d)
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return counted, record
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2536,7 +2797,8 @@ def main() -> int:
     serve_cfg = serve_config()
     train_cfg = train_config()
     ranks_cfgs = ranks_configs()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs, P)
+    moe_cfg = moe_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -2618,12 +2880,16 @@ def main() -> int:
     ranks_launches, ranked = ranks_phase(ranks_cfgs, dev)
     say("ranks", card=smi, launches=ranks_launches, **ranked)
 
+    # phase 10: the MoE family at Arctic's full width, two layers, on an emptied card, counted on its own
+    moe_launches, moed = moe_phase(moe_cfg, dev)
+    say("moe", card=smi, **moed)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
                            + serve_launches[row["name"]] + train_launches[row["name"]]
-                           + ranks_launches[row["name"]])
+                           + ranks_launches[row["name"]] + moe_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Executors of compiled round schedules.
+"""Executors of compiled round schedules, and the logical-axis sharding
+rules.
 
 Layering: ``core`` computes plans (host numpy), ``topo`` prices and rewrites
 them on a topology; ``dist`` lowers them onto devices. Two forms share every
@@ -6,7 +7,11 @@ plan, lowering and budget: on one device the K processors are the leading
 tensor axis (``collectives``); on a mesh of ranks each processor is a
 process and each port group a ``torch.distributed`` exchange of messages
 (``ranks``, over gloo; NCCL across cards is a later slice, ROADMAP A2).
+``sharding`` maps a tensor's logical dims onto mesh axes and carries the
+profile flags the models read.
 """
+
+from .sharding import ShardingRules, constrain, named_sharding, spec_for  # noqa: F401
 
 from .collectives import (  # noqa: F401
     KERNEL_MODES,

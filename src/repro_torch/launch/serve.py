@@ -17,9 +17,11 @@ surviving shards, not dropped:
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU. The
 weights are random from seed 0 unless ``--ckpt`` names a checkpoint
-directory (the reference's format, ``train.checkpoint``). Only a ``1x1``
-mesh runs: a larger one waits for the sharding substrate (ROADMAP.md queue
-A3).
+directory (the reference's format, ``train.checkpoint``). The engines run
+under the reference's decode rules for the baseline profile
+(``launch.profiles.rules_for``), whose flags the model reads. Only a ``1x1``
+mesh runs: a larger one waits for the device half of the sharding substrate
+(ROADMAP.md queue A3).
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ import time
 import torch
 
 from ..configs import get, smoke_config
+from ..configs.base import ShapeSpec
 from ..core.field import resolve_device
 from ..models import build_model
 from ..serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
 from ..train import latest_step, restore_checkpoint
+from .profiles import BASELINE, rules_for
 
 
 def main(argv=None):
@@ -66,6 +70,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
+    rules = rules_for(cfg, ShapeSpec("cli", "decode", args.max_len, 1), BASELINE)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -84,7 +89,7 @@ def main(argv=None):
             kills = tuple(tuple(int(x) for x in k.split(":")) for k in args.kill)
             guard = CodedServeGuard(K=K, R=R, injector=FaultInjector(kills=kills) if kills else None, device=dev)
         eng = ContinuousEngine(model, params, n_slots=args.slots, max_len=args.max_len,
-                               max_new_tokens=args.max_new)
+                               max_new_tokens=args.max_new, rules=rules)
         reqs = [Request(id=f"cli-{i}", prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(prompts)]
         rep = eng.serve(reqs, guard=guard)
         print(
@@ -103,7 +108,7 @@ def main(argv=None):
         for r in rep.results:
             print(f"{r.id}: {r.tokens}")
         return rep
-    eng = Engine(model, params, max_len=args.max_len)
+    eng = Engine(model, params, max_len=args.max_len, rules=rules)
     t0 = time.time()
     res = eng.generate(prompts, max_new_tokens=args.max_new)
     dt = time.time() - t0

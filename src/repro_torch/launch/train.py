@@ -10,10 +10,14 @@ parity of the train state ``{"params", "opt"}`` on the card; every
 the reference's format, and a run given a ``--ckpt`` that holds one resumes
 from its latest step. The weights are random from seed 0.
 
+``--profile`` picks the sharding rules as the reference does
+(``launch.profiles.rules_for`` with ``OPT`` or ``BASELINE`` for the run's
+batch and sequence) and the train step runs under them; on one card their
+flags are what the model reads (neither profile sets ``moe_gather``).
+
 Everything runs on the card unless ``--device cpu`` asks for the CPU. Only a
-``1x1`` mesh runs: a larger one, and the sharding rules that ``--profile``
-picks in the reference, wait for the sharding substrate (ROADMAP.md queue
-A3); ``--profile`` is accepted and has no effect.
+``1x1`` mesh runs: a larger one waits for the device half of the sharding
+substrate (ROADMAP.md queue A3).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import time
 import torch
 
 from ..configs import get, smoke_config
+from ..configs.base import ShapeSpec
 from ..core.field import resolve_device
 from ..models import build_model
 from ..train import (
@@ -37,15 +42,16 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.data import to_device
+from .profiles import BASELINE, OPT, rules_for
 
 
 def main(argv=None) -> dict:
     """Run the launcher; returns ``{"state", "history", "guard", "start",
-    "seconds", "model", "opt_cfg"}``: the final ``{"params", "opt"}``, one
+    "seconds", "model", "opt_cfg", "rules"}``: the final ``{"params", "opt"}``, one
     ``{"step", "loss", "grad_norm", "s"}`` record a step (``s``: seconds
     since the loop began, read once the step's metrics reached the host), the
-    guard, the step the run began at, the loop's wall seconds, the model and
-    the optimizer's configuration."""
+    guard, the step the run began at, the loop's wall seconds, the model, the
+    optimizer's configuration and the sharding rules the step ran under."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; only 1x1 runs")
@@ -55,7 +61,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--profile", default="opt", choices=["baseline", "opt"],
-                    help="sharding rules in the reference; no effect on one card")
+                    help="the sharding rules (launch.profiles)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--coded-every", type=int, default=25)
@@ -68,6 +74,7 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
+    rules = rules_for(cfg, ShapeSpec("cli", "train", args.seq, args.batch), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     gen = torch.Generator(device=dev)
@@ -80,7 +87,7 @@ def main(argv=None) -> dict:
         params, opt_state = state["params"], state["opt"]
         print(f"restored checkpoint at step {start}")
 
-    step_fn = make_train_step(model, ocfg)
+    step_fn = make_train_step(model, ocfg, rules=rules)
     ds = SyntheticLM(cfg)
     guard = CodedStateGuard(K=args.coded_k, device=dev)
     history = []
@@ -101,7 +108,7 @@ def main(argv=None) -> dict:
     dt = time.perf_counter() - t0
     print(f"done: {args.steps - start} steps in {dt:.1f}s")
     return {"state": {"params": params, "opt": opt_state}, "history": history, "guard": guard, "start": start,
-            "seconds": dt, "model": model, "opt_cfg": ocfg}
+            "seconds": dt, "model": model, "opt_cfg": ocfg, "rules": rules}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Shared model layers, the dense subset (eager PyTorch, pytree params).
+"""Shared model layers (eager PyTorch, pytree params).
 
-A port of the reference package's ``models/layers.py`` for the dense
-decoder: norms, RoPE, chunked causal and decode attention, the GQA block
-and the SwiGLU MLP. Conventions follow the reference step by step:
+A port of the reference package's ``models/layers.py`` for the dense and
+MoE decoders: norms, RoPE, chunked causal and decode attention, the GQA
+block, the SwiGLU MLP and the top-k routed MoE block, each with its logical
+dims (``*_specs``). Conventions follow the reference step by step:
 
 * params are nested dicts of tensors; every builder has an ``init`` and an
   ``apply``-style function;
@@ -11,15 +12,18 @@ and the SwiGLU MLP. Conventions follow the reference step by step:
 * attention is chunked (online softmax over KV blocks of 1024) so a long
   prompt never builds an S×S score tensor — the same chunks and the same
   order of combination as the reference, not PyTorch's fused attention;
-* ``Ctx`` is the reference's sharding context; on one device ``cons`` is
-  the identity and there is nothing to carry (the sharding substrate is
-  ROADMAP.md queue A3).
+* ``Ctx`` is the reference's sharding context. It carries the sharding
+  rules, whose flags steer the model (``moe_gather``); on one device
+  ``cons`` is the identity (placing arrays across devices is ROADMAP.md
+  queue A3).
 
-The MoE block and the GELU MLP wait for a later slice.
+The GELU MLP and the layernorm blocks of the encoder-decoder wait for a
+later slice (ROADMAP.md queue A4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -27,26 +31,74 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import ShardingRules
 
+
+@dataclasses.dataclass(frozen=True)
 class Ctx:
+    rules: ShardingRules | None = None
+
     def cons(self, x, dims):
-        """A sharding constraint in the reference; the identity here."""
+        """A sharding constraint in the reference; the identity on one device."""
         return x
+
+    def flag(self, name: str) -> bool:
+        return self.rules is not None and self.rules.has(name)
 
 
 NO_CTX = Ctx()
 
 
-def init_device(generator: torch.Generator | None) -> torch.device:
+#: a leaf whose float32 draw would pass this many elements is drawn in slabs
+#: along its leading axis (an MoE weight, one expert's rows at a time)
+SLAB_ELEMENTS = 1 << 27
+
+
+class DrawInto:
+    """Stands in for the generator of an ``*_init`` so that its drawn leaves
+    land in tensors that already exist (a layer's views of stacked leaves):
+    the i-th :func:`truncnorm_init` call draws from ``generator`` into
+    ``dests[i]`` and returns it. With ``dests=None`` the draws are ``meta``
+    tensors; either way ``drawn`` lists what each call returned, in call
+    order. Leaves the init makes without drawing (ones, zeros) are made as
+    usual, on the generator's device."""
+
+    def __init__(self, generator: torch.Generator | None, dests: list | None = None):
+        self.generator = generator
+        self.dests = dests
+        self.drawn: list[torch.Tensor] = []
+
+    def draw(self, shape, dtype, scale) -> torch.Tensor:
+        if self.dests is None:
+            out = torch.empty(shape, dtype=dtype, device="meta")
+        else:
+            out = self.dests[len(self.drawn)]
+            if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
+                raise ValueError(f"draw {len(self.drawn)}: {tuple(shape)} {dtype} into {tuple(out.shape)} {out.dtype}")
+            row = math.prod(shape[1:])
+            step = len(out) if math.prod(shape) <= SLAB_ELEMENTS else max(1, SLAB_ELEMENTS // row)
+            for i in range(0, len(out), step):
+                out[i:i + step].copy_(truncnorm_init(self.generator, (min(step, len(out) - i), *shape[1:]), dtype,
+                                                     scale))
+        self.drawn.append(out)
+        return out
+
+
+def init_device(generator) -> torch.device:
     """Where an ``*_init`` builds its tensors: the generator's device, or the
     ``meta`` device (shapes and dtypes, no storage) for ``None``."""
+    if isinstance(generator, DrawInto):
+        generator = generator.generator
     return torch.device("meta") if generator is None else generator.device
 
 
-def truncnorm_init(generator: torch.Generator | None, shape, dtype, scale=0.02) -> torch.Tensor:
+def truncnorm_init(generator, shape, dtype, scale=0.02) -> torch.Tensor:
     """``scale`` × a standard normal truncated to [-2, 2], drawn in float32
     from ``generator`` on its device, then cast to ``dtype`` (a meta tensor
-    for ``generator=None``)."""
+    for ``generator=None``; into the next destination for a
+    :class:`DrawInto`)."""
+    if isinstance(generator, DrawInto):
+        return generator.draw(shape, dtype, scale)
     x = torch.empty(shape, dtype=torch.float32, device=init_device(generator))
     if generator is not None:
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -221,6 +273,20 @@ def attention_init(generator, cfg, dtype=torch.bfloat16):
     return p
 
 
+def attention_specs(cfg):
+    s = {
+        "wq": ("d_model", "heads"),
+        "wk": ("d_model", "kv_heads"),
+        "wv": ("d_model", "kv_heads"),
+        "wo": ("heads", "d_model"),
+    }
+    if cfg.qkv_bias:
+        s |= {"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+    if cfg.qk_norm:
+        s |= {"q_norm": {"scale": ("head_dim",)}, "k_norm": {"scale": ("head_dim",)}}
+    return s
+
+
 def _qkv(params, x, cfg, positions, rope=True):
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -280,7 +346,7 @@ def _scatter_time(cache, new, pos):
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -292,7 +358,154 @@ def swiglu_init(generator, d, d_ff, dtype=torch.bfloat16):
     }
 
 
+def swiglu_specs():
+    return {
+        "w_gate": ("d_model", "d_ff"),
+        "w_up": ("d_model", "d_ff"),
+        "w_down": ("d_ff", "d_model"),
+    }
+
+
 def swiglu(params, x, ctx=NO_CTX):
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     h = ctx.cons(h, ("batch", "seq", "d_ff"))
     return ctx.cons(h @ params["w_down"], ("batch", "seq", "d_model"))
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-based sort dispatch — FLOPs ∝ active experts)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(generator, cfg, dtype=torch.bfloat16):
+    mc = cfg.moe
+    d = cfg.d_model
+    p = {
+        "router": truncnorm_init(generator, (d, mc.n_experts), torch.float32, scale=0.006),
+        "w_gate": truncnorm_init(generator, (mc.n_experts, d, mc.expert_ff), dtype),
+        "w_up": truncnorm_init(generator, (mc.n_experts, d, mc.expert_ff), dtype),
+        "w_down": truncnorm_init(generator, (mc.n_experts, mc.expert_ff, d), dtype),
+    }
+    if mc.shared_ff:
+        p["shared"] = swiglu_init(generator, d, mc.shared_ff, dtype)
+    return p
+
+
+def moe_specs(cfg):
+    # expert weights use the dedicated "expert_d" logical name so profiles
+    # can exclude them from FSDP while keeping dense params sharded
+    s = {
+        "router": ("d_model", "experts"),
+        "w_gate": ("experts", "expert_d", "moe_ff"),
+        "w_up": ("experts", "expert_d", "moe_ff"),
+        "w_down": ("experts", "moe_ff", "expert_d"),
+    }
+    if cfg.moe.shared_ff:
+        s["shared"] = swiglu_specs()
+    return s
+
+
+def moe_route(router, xt, cfg):
+    """The router of :func:`moe_block`: xt (T, d) → (logits (T, E) float32,
+    gate values (T, k) float32, expert indices (T, k) int64).
+
+    The top k come from a stable descending sort, so that on ties the lower
+    expert index comes first, as ``jax.lax.top_k`` orders them."""
+    mc = cfg.moe
+    k = mc.top_k
+    logits = xt.float() @ router.float()
+    if mc.router_softmax_topk:  # softmax-then-topk (Switch/Mixtral style)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_vals, eidx = gate_vals[:, :k], eidx[:, :k]
+    else:  # topk-then-softmax (DeepSeek style normalization)
+        gate_logits, eidx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        gate_vals, eidx = torch.softmax(gate_logits[:, :k], dim=-1), eidx[:, :k]
+    if mc.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return logits, gate_vals, eidx
+
+
+def moe_capacity(T: int, cfg) -> int:
+    """Slots an expert has for ``T`` tokens: C = max(⌈T·k/E · capacity
+    factor⌉, 4)."""
+    mc = cfg.moe
+    return max(int(math.ceil(T * mc.top_k / mc.n_experts * mc.capacity_factor)), 4)
+
+
+def moe_block(params, x, cfg, ctx=NO_CTX):
+    """Top-k routed experts with capacity-factor sort-based dispatch.
+
+    Gathers/scatters move tokens into per-expert buffers of capacity
+    C = ceil(T·k/E · capacity_factor); expert products are dense
+    (E, C, d)×(E, d, f) batched matmuls. Overflowing tokens are dropped
+    (standard GShard/Switch semantics). Returns (out, aux), the Switch
+    load-balance term ``E · Σ_e f_e · p_e``.
+
+    The combine adds each token's k float32 contributions onto zero; for
+    k ≤ 2 that sum is exact in any order, so ``index_add_`` on the card and
+    the gather form (``ctx.flag("moe_gather")``) give the same bits. A
+    top-k above 2 (DeepSeek-V3's 8) will need a fixed order of addition.
+    """
+    mc = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mc.n_experts, mc.top_k
+    dev = x.device
+    xt = x.reshape(T, d)
+    logits, gate_vals, eidx = moe_route(params["router"], xt, cfg)
+
+    C = moe_capacity(T, cfg)
+    # flatten (token, slot) pairs and sort by expert id (stable)
+    flat_e = eidx.reshape(-1)  # (T*k,)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_g = gate_vals.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    # position within expert group
+    same = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), (se[1:] == se[:-1]).long()])
+    seg_pos = _segment_rank(same)
+    keep = seg_pos < C
+    buf_idx = se * C + torch.where(keep, seg_pos, 0)
+    if ctx.flag("moe_gather"):
+        # gather-form dispatch: slot (e, c) pulls its token; dropped pairs
+        # write the sentinel slot E*C, which is cut off
+        slot_token = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+        slot_token[torch.where(keep, buf_idx, E * C)] = st
+        xt_pad = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype, device=dev)])
+        eb = xt_pad[slot_token[: E * C]].reshape(E, C, d)
+    else:
+        # scatter-form dispatch (baseline)
+        vals = torch.where(keep[:, None], xt[st], 0).to(x.dtype)
+        buf = torch.zeros((E * C, d), dtype=x.dtype, device=dev).index_add(0, buf_idx, vals)
+        eb = buf.reshape(E, C, d)  # collisions only among dropped → add of 0s
+    eb = ctx.cons(eb, ("experts", None, "d_model"))
+    h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
+    h = ctx.cons(h, ("experts", None, "moe_ff"))
+    out_b = torch.bmm(h, params["w_down"]).reshape(E * C, d)
+    contrib = out_b[buf_idx] * (sg * keep.to(sg.dtype))[:, None]
+    if ctx.flag("moe_gather"):
+        # combine: every token has exactly k (possibly zeroed) contributions;
+        # invert the expert-sort and sum groups of k
+        inv = torch.argsort(st, stable=True)
+        out = contrib[inv].reshape(T, k, d).float().sum(dim=1)
+    else:
+        out = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add(0, st, contrib.float())
+    out = out.to(x.dtype).reshape(B, S, d)
+    if mc.shared_ff:
+        out = out + swiglu(params["shared"], x, ctx)
+    # load-balance aux loss (Switch): E * Σ_e f_e · p_e
+    me = torch.softmax(logits, dim=-1).mean(0)
+    ce = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    aux = E * torch.sum(me * ce)
+    return ctx.cons(out, ("batch", "seq", "d_model")), aux
+
+
+def _segment_rank(same_as_prev):
+    """Given 0/1 'same as previous' flags of a sorted array, return the rank
+    of each element within its run (the start of each run by a running
+    maximum)."""
+    n = same_as_prev.shape[0]
+    idx = torch.arange(n, device=same_as_prev.device)
+    starts = torch.cummax(torch.where(same_as_prev == 0, idx, 0), dim=0).values
+    return idx - starts

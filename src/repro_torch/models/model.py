@@ -1,16 +1,18 @@
-"""Model assembly: the dense decoder-only LM.
+"""Model assembly: the dense and MoE decoder-only LMs.
 
-A model is a layer PATTERN: a non-repeated prefix (empty for the dense
-family, the only one ported) plus a repeated body period whose parameters
-(and decode cache) are stacked over the repeats, so every body leaf has a leading ``n_layers`` axis — the
-reference's pytree, leaf for leaf, which is what the coded-serving guard
-reads and what a checkpoint holds. The reference scans the body with
-``jax.lax.scan``; here a Python loop indexes the stacked tensors.
+A model is a layer PATTERN: a non-repeated prefix (empty for the two
+families ported) plus a repeated body period whose parameters (and decode
+cache) are stacked over the repeats, so every body leaf has a leading
+``n_layers`` axis — the reference's pytree, leaf for leaf, which is what the
+coded-serving guard reads and what a checkpoint holds. The reference scans
+the body with ``jax.lax.scan``; here a Python loop indexes the stacked
+tensors.
 
 Public surface (used by train/, serve/, launch/):
     build_model(cfg)        → Model
     model.init(generator)   → params (on the generator's device)
     model.param_specs()     → the params' pytree as ``meta`` tensors
+    model.param_dims()      → the params' logical dims (``dist.sharding``)
     model.forward(params, batch, ctx)          → (logits, aux, hidden)
     model.loss(params, batch, ctx)             → (loss, {"ce", "aux", "loss"})
     model.init_cache(batch, s_max) / model.cache_dims()
@@ -20,8 +22,9 @@ Public surface (used by train/, serve/, launch/):
                             → (logits, cache)   # one-pass KV fill of a slot
     model.supports_prefill  → bool
 
-Only the ``"dense"`` layer kind is ported; ``build_model`` refuses the other
-families. Decode and prefill write the cache in place and return it.
+The ``"dense"`` and ``"moe"`` layer kinds are ported; ``build_model``
+refuses the other families, naming the ROADMAP item each waits for. Decode
+and prefill write the cache in place and return it.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ from ..configs.base import ModelConfig
 from ..core.field import resolve_device
 from . import layers as L
 
-#: ROADMAP queue A item under which each family that is not ported yet waits
-_NOT_PORTED = "ROADMAP.md queue A4 (models: {what})"
+#: the ROADMAP.md queue A4 item each config feature that is not ported yet waits for
+_NOT_PORTED = {"mla": "A4.2 (MLA)", "ssm": "A4.3 (Mamba, RWKV6)", "encdec": "A4.4 (encoder-decoder)",
+               "vlm": "A4.4 (VLM)", "mtp": "A4.5 (MTP)"}
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +57,15 @@ def _dense_init(generator, cfg, dtype, d_ff=None):
         "attn": L.attention_init(generator, cfg, dtype),
         "ln2": L.rmsnorm_init(cfg.d_model, dtype, dev),
         "mlp": L.swiglu_init(generator, cfg.d_model, d_ff or cfg.d_ff, dtype),
+    }
+
+
+def _dense_specs(cfg):
+    return {
+        "ln1": {"scale": ("d_model",)},
+        "attn": L.attention_specs(cfg),
+        "ln2": {"scale": ("d_model",)},
+        "mlp": L.swiglu_specs(),
     }
 
 
@@ -80,8 +93,8 @@ def _dense_prefill(params, x, cfg, ctx, aux):
     return x, aux, {"k": k, "v": v}
 
 
-def _kv_cache_init(cfg, batch, s_max, dtype, device):
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+def _kv_cache_init(cfg, layers, batch, s_max, dtype, device):
+    shape = (layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -93,8 +106,65 @@ def _kv_cache_dims():
     }
 
 
+def _moe_init(generator, cfg, dtype):
+    dev = L.init_device(generator)
+    p = {
+        "ln1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+        "attn": L.attention_init(generator, cfg, dtype),
+        "ln2": L.rmsnorm_init(cfg.d_model, dtype, dev),
+        "moe": L.moe_init(generator, cfg, dtype),
+    }
+    if cfg.moe.dense_residual_ff:
+        p["dense_mlp"] = L.swiglu_init(generator, cfg.d_model, cfg.moe.dense_residual_ff, dtype)
+    return p
+
+
+def _moe_specs(cfg):
+    s = {
+        "ln1": {"scale": ("d_model",)},
+        "attn": L.attention_specs(cfg),
+        "ln2": {"scale": ("d_model",)},
+        "moe": L.moe_specs(cfg),
+    }
+    if cfg.moe.dense_residual_ff:
+        s["dense_mlp"] = L.swiglu_specs()
+    return s
+
+
+def _moe_mlp(params, xn, cfg, ctx):
+    """The routed experts plus, where the config has one, the dense residual
+    SwiGLU beside them (Arctic). Returns (out, aux)."""
+    mo, a = L.moe_block(params["moe"], xn, cfg, ctx)
+    if cfg.moe.dense_residual_ff:
+        mo = mo + L.swiglu(params["dense_mlp"], xn, ctx)
+    return mo, a
+
+
+def _moe_fwd(params, x, cfg, ctx, aux):
+    h, _ = L.attention_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
+    x = x + h
+    mo, a = _moe_mlp(params, L.rmsnorm(params["ln2"], x), cfg, ctx)
+    return x + mo, aux + a
+
+
+def _moe_decode(params, x, cfg, cache, pos, ctx):
+    h, cache2 = L.attention_decode(params["attn"], L.rmsnorm(params["ln1"], x), cfg, cache, pos, ctx)
+    x = x + h
+    mo, _ = _moe_mlp(params, L.rmsnorm(params["ln2"], x), cfg, ctx)
+    return x + mo, cache2
+
+
+def _moe_prefill(params, x, cfg, ctx, aux):
+    h, (k, v) = L.attention_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
+    x = x + h
+    mo, a = _moe_mlp(params, L.rmsnorm(params["ln2"], x), cfg, ctx)
+    return x + mo, aux + a, {"k": k, "v": v}
+
+
 _KINDS: dict[str, dict[str, Any]] = {
-    "dense": dict(init=_dense_init, fwd=_dense_fwd, decode=_dense_decode, prefill=_dense_prefill),
+    "dense": dict(init=_dense_init, specs=_dense_specs, fwd=_dense_fwd, decode=_dense_decode,
+                  prefill=_dense_prefill),
+    "moe": dict(init=_moe_init, specs=_moe_specs, fwd=_moe_fwd, decode=_moe_decode, prefill=_moe_prefill),
 }
 
 
@@ -134,9 +204,12 @@ def _write_slot(cache_tree, content_tree, slot: int):
     return tree.map(write, cache_tree, content_tree)
 
 
-def _stack(trees: list):
-    """Leaf-wise ``torch.stack`` of same-structured pytrees."""
-    return tree.map(lambda *xs: torch.stack(xs), *trees)
+def _stacked_dims(dims):
+    """A layer's logical-dims tree with the leading layer axis (``None``)
+    added to every leaf."""
+    if isinstance(dims, dict):
+        return {k: _stacked_dims(v) for k, v in dims.items()}
+    return (None, *dims)
 
 
 def _unstack(stacked) -> list:
@@ -155,7 +228,7 @@ def _unstack(stacked) -> list:
 
 
 class Model(nn.Module):
-    """The dense decoder. Parameters are not registered on the module: they
+    """The dense or MoE decoder. Parameters are not registered on the module: they
     are a pytree passed to every call, as in the reference, so that the
     serving state, checkpoints and the coded guards see the reference's
     leaves."""
@@ -164,7 +237,7 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        _, self.body, self.repeats = layer_pattern(cfg)  # no prefix in the dense family
+        _, self.body, self.repeats = layer_pattern(cfg)  # no prefix in the families ported
         self.is_encdec = cfg.encdec is not None
         self.is_vlm = cfg.vlm is not None
 
@@ -180,16 +253,51 @@ class Model(nn.Module):
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.truncnorm_init(generator, (cfg.d_model, cfg.vocab_padded), dtype)
-        body = []
-        for _ in range(self.repeats):
-            body.append({f"b{j}": _KINDS[kind]["init"](generator, cfg, dtype) for j, kind in enumerate(self.body)})
-        params["body"] = _stack(body)
+        params["body"] = self._init_body(generator)
         return params
+
+    def _layer_init(self, generator) -> dict:
+        return {f"b{j}": _KINDS[kind]["init"](generator, self.cfg, self.dtype) for j, kind in enumerate(self.body)}
+
+    def _init_body(self, generator) -> dict:
+        """The body's parameters, stacked over the repeats. Each stacked leaf
+        is allocated once and filled layer by layer, every drawn leaf drawn
+        straight into its layer's slot (in slabs where it is large,
+        ``layers.DrawInto``): the draws come in the order, and with the
+        values, that drawing whole layers and stacking them would give, and
+        the device never holds a leaf twice."""
+        rec = L.DrawInto(None)
+        leaves, treedef = tree.flatten(self._layer_init(rec))
+        at = {id(t): i for i, t in enumerate(leaves)}
+        order = [at[id(t)] for t in rec.drawn]
+        stacked = [torch.empty((self.repeats, *t.shape), dtype=t.dtype, device=L.init_device(generator))
+                   for t in leaves]
+        if generator is not None:
+            for r in range(self.repeats):
+                views = [s[r] for s in stacked]
+                made = tree.leaves(self._layer_init(L.DrawInto(generator, [views[i] for i in order])))
+                for view, t in zip(views, made):
+                    if t is not view:  # a leaf made without a draw (ones, zeros)
+                        view.copy_(t)
+        return tree.unflatten(treedef, stacked)
 
     def param_specs(self) -> dict:
         """The parameters' pytree as ``meta`` tensors (shapes and dtypes, no
         storage)."""
         return self.init(None)
+
+    def param_dims(self) -> dict:
+        """The parameters' logical dims (the reference's ``_dims_tree``):
+        one tuple of names a leaf, ``None`` for the stacked layer axis."""
+        cfg = self.cfg
+        dims: dict[str, Any] = {
+            "embed": ("vocab", "d_model"),
+            "ln_f": {"scale": ("d_model",)},
+        }
+        if not cfg.tie_embeddings:
+            dims["lm_head"] = ("d_model", "vocab")
+        dims["body"] = {f"b{j}": _stacked_dims(_KINDS[kind]["specs"](cfg)) for j, kind in enumerate(self.body)}
+        return dims
 
     # -- embedding / head ----------------------------------------------------
     def _embed(self, params, tokens):
@@ -232,7 +340,7 @@ class Model(nn.Module):
         return logits, aux, h
 
     def loss(self, params, batch, ctx=L.NO_CTX):
-        """Causal LM loss (+ the MoE aux term, zero in the dense family):
+        """Causal LM loss (+ 0.01 × the MoE aux term, zero in the dense family):
         position t predicts label t + 1; labels below 0 are masked out."""
         logits, aux, _ = self.forward(params, batch, ctx)
         labels = batch["labels"]
@@ -247,9 +355,8 @@ class Model(nn.Module):
         ``{"body": {"b0": {"k", "v"}}}`` with leaves (n_layers, batch, s_max,
         kv_heads, head_dim)."""
         cfg, dtype, device = self.cfg, self.dtype, resolve_device(device)
-        caches = [{f"b{j}": _kv_cache_init(cfg, batch, s_max, dtype, device) for j, _k in enumerate(self.body)}
-                  for _ in range(self.repeats)]
-        return {"body": _stack(caches)}
+        return {"body": {f"b{j}": _kv_cache_init(cfg, self.repeats, batch, s_max, dtype, device)
+                         for j, _k in enumerate(self.body)}}
 
     def cache_dims(self):
         return {"body": {f"b{j}": {k: (None, *d) for k, d in _kv_cache_dims().items()}
@@ -318,15 +425,15 @@ def _xent(logits, labels, mask):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The port's model for ``cfg``. Only the dense family is ported: the
-    others raise ``NotImplementedError`` naming the ROADMAP item they wait
-    for."""
-    what = [name for name, on in (("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-                                  ("ssm", cfg.ssm is not None), ("encdec", cfg.encdec is not None),
-                                  ("vlm", cfg.vlm is not None), ("mtp", cfg.mtp)) if on]
+    """The port's model for ``cfg``. The dense and MoE families are ported
+    (a config whose only extra is ``moe``): the others raise
+    ``NotImplementedError`` naming the ROADMAP item they wait for."""
+    what = [name for name, on in (("mla", cfg.mla is not None), ("ssm", cfg.ssm is not None),
+                                  ("encdec", cfg.encdec is not None), ("vlm", cfg.vlm is not None),
+                                  ("mtp", cfg.mtp)) if on]
     if what:
         raise NotImplementedError(
-            f"{cfg.name}: the {', '.join(what)} layers are not ported yet; they wait for "
-            + _NOT_PORTED.format(what=", ".join(what))
+            f"{cfg.name}: the {', '.join(what)} layers are not ported yet; they wait for ROADMAP.md queue A4: "
+            + ", ".join(dict.fromkeys(_NOT_PORTED[w] for w in what))
         )
     return Model(cfg)

@@ -144,7 +144,8 @@ class GenerationResult:
 
 class Engine:
     """Fixed-batch engine (the baseline). Runs on the device that holds
-    ``params``."""
+    ``params``; ``rules`` (``dist.sharding.ShardingRules``) reach the model
+    through its decode step."""
 
     def __init__(
         self,
@@ -153,12 +154,13 @@ class Engine:
         max_len: int = 256,
         tracer=None,
         metrics=None,
+        rules=None,
     ):
         self.model = model
         self.params = params
         self.max_len = max_len
         self.device = _device_of(params)
-        self._step = make_decode_step(model)
+        self._step = make_decode_step(model, rules)
         self._tracer = tracer
         self._metrics = metrics
 
@@ -297,7 +299,8 @@ class ServeReport:
 class ContinuousEngine:
     """Continuous-batching engine: one prefill callable per length bucket +
     slot-scheduled decode with mid-stream insertion. Runs on the device that
-    holds ``params``."""
+    holds ``params``; ``rules`` (``dist.sharding.ShardingRules``) reach the
+    model through its prefill and decode steps."""
 
     def __init__(
         self,
@@ -309,6 +312,7 @@ class ContinuousEngine:
         max_new_tokens: int = 32,
         tracer=None,
         metrics=None,
+        rules=None,
     ):
         if not model.supports_prefill:
             raise NotImplementedError(
@@ -329,6 +333,7 @@ class ContinuousEngine:
         self.max_new_tokens = max_new_tokens
         self._tracer = tracer
         self._metrics = metrics
+        self.rules = rules
         self._prefill_fns: dict = {}  # (bucket, greedy) -> prefill callable
         self._tick_fns: dict = {}  # greedy -> decode tick
 
@@ -356,7 +361,7 @@ class ContinuousEngine:
         return tick
 
     def _make_tick(self, greedy: bool):
-        decode = make_decode_step(self.model)
+        decode = make_decode_step(self.model, self.rules)
         V = self.model.cfg.vocab_size
         G = self.max_new_tokens
 
@@ -402,7 +407,7 @@ class ContinuousEngine:
         return pf
 
     def _make_prefill(self, greedy: bool):
-        raw = make_prefill_step(self.model, into_cache=True)
+        raw = make_prefill_step(self.model, into_cache=True, rules=self.rules)
         V = self.model.cfg.vocab_size
 
         def prefill(params, cache, state, tokens, slot: int, plen: int, req_max: int, eos_id: int,

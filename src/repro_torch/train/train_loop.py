@@ -3,8 +3,10 @@
 ``make_train_step`` builds the eager train step (loss, gradients by
 ``torch.autograd``, AdamW); ``make_decode_step`` and ``make_prefill_step``
 the callables the serving engines run. The reference jit-compiles the same
-functions. The sharding functions (``param_shardings`` and the others) wait
-for the sharding substrate (ROADMAP.md queue A3).
+functions. Each takes the sharding rules (``dist.sharding.ShardingRules``,
+as ``launch.profiles.rules_for`` picks them), whose flags the model reads;
+a mesh, and the sharding functions (``param_shardings`` and the others),
+wait for the device half of the sharding substrate (ROADMAP.md queue A3).
 
 Gradient accumulation: ``accum > 1`` splits the batch's leading dim into
 micro-batches and runs them one after the other (the reference's
@@ -16,24 +18,24 @@ from __future__ import annotations
 import torch
 
 from .. import tree
+from ..dist.sharding import ShardingRules
 from ..models.layers import NO_CTX, Ctx
 from . import optimizer as opt
 
 
-def make_ctx() -> Ctx:
-    """The model context. One device only: the reference's ``(mesh, rules)``
-    wait for the sharding substrate (ROADMAP.md queue A3)."""
-    return NO_CTX
+def make_ctx(rules: ShardingRules | None = None) -> Ctx:
+    """The model context: the rules, on one device (no mesh)."""
+    return NO_CTX if rules is None else Ctx(rules=rules)
 
 
-def make_train_step(model, opt_cfg: opt.OptConfig, accum: int = 1):
+def make_train_step(model, opt_cfg: opt.OptConfig, accum: int = 1, rules: ShardingRules | None = None):
     """``(params, opt_state, batch) → (new_params, new_opt_state, metrics)``
     with ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` in ``metrics``
     (``ce`` and ``aux`` of the last micro-batch, ``loss`` their mean). The
     inputs are left as they are. Gradients are taken with respect to the
     parameter pytree's own leaves, so the state keeps the reference's leaf
     order and stacked layout."""
-    ctx = make_ctx()
+    ctx = make_ctx(rules)
 
     def train_step(params, opt_state, batch):
         leaves, treedef = tree.flatten(params)
@@ -60,10 +62,10 @@ def make_train_step(model, opt_cfg: opt.OptConfig, accum: int = 1):
     return train_step
 
 
-def make_decode_step(model):
+def make_decode_step(model, rules: ShardingRules | None = None):
     """``(params, cache, tokens (B, 1), pos (B,)) → (logits (B, 1, V_padded),
     cache)``, the cache written in place."""
-    ctx = make_ctx()
+    ctx = make_ctx(rules)
 
     def decode_step(params, cache, tokens, pos):
         return model.decode_step(params, cache, tokens, pos, ctx)
@@ -71,7 +73,7 @@ def make_decode_step(model):
     return decode_step
 
 
-def make_prefill_step(model, into_cache: bool = False):
+def make_prefill_step(model, into_cache: bool = False, rules: ShardingRules | None = None):
     """Prefill step factory.
 
     ``into_cache=False``: ``(params, batch) → logits`` — full forward over
@@ -83,7 +85,7 @@ def make_prefill_step(model, into_cache: bool = False):
     (in place) and returns the logits of position ``plen - 1``, the first
     generated token's distribution.
     """
-    ctx = make_ctx()
+    ctx = make_ctx(rules)
 
     if into_cache:
 

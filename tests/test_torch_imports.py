@@ -48,6 +48,7 @@ def test_the_slice_is_all_there():
         "configs", "configs.base", "configs.registry", "configs.qwen3_1_7b", "models", "models.layers",
         "models.model", "models.inputs", "train.train_loop", "serve.scheduler", "serve.traffic", "serve.engine",
         "launch", "launch.serve", "train.optimizer", "train.data", "launch.train", "dist.ranks", "launch.mesh",
+        "dist.sharding", "launch.roofline", "launch.rules", "launch.profiles",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -74,7 +75,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first",
-              "models-first", "configs-first", "launch-first", "train-first"]
+              "models-first", "configs-first", "launch-first", "train-first", "sharding-first", "profiles-first"]
 )
 def test_import_order_does_not_matter(order):
     first = {
@@ -89,6 +90,8 @@ def test_import_order_does_not_matter(order):
         "configs-first": "repro_torch.configs",
         "launch-first": "repro_torch.launch.serve",
         "train-first": "repro_torch.launch.train",
+        "sharding-first": "repro_torch.dist.sharding",
+        "profiles-first": "repro_torch.launch.profiles",
     }[order]
     r = run_fresh(f"""
         import importlib
@@ -96,6 +99,7 @@ def test_import_order_does_not_matter(order):
         import repro_torch.kernels.butterfly.ops, repro_torch.core, repro_torch.dist, repro_torch.convert
         import repro_torch.topo, repro_torch.obs, repro_torch.coded, repro_torch.train, repro_torch.serve
         import repro_torch.configs, repro_torch.models, repro_torch.launch.serve, repro_torch.launch.train
+        import repro_torch.dist.sharding, repro_torch.launch.profiles, repro_torch.launch.roofline
         print("ok")
     """)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -115,10 +115,22 @@ def test_smoke_config_and_layer_pattern_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(set(R_ARCHS) - {"qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b",
-                                                        "internlm2-20b"}))
+                                                        "internlm2-20b", "arctic-480b"}))
 def test_build_model_refuses_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
         build_model(smoke_config(arch))
+
+
+@pytest.mark.parametrize("arch, item", [("jamba-v0.1-52b", r"A4\.3 \(Mamba"), ("deepseek-v3-671b", r"A4\.2 \(MLA\)")])
+def test_build_model_refuses_hybrid_moe_and_mla(arch, item):
+    """MoE is ported (``arctic-480b``), but a hybrid MoE pattern (Jamba's
+    Mamba layers) and MLA (DeepSeek-V3, with MTP) are not: each is refused,
+    naming its item of ROADMAP.md queue A4."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4: .*" + item):
+        build_model(smoke_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
+        build_model(get(arch))
+    assert build_model(smoke_config("arctic-480b")).body == ["moe"]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-26b", "whisper-base"])
