@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-10 hand it, as they hand it, with its
+                that phases 4 and 6-11 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -164,11 +164,35 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 e2e p50/p99, a tick's ms beside its bytes bound (every weight
                 but ``embed`` read once), prefill ms per bucket, the idle
                 share of a profiled decode chunk, init and peak bytes, the
-                snapshot and recovery ms.
-11. a line ``{"kernels": [...]}`` with every kernel's launches on the main
-   path, the coded path, the serve path, the train path, the ranks and the
-   MoE serve path, error, time, bound and plain time; the card's name and
-   power limit; and last ``{"ok": true, "device": {...}}``.
+                snapshot and recovery ms. (b) also serves with the combine
+                ``moe_block`` had before its fixed order (``index_add``):
+                the same tokens and logits at top-2.
+11. ``mla``     MLA, the layer prefix and MTP at the full width of DeepSeek-V3
+                (``deepseek-v3-671b``: d_model 7168, 128 heads, MLA ranks
+                1536 / 512, heads 128 + 64 rope, 256 experts top-8 with
+                expert_ff 2048 and one shared, dense prefix SwiGLU 18,432,
+                vocab 129,280), cut to 4 of its 61 layers (the 3 leading
+                dense layers, ``prefix_{i}``, and one MoE layer) with the MTP
+                head: 53.4 GB of bf16 weights drawn on the emptied card from
+                the seed, with its own launch counts. Phase 10's engine and
+                trace: (a) greedy under the baseline rules, with the pairs
+                capacity drops in each prefill; (b) greedy under the
+                ``moe_gather`` rules, tokens equal to (a)'s, and on one
+                500-token prefill and one tick the logits of both forms and
+                of the scatter form run again, bit-equal (top-8: the
+                combine's fixed order); (c) greedy under
+                ``CodedServeGuard(K=6, R=2)`` with one kill, tokens equal to
+                (a)'s, the guard's ``gf_matmul`` shape (the MLA cache: latent
+                and rope key) among phase 3's; (d) the float32 smoke config
+                and its top-8 variant (16 experts) on the card against the
+                CPU: logits within 1e-4, router choices equal, ``loss`` with
+                ``mtp_ce`` within 1e-5. Prints what phase 10 prints, the
+                tick against its bound of every weight but ``embed`` and
+                ``mtp`` read once.
+12. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+   path, the coded path, the serve path, the train path, the ranks, the
+   MoE serve path and the MLA serve path, error, time, bound and plain time;
+   the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
 no arguments. Without a CUDA device it exits non-zero and prints no result.
@@ -2591,25 +2615,47 @@ def drops(eidx: torch.Tensor, cfg) -> int:
     return int((load - model_layers.moe_capacity(eidx.shape[0], cfg)).clamp_min(0).sum())
 
 
-def moe_drops(choices: list, cfg) -> dict:
-    """Drops in each prefill (its MOE_LAYERS calls summed) and in the decode
-    ticks (T = the slot count: none may drop) of one serve."""
+def moe_drops(choices: list, cfg, layers: int = MOE_LAYERS, what: str = "moe") -> dict:
+    """Drops in each prefill (its ``layers`` MoE calls summed) and in the
+    decode ticks (T = the slot count: none may drop) of one serve."""
     prefills, ticks = [], []
     i = 0
     while i < len(choices):
         T = choices[i].shape[0]
-        group = choices[i: i + MOE_LAYERS]
-        check(len(group) == MOE_LAYERS and all(c.shape[0] == T for c in group), "moe: a call is missing its layers")
+        group = choices[i: i + layers]
+        check(len(group) == layers and all(c.shape[0] == T for c in group), f"{what}: a call is missing its layers")
         (ticks if T == SERVE_SLOTS else prefills).append({"tokens": T, "dropped": sum(drops(c, cfg) for c in group)})
-        i += MOE_LAYERS
-    check(all(t["dropped"] == 0 for t in ticks), "moe: a decode tick dropped a (token, slot) pair")
+        i += layers
+    check(all(t["dropped"] == 0 for t in ticks), f"{what}: a decode tick dropped a (token, slot) pair")
     return {"prefills": prefills, "decode_calls": len(ticks), "decode_dropped": 0}
 
 
-def moe_forms(model, params, dev, rules: dict) -> dict:
+def index_add_combine(contrib, st, T: int, k: int):
+    """``moe_block``'s combine as it was before its fixed order: a float32
+    ``index_add`` onto zero (atomics on the card, in whatever order they
+    land; the same bits as the fixed order for top-k <= 2)."""
+    return torch.zeros((T, contrib.shape[1]), dtype=torch.float32, device=contrib.device).index_add(
+        0, st, contrib.float())
+
+
+@contextlib.contextmanager
+def combine_as(fn):
+    """Run ``moe_block`` with ``fn`` as its combine while the block runs
+    (``None``: its own)."""
+    own = model_layers._combine
+    model_layers._combine = fn or own
+    try:
+        yield
+    finally:
+        model_layers._combine = own
+
+
+def moe_forms(model, params, dev, forms: dict, what: str = "moe") -> dict:
     """(b)'s direct check: one MOE_FORMS_PLEN-token prompt prefilled at
     bucket 512 (where capacity drops pairs) into slot 0, then one decode tick
-    of every slot, under each form's rules: the last logits of both."""
+    of every slot, under each form's rules and combine (``forms``: name →
+    (rules, combine or ``None`` for ``moe_block``'s own), the first the
+    scatter form): the last logits of every form equal the first's."""
     V = model.cfg.vocab_size
     prompt = np.random.default_rng(SEED + 1102).integers(1, V, size=MOE_FORMS_PLEN).astype(np.int32)
     bucket = bucket_for(MOE_FORMS_PLEN, SERVE_BUCKETS)
@@ -2620,37 +2666,45 @@ def moe_forms(model, params, dev, rules: dict) -> dict:
                            .astype(np.int32)).to(dev)
     pos = torch.tensor([MOE_FORMS_PLEN] + [0] * (SERVE_SLOTS - 1), dtype=torch.int32, device=dev)
     out = {}
-    for form, r in rules.items():
+    for form, (r, combine) in forms.items():
         cache = model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device=dev)
-        last, cache = make_prefill_step(model, into_cache=True, rules=r)(params, cache, toks, 0, MOE_FORMS_PLEN)
-        lg, _ = make_decode_step(model, rules=r)(params, cache, nxt, pos)
+        with combine_as(combine):
+            last, cache = make_prefill_step(model, into_cache=True, rules=r)(params, cache, toks, 0, MOE_FORMS_PLEN)
+            lg, _ = make_decode_step(model, rules=r)(params, cache, nxt, pos)
         out[form] = (last[0, :V], lg[:, 0, :V])
-        check(bool(torch.isfinite(last).all() and torch.isfinite(lg).all()), f"moe/forms: {form} logits not finite")
-    (pa, da), (pb, db) = out["scatter"], out["gather"]
-    rec = {"plen": MOE_FORMS_PLEN, "bucket": bucket,
-           "prefill_last_logits_max_abs_diff": float((pa - pb).abs().max()),
-           "decode_logits_max_abs_diff": float((da - db).abs().max()),
-           "equal": bool(torch.equal(pa, pb) and torch.equal(da, db))}
-    check(rec["equal"], f"moe/forms: the gather form's logits differ from the scatter form's: {rec}")
+        check(bool(torch.isfinite(last).all() and torch.isfinite(lg).all()), f"{what}/forms: {form} logits not finite")
+    first, (pa, da) = next(iter(out.items()))
+    rec = {"plen": MOE_FORMS_PLEN, "bucket": bucket, "against": first}
+    for form, (pb, db) in list(out.items())[1:]:
+        rec[form] = {"prefill_last_logits_max_abs_diff": float((pa - pb).abs().max()),
+                     "decode_logits_max_abs_diff": float((da - db).abs().max()),
+                     "equal": bool(torch.equal(pa, pb) and torch.equal(da, db))}
+        check(rec[form]["equal"], f"{what}/forms: the {form} logits differ from the {first} form's: {rec}")
     return rec
 
 
 def moe_small_vs_cpu(dev) -> dict:
     """(d): the float32 smoke config of the same architecture on the card
-    against the CPU, from the same parameters: ``forward``, MOE_SMALL_STEPS
-    ``decode_step``s and ``prefill_into_cache`` at a bucket where capacity
-    drops, logits within SMALL_LOGITS_ATOL; the router's expert choices of
-    every call equal."""
-    check(not torch.backends.cuda.matmul.allow_tf32, "moe/small: TF32 matmuls are on")
-    cfg = smoke_config(MOE_ARCH).replace(dtype="float32")
+    against the CPU (:func:`small_vs_cpu`)."""
+    return small_vs_cpu(smoke_config(MOE_ARCH).replace(dtype="float32"), dev, SEED + 1104, "moe/small")
+
+
+def small_vs_cpu(cfg, dev, seed: int, what: str) -> dict:
+    """A float32 smoke config on the card against the CPU, from the same
+    parameters: ``forward``, MOE_SMALL_STEPS ``decode_step``s and
+    ``prefill_into_cache`` at a bucket where capacity drops, logits within
+    SMALL_LOGITS_ATOL; the router's expert choices of every call equal; with
+    MTP, ``loss`` and its terms (``mtp_ce`` among them) within
+    SMALL_LOSS_ATOL."""
+    check(not torch.backends.cuda.matmul.allow_tf32, f"{what}: TF32 matmuls are on")
     model = build_model(cfg)
-    cpu_params = model.init(torch.Generator().manual_seed(SEED + 1104))
-    rng = np.random.default_rng(SEED + 1105)
+    cpu_params = model.init(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed + 1)
     toks = rng.integers(0, cfg.vocab_size, size=MOE_SMALL_TOKENS).astype(np.int32)
     steps = rng.integers(0, cfg.vocab_size, size=(MOE_SMALL_STEPS, 3, 1)).astype(np.int32)
     tb = np.zeros((1, MOE_SMALL_BUCKET), np.int32)
     tb[0, :MOE_SMALL_PLEN] = rng.integers(1, cfg.vocab_size, size=MOE_SMALL_PLEN)
-    runs = {}
+    runs, losses = {}, {}
     for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
         p = tree.map(lambda t: t.to(d), cpu_params)
         choices: list = []
@@ -2664,6 +2718,9 @@ def moe_small_vs_cpu(dev) -> dict:
                 dec.append(lg)
             pf, _ = model.prefill_into_cache(p, model.init_cache(3, 64, device=d), torch.from_numpy(tb).to(d), 1)
         runs[where] = ([fwd.cpu(), torch.stack(dec).cpu(), pf.cpu()], [c.cpu() for c in choices])
+        if cfg.mtp:
+            t = torch.from_numpy(toks).to(d)
+            losses[where] = {k: float(v) for k, v in model.loss(p, {"tokens": t, "labels": t})[1].items()}
     errs = {k: float((a - b)[..., : cfg.vocab_size].abs().max())
             for k, a, b in zip(("forward", "decode_step", "prefill_into_cache"), runs["cpu"][0], runs["card"][0])}
     (cc, gc) = runs["cpu"][1], runs["card"][1]
@@ -2672,9 +2729,14 @@ def moe_small_vs_cpu(dev) -> dict:
     rec = {"config": cfg.name, "dtype": "float32", "tf32": False, "logits_max_abs_err": errs,
            "tolerance": SMALL_LOGITS_ATOL, "router_calls": len(cc), "router_choices": pairs,
            "router_choices_equal": equal,
-           "capacity_drops_in_prefill": sum(drops(c, cfg) for c in cc[-cfg.n_layers:])}
-    check(all(e <= SMALL_LOGITS_ATOL for e in errs.values()), f"moe/small: card and CPU logits differ: {rec}")
-    check(len(cc) == len(gc) and equal == pairs, f"moe/small: the router chose other experts on the card: {rec}")
+           "capacity_drops_in_prefill": sum(drops(c, cfg) for c in cc[-model.repeats * len(model.body):])}
+    check(all(e <= SMALL_LOGITS_ATOL for e in errs.values()), f"{what}: card and CPU logits differ: {rec}")
+    check(len(cc) == len(gc) and equal == pairs, f"{what}: the router chose other experts on the card: {rec}")
+    if cfg.mtp:
+        rec.update(loss_cpu=losses["cpu"], loss_card=losses["card"], loss_tolerance=SMALL_LOSS_ATOL,
+                   loss_max_abs_err=max(abs(losses["cpu"][k] - losses["card"][k]) for k in losses["cpu"]))
+        check(sorted(losses["card"]) == ["aux", "ce", "loss", "mtp_ce"] and rec["loss_max_abs_err"] <= SMALL_LOSS_ATOL,
+              f"{what}: the card's loss and its terms differ from the CPU's: {rec}")
     return rec
 
 
@@ -2751,7 +2813,14 @@ def moe_phase(mcfg: dict, dev) -> tuple[dict, dict]:
     record["gather"]["tokens_equal_scatter"] = tokens_of(rep_b) == greedy
     check(record["gather"]["tokens_equal_scatter"],
           "moe: the gather form's greedy tokens differ from the scatter form's")
-    record["forms"] = moe_forms(model, params, dev, rules)
+    with combine_as(index_add_combine):  # the combine before its fixed order: the same tokens at top-2
+        rep_ia = engines["scatter"].serve(trace, greedy=True, sync_every=SERVE_SYNC)
+    record["gather"]["tokens_equal_index_add_combine"] = tokens_of(rep_ia) == greedy
+    check(record["gather"]["tokens_equal_index_add_combine"],
+          "moe: the fixed-order combine's greedy tokens differ from the index_add combine's")
+    record["forms"] = moe_forms(model, params, dev, {"scatter": (rules["scatter"], None),
+                                                      "gather": (rules["gather"], None),
+                                                      "index_add": (rules["scatter"], index_add_combine)})
     rep_c, record["greedy_guarded"] = guarded_run(mcfg, engines["scatter"], trace, dev, collective=False,  # (c)
                                                   greedy=True)
     check(tokens_of(rep_c) == greedy, "moe: greedy tokens after a kill and recovery differ from the unfailed run's")
@@ -2764,6 +2833,146 @@ def moe_phase(mcfg: dict, dev) -> tuple[dict, dict]:
     del params, engines
     torch.cuda.empty_cache()
     record["small_vs_cpu"] = moe_small_vs_cpu(dev)  # (d)
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return counted, record
+
+
+# ---------------------------------------------------------------------------
+# phase 11: MLA, the layer prefix and MTP at the full width of DeepSeek-V3
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+# Depth cut from 61 to 4 layers, no width cut: the 3 dense prefix layers
+# (first_dense) and one MoE layer, with the MTP head, come to 53.4 GB of bf16
+# weights; a fifth layer would make 76.5 GB and leave too little of the card
+# for the init's slabs, a 512-token prefill's float32 logits and the guard.
+MLA_LAYERS = 4
+MLA_PARAM_BYTES = 53_449_664_512  # embed, lm_head, 3 dense MLA layers, one MLA-MoE layer, MTP (its own MLA-MoE layer)
+MLA_MTP_BYTES = 23_223_791_616  # never read when serving
+MLA_TOP8 = dict(n_experts=16, top_k=8)  # (d)'s top-8 variant of the smoke config
+
+
+def mla_config() -> dict:
+    """Phase 11's configuration, host-side: DeepSeek-V3 cut to MLA_LAYERS
+    layers, the engine state's spec and shard width (prefix caches beside
+    the stacked body's), the guard's plan and the kernel call of one
+    snapshot (``runs``)."""
+    cfg = get(MLA_ARCH).replace(n_layers=MLA_LAYERS)
+    model = build_model(cfg)
+    spec = serve_state_spec(model)
+    plan = build_lcc(SERVE_K, R=SERVE_R)
+    lps = plan_prepare_shoot(plan.N, plan.p)
+    S = -(-limb_count(spec) // SERVE_K)
+    return {"name": "mla", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
+            "runs": {"ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))]}}
+
+
+def mla_small_vs_cpu(dev) -> dict:
+    """(d): the float32 smoke config and its top-8 variant (MLA_TOP8) on the
+    card against the CPU, ``loss`` with ``mtp_ce`` included
+    (:func:`small_vs_cpu`)."""
+    cfg = smoke_config(MLA_ARCH).replace(dtype="float32")
+    top8 = cfg.replace(name=f"{cfg.name}-top8", moe=dataclasses.replace(cfg.moe, **MLA_TOP8))
+    return {"smoke": small_vs_cpu(cfg, dev, SEED + 1204, "mla/small"),
+            "top8": small_vs_cpu(top8, dev, SEED + 1206, "mla/small_top8")}
+
+
+def mla_phase(mcfg: dict, dev) -> tuple[dict, dict]:
+    """DeepSeek-V3 at full width, MLA_LAYERS layers deep (``mcfg`` from
+    :func:`mla_config`), counted on its own: (a) greedy under the baseline
+    rules (scatter dispatch), (b) greedy under the ``moe_gather`` profile's
+    rules, equal to (a), and on one prefill and one tick the logits of both
+    forms and of the scatter form run again, bit-equal, (c) greedy under the
+    guard with one kill, equal to (a), (d) the float32 smoke config and its
+    top-8 variant on the card against the CPU. Returns (launches, record)."""
+    model = mcfg["model"]
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < MOE_HELD_MAX, f"mla: earlier phases still hold {held} bytes of the card")
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1200)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    by = lambda t: sum(x.numel() * x.element_size() for x in tree.leaves(t))  # noqa: E731
+    mc, ml = cfg.moe, cfg.mla
+    mla_widths = (ml.q_lora_rank, ml.kv_lora_rank, ml.qk_nope_head_dim, ml.qk_rope_head_dim, ml.v_head_dim)
+    check(cfg.d_model == 7168 and cfg.n_heads == 128 and mla_widths == (1536, 512, 128, 64, 128)
+          and mc.n_experts == 256 and mc.top_k == 8 and mc.expert_ff == 2048 and mc.shared_ff == 2048
+          and mc.first_dense == 3 and mc.dense_ff == 18432 and cfg.vocab_size == 129280 and cfg.mtp
+          and cfg.n_layers == MLA_LAYERS and (model.prefix, model.body, model.repeats) == (["mla_dense"] * 3,
+                                                                                         ["mla_moe"], 1)
+          and tuple(params["body"]["b0"]["moe"]["w_gate"].shape) == (1, 256, 7168, 2048)
+          and tuple(params["mtp"]["block"]["moe"]["w_gate"].shape) == (256, 7168, 2048)
+          and tuple(params["prefix_0"]["mlp"]["w_up"].shape) == (7168, 18432), "mla: not DeepSeek-V3's width")
+    check(all(t.is_cuda for t in tree.leaves(params))
+          and all(t.dtype == (torch.float32 if k.endswith("router") else torch.bfloat16)
+                  for k, t in tree.flatten_with_names(params).items()),
+          "mla: the weights are not bf16 (float32 routers) on the card")
+    check(by(params) == MLA_PARAM_BYTES and by(params["mtp"]) == MLA_MTP_BYTES,
+          f"mla: the weights hold {by(params)} bytes")
+    shape = ShapeSpec("mla", "decode", SERVE_POSITIONS, SERVE_SLOTS)
+    rules = {"scatter": rules_for(cfg, shape, BASELINE), "gather": rules_for(cfg, shape, MOE_GATHER)}
+    check(not rules["scatter"].has("moe_gather") and rules["gather"].has("moe_gather"), "mla: the rules' flags")
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=cfg.vocab_size, seed=SEED + 1001)
+    engines = {form: ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=SERVE_POSITIONS,
+                                      buckets=SERVE_BUCKETS, max_new_tokens=SERVE_MAX_NEW, metrics=MetricsRegistry(),
+                                      rules=r) for form, r in rules.items()}
+    tick_bytes = by(params) - by(params["embed"]) - by(params["mtp"])
+    record = {"arch": cfg.name, "layers": f"{MLA_LAYERS} of {get(MLA_ARCH).n_layers} (3 dense prefix, 1 MoE) + MTP",
+              "params": sum(t.numel() for t in tree.leaves(params)), "param_bytes": by(params),
+              "mtp_bytes": by(params["mtp"]), "held_bytes": held, "free_bytes_at_start": free_bytes,
+              "total_bytes": total_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
+              "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS, "buckets": SERVE_BUCKETS, "max_new": SERVE_MAX_NEW,
+              "sync_every": SERVE_SYNC, "trace": {"requests": len(trace), "rate_rps": SERVE_RATE, "seed": SEED + 1001},
+              "capacity": {"factor": mc.capacity_factor, "decode": model_layers.moe_capacity(SERVE_SLOTS, cfg),
+                           **{f"prefill_{b}": model_layers.moe_capacity(b, cfg) for b in SERVE_BUCKETS}},
+              "decode_tick_bound": {"bytes": tick_bytes, "ms": tick_bytes / HBM_BYTES_PER_S * 1e3,
+                                    "what": "every weight but embed and mtp read once a tick"},
+              "cache_bytes": by(mcfg["spec"][0]),
+              "guard": {"K": SERVE_K, "R": SERVE_R, "q": NTT, "kills": SERVE_ENGINE_KILL,
+                        "state_bytes": spec_bytes(mcfg["spec"]), "limbs_a_shard": mcfg["S"],
+                        "gf_matmul_shape": mcfg["runs"]["ContinuousEngine.serve(guard)"][0][1]}}
+
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+    choices: list = []
+    with routed(choices):
+        rep_a = engines["scatter"].serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (a)
+    greedy = tokens_of(rep_a)
+    record["greedy"] = check_report("mla/greedy", rep_a, trace, cfg.vocab_size)
+    record["capacity_drops"] = moe_drops(choices, cfg, layers=model.repeats * len(model.body), what="mla")
+    del choices
+    check(launches() == (0, 0), "mla: the unguarded run launched a hand kernel")
+    rep_b = engines["gather"].serve(trace, greedy=True, sync_every=SERVE_SYNC)  # (b)
+    record["gather"] = check_report("mla/gather", rep_b, trace, cfg.vocab_size)
+    record["gather"]["tokens_equal_scatter"] = tokens_of(rep_b) == greedy
+    check(record["gather"]["tokens_equal_scatter"],
+          "mla: the gather form's greedy tokens differ from the scatter form's")
+    record["forms"] = moe_forms(model, params, dev, {"scatter": (rules["scatter"], None),
+                                                      "gather": (rules["gather"], None),
+                                                      "scatter_again": (rules["scatter"], None)}, what="mla")
+    rep_c, record["greedy_guarded"] = guarded_run(mcfg, engines["scatter"], trace, dev, collective=False,  # (c)
+                                                  greedy=True)
+    check(tokens_of(rep_c) == greedy, "mla: greedy tokens after a kill and recovery differ from the unfailed run's")
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+    check(counted["gf_matmul"] > 0, "the MLA serve path never launched gf_matmul")
+    record["launches"] = counted
+    record["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record.update(serve_timings(model, params, engines["scatter"], trace, dev, kind=train_kernel_kind, what="mla"))
+    record["decode_tick_share_of_bound"] = record["decode_tick_bound"]["ms"] / record["decode_tick_ms"]
+    del params, engines
+    torch.cuda.empty_cache()
+    record["small_vs_cpu"] = mla_small_vs_cpu(dev)  # (d)
     torch.cuda.empty_cache()
     record["seconds"] = time.perf_counter() - t_phase
     return counted, record
@@ -2798,7 +3007,8 @@ def main() -> int:
     train_cfg = train_config()
     ranks_cfgs = ranks_configs()
     moe_cfg = moe_config()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg], P)
+    mla_cfg = mla_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg, mla_cfg], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -2884,12 +3094,16 @@ def main() -> int:
     moe_launches, moed = moe_phase(moe_cfg, dev)
     say("moe", card=smi, **moed)
 
+    # phase 11: MLA, the prefix and MTP at DeepSeek-V3's full width, four layers, on an emptied card
+    mla_launches, mlad = mla_phase(mla_cfg, dev)
+    say("mla", card=smi, **mlad)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
                            + serve_launches[row["name"]] + train_launches[row["name"]]
-                           + ranks_launches[row["name"]] + moe_launches[row["name"]])
+                           + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

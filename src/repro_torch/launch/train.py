@@ -48,7 +48,8 @@ from .profiles import BASELINE, OPT, rules_for
 def main(argv=None) -> dict:
     """Run the launcher; returns ``{"state", "history", "guard", "start",
     "seconds", "model", "opt_cfg", "rules"}``: the final ``{"params", "opt"}``, one
-    ``{"step", "loss", "grad_norm", "s"}`` record a step (``s``: seconds
+    ``{"step", "loss", "grad_norm", "s"}`` record a step (with ``mtp_ce``
+    for a model with MTP, as the loss's metrics have it; ``s``: seconds
     since the loop began, read once the step's metrics reached the host), the
     guard, the step the run began at, the loop's wall seconds, the model, the
     optimizer's configuration and the sharding rules the step ran under."""
@@ -96,9 +97,10 @@ def main(argv=None) -> dict:
         batch = to_device(ds.batch(s, args.batch, args.seq), dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        history.append({"step": s, "loss": loss, "grad_norm": gnorm, "s": time.perf_counter() - t0})
+        mtp = {"mtp_ce": float(metrics["mtp_ce"])} if "mtp_ce" in metrics else {}
+        history.append({"step": s, "loss": loss, "grad_norm": gnorm, **mtp, "s": time.perf_counter() - t0})
         if s % 10 == 0 or s == args.steps - 1:
-            print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f}")
+            print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f}" + "".join(f" {k} {v:.4f}" for k, v in mtp.items()))
         if args.coded_every and s and s % args.coded_every == 0:
             guard.snapshot({"params": params, "opt": opt_state}, s)
         if args.ckpt and s and s % args.ckpt_every == 0:

@@ -1,7 +1,7 @@
 """Shared model layers (eager PyTorch, pytree params).
 
-A port of the reference package's ``models/layers.py`` for the dense and
-MoE decoders: norms, RoPE, chunked causal and decode attention, the GQA
+A port of the reference package's ``models/layers.py`` for the dense,
+MoE and MLA decoders: norms, RoPE, chunked causal and decode attention, the GQA
 block, the SwiGLU MLP and the top-k routed MoE block, each with its logical
 dims (``*_specs``). Conventions follow the reference step by step:
 
@@ -442,10 +442,9 @@ def moe_block(params, x, cfg, ctx=NO_CTX):
     (standard GShard/Switch semantics). Returns (out, aux), the Switch
     load-balance term ``E · Σ_e f_e · p_e``.
 
-    The combine adds each token's k float32 contributions onto zero; for
-    k ≤ 2 that sum is exact in any order, so ``index_add_`` on the card and
-    the gather form (``ctx.flag("moe_gather")``) give the same bits. A
-    top-k above 2 (DeepSeek-V3's 8) will need a fixed order of addition.
+    Both forms (scatter, and gather under ``ctx.flag("moe_gather")``)
+    combine alike, in a fixed order (:func:`_combine`), so they give the
+    same bits as each other and from run to run at any top-k.
     """
     mc = cfg.moe
     B, S, d = x.shape
@@ -484,14 +483,7 @@ def moe_block(params, x, cfg, ctx=NO_CTX):
     h = ctx.cons(h, ("experts", None, "moe_ff"))
     out_b = torch.bmm(h, params["w_down"]).reshape(E * C, d)
     contrib = out_b[buf_idx] * (sg * keep.to(sg.dtype))[:, None]
-    if ctx.flag("moe_gather"):
-        # combine: every token has exactly k (possibly zeroed) contributions;
-        # invert the expert-sort and sum groups of k
-        inv = torch.argsort(st, stable=True)
-        out = contrib[inv].reshape(T, k, d).float().sum(dim=1)
-    else:
-        out = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add(0, st, contrib.float())
-    out = out.to(x.dtype).reshape(B, S, d)
+    out = _combine(contrib, st, T, k).to(x.dtype).reshape(B, S, d)
     if mc.shared_ff:
         out = out + swiglu(params["shared"], x, ctx)
     # load-balance aux loss (Switch): E * Σ_e f_e · p_e
@@ -499,6 +491,23 @@ def moe_block(params, x, cfg, ctx=NO_CTX):
     ce = torch.bincount(flat_e, minlength=E).float() / (T * k)
     aux = E * torch.sum(me * ce)
     return ctx.cons(out, ("batch", "seq", "d_model")), aux
+
+
+def _combine(contrib, st, T: int, k: int):
+    """Each token's k float32 contributions summed: ``contrib`` (T·k, d) in
+    expert-sorted order, ``st`` the token of each row. Every token has
+    exactly k rows (a dropped pair's is zero); the inverse of the expert
+    sort groups them by token in ascending expert order, and they are added
+    onto zero left to right, in that order (a scatter ``index_add_`` on the
+    card would add in whatever order its atomics land). So both dispatch
+    forms and every run give the same bits at any top-k, and for k ≤ 2 the
+    bits ``index_add_`` gives (two terms added onto zero give the same bits
+    in either order)."""
+    rows = contrib[torch.argsort(st, stable=True)].reshape(T, k, -1).float()
+    out = torch.zeros_like(rows[:, 0])
+    for j in range(k):
+        out = out + rows[:, j]
+    return out
 
 
 def _segment_rank(same_as_prev):

@@ -30,8 +30,9 @@ def make_ctx(rules: ShardingRules | None = None) -> Ctx:
 
 def make_train_step(model, opt_cfg: opt.OptConfig, accum: int = 1, rules: ShardingRules | None = None):
     """``(params, opt_state, batch) → (new_params, new_opt_state, metrics)``
-    with ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` in ``metrics``
-    (``ce`` and ``aux`` of the last micro-batch, ``loss`` their mean). The
+    with ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` in ``metrics``,
+    and ``mtp_ce`` for a model with MTP (``ce``, ``aux`` and ``mtp_ce`` of
+    the last micro-batch, ``loss`` their mean). The
     inputs are left as they are. Gradients are taken with respect to the
     parameter pytree's own leaves, so the state keeps the reference's leaf
     order and stacked layout."""

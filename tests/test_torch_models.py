@@ -117,6 +117,12 @@ def test_smoke_config_and_layer_pattern_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", sorted(set(R_ARCHS) - {"qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b",
                                                         "internlm2-20b", "arctic-480b"}))
 def test_build_model_refuses_families_not_ported(arch):
+    """Every family not ported is refused, naming ROADMAP.md queue A4; since
+    MLA and MTP are ported, DeepSeek-V3 builds instead."""
+    if arch == "deepseek-v3-671b":
+        m = build_model(smoke_config(arch))
+        assert (m.prefix, m.body, m.repeats) == (["mla_dense"], ["mla_moe"], 1) and "mtp" in m.param_specs()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
         build_model(smoke_config(arch))
 
@@ -124,8 +130,14 @@ def test_build_model_refuses_families_not_ported(arch):
 @pytest.mark.parametrize("arch, item", [("jamba-v0.1-52b", r"A4\.3 \(Mamba"), ("deepseek-v3-671b", r"A4\.2 \(MLA\)")])
 def test_build_model_refuses_hybrid_moe_and_mla(arch, item):
     """MoE is ported (``arctic-480b``), but a hybrid MoE pattern (Jamba's
-    Mamba layers) and MLA (DeepSeek-V3, with MTP) are not: each is refused,
-    naming its item of ROADMAP.md queue A4."""
+    Mamba layers) is not: it is refused, naming its item of ROADMAP.md queue
+    A4. MLA (A4.2) and MTP are ported since: DeepSeek-V3 builds, at full
+    width too."""
+    if arch == "deepseek-v3-671b":
+        assert build_model(smoke_config(arch)).prefix == ["mla_dense"]
+        m = build_model(get(arch))
+        assert (len(m.prefix), m.body, m.repeats) == (3, ["mla_moe"], 58)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4: .*" + item):
         build_model(smoke_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):

@@ -66,7 +66,7 @@ PROFILES = {
     "dp_only": Profile("x", dp_only=True),
     "gather": profile_with("gather", moe_gather=True),
 }
-PORTED = ["qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b", "internlm2-20b", "arctic-480b"]
+PORTED = ["qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b", "internlm2-20b", "arctic-480b", "deepseek-v3-671b"]
 
 
 def r_profile(p: Profile):
@@ -108,15 +108,17 @@ def test_default_rules_and_rule_algebra_equal_the_reference():
 @pytest.mark.parametrize("shape, names", [((2, 4), ("data", "model")), ((2, 2, 4), ("pod", "data", "model")),
                                           ((1, 1), ("data", "model")), ((3,), ("model",))])
 @pytest.mark.parametrize("profile", sorted(PROFILES))
-@pytest.mark.parametrize("arch", ["arctic-480b", "qwen3-1.7b"])
+@pytest.mark.parametrize("arch", ["arctic-480b", "qwen3-1.7b", "deepseek-v3-671b"])
 def test_spec_for_every_parameter_leaf_equals_the_reference(arch, profile, shape, names):
     """Every parameter leaf of the model's dims tree, on meshes with and
     without a pod axis and with axes that do not divide some dims, under the
-    rules of each profile for train and decode."""
-    cfg = get(arch).replace(n_layers=2)
+    rules of each profile for train and decode (DeepSeek-V3 at 4 layers: its
+    3 dense prefix layers, one MoE layer and MTP)."""
+    n_layers = 4 if arch == "deepseek-v3-671b" else 2
+    cfg = get(arch).replace(n_layers=n_layers)
     m = build_model(cfg)
     dims, specs = m.param_dims(), m.param_specs()
-    r_dims = r_build_model(R_ARCHS[arch].replace(n_layers=2))._dims_tree()
+    r_dims = r_build_model(R_ARCHS[arch].replace(n_layers=n_layers))._dims_tree()
     assert dims == r_dims
     mesh, r_mesh = rank_mesh(shape, names), SimpleNamespace(shape=dict(zip(names, shape)), axis_names=names)
     leaves = tree.leaves(specs)
@@ -124,7 +126,8 @@ def test_spec_for_every_parameter_leaf_equals_the_reference(arch, profile, shape
     assert len(flat_dims) == len(leaves)
     for shape_kind in ("train_4k", "decode_32k"):
         rules = rules_for(cfg, SHAPES[shape_kind], PROFILES[profile])
-        r_rules = RP.rules_for(R_ARCHS[arch].replace(n_layers=2), R_SHAPES[shape_kind], r_profile(PROFILES[profile]))
+        r_rules = RP.rules_for(R_ARCHS[arch].replace(n_layers=n_layers), R_SHAPES[shape_kind],
+                               r_profile(PROFILES[profile]))
         same_rules(rules, r_rules)
         for t, d in zip(leaves, flat_dims):
             for shp in (tuple(t.shape), None):
@@ -183,11 +186,14 @@ def test_param_counts_equal_the_reference(arch):
 
 
 def test_param_counts_of_the_ported_models_count_their_matrices():
-    """The count leaves out norm scales and nothing else of a ported model."""
+    """The count leaves out norm scales and nothing else of a ported model,
+    and, as the reference's, the MTP head (DeepSeek-V3, at 4 layers: its 3
+    dense prefix layers and one MoE layer)."""
     for arch in PORTED:
-        cfg = get(arch).replace(n_layers=2)
+        cfg = get(arch).replace(n_layers=4 if arch == "deepseek-v3-671b" else 2)
         names = tree.flatten_with_names(build_model(cfg).param_specs())
-        n = sum(t.numel() for k, t in names.items() if k.split("/")[-1] not in ("scale", "bq", "bk", "bv"))
+        n = sum(t.numel() for k, t in names.items()
+                if k.split("/")[-1] not in ("scale", "bq", "bk", "bv") and not k.startswith("mtp/"))
         assert n == param_counts(cfg)["total"], arch
 
 
