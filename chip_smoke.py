@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-11 hand it, as they hand it, with its
+                that phases 4 and 6-12 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -189,9 +189,40 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``mtp_ce`` within 1e-5. Prints what phase 10 prints, the
                 tick against its bound of every weight but ``embed`` and
                 ``mtp`` read once.
-12. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+12. ``ssm``     the SSM families, each on the emptied card with bf16 weights
+                from the seed, counted on their own: RWKV6-3B whole
+                (``rwkv6-3b``: 32 layers, d_model 2560, 40 heads x 64, d_ff
+                8960, vocab 65,536; 5.78 GB) and Jamba cut to 16 of its 32
+                layers, two whole periods of 8, every width kept
+                (``jamba-v0.1-52b``: d_model 4096, d_inner 8192, d_state 16,
+                dt_rank 256, one attention layer a period, 16 experts top-2 of
+                expert_ff 14,336 on alternate layers, vocab 65,536; 52.1 GB).
+                Neither has a one-pass prefill, so both serve through the
+                fixed ``Engine``'s per-token refeed, max_len 512, the serve
+                trace's first 4 prompts, 32 new tokens: (a) greedy twice with
+                one SHA-256 of the tokens (RWKV6-3B through ``launch/serve.py
+                --engine fixed``, Jamba through ``Engine``; Jamba's capacity
+                drops a tick); (b) the same refeed tick by tick through
+                ``make_decode_step``, ``CodedServeGuard(K=6, R=2).snapshot``
+                of the recurrent cache (Mamba ``h`` and conv tails, RWKV
+                ``wkv`` and token-shift rows) with the tokens and position at
+                tick 40, four ticks more, host 3 killed, ``poll``,
+                ``recover``: the recovered bytes equal the snapshot's and the
+                refeed resumed from them gives (a)'s tokens until the
+                shortest prompt's request is complete, the guard's
+                ``gf_matmul`` shape among phase 3's; (c) one real Mamba and
+                one real RWKV layer in float32, the full-sequence scan over 64
+                tokens against 64 decode calls, and RWKV6-3B's bf16
+                ``forward`` against its refeed at rtol = atol = 0.15; (d) both
+                float32 smoke configs on the card against the CPU: logits of
+                ``forward`` and 8 ``decode_step``s within 1e-4, router choices
+                equal, ``loss`` within 1e-5. Prints tokens/s, the tick's ms
+                beside its bound (every weight but ``embed`` read once),
+                kernels a tick, the idle share of a profiled chunk of 4 ticks,
+                init and peak bytes, the snapshot and recovery ms.
+13. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
-   MoE serve path and the MLA serve path, error, time, bound and plain time;
+   MoE, MLA and SSM serve paths, error, time, bound and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -203,7 +234,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -288,6 +321,7 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
 from repro_torch.serve import coded as serve_coded  # noqa: E402
 from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
@@ -296,6 +330,7 @@ from repro_torch.serve.scheduler import bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.profiles import BASELINE, profile_with, rules_for  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     OptConfig,
@@ -1794,6 +1829,24 @@ def check_report(what: str, rep, trace, vocab: int) -> dict:
             "generated_tokens": sum(r.gen_len for r in rep.results)}
 
 
+def tokens_sha256(tokens: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(tokens, dtype=np.int32).tobytes()).hexdigest()
+
+
+def fixed_record(what: str, res, prompts, reg: MetricsRegistry, vocab: int) -> dict:
+    """One greedy ``Engine.generate`` of ``prompts``: every row its prompt
+    then SERVE_MAX_NEW tokens in the vocabulary; returns its numbers."""
+    plens = np.array([len(p) for p in prompts])
+    check(np.array_equal(res.lengths, plens + SERVE_MAX_NEW)
+          and res.tokens.shape == (len(prompts), plens.max() + SERVE_MAX_NEW)
+          and all(res.tokens[b, : plens[b]].tolist() == prompts[b] for b in range(len(prompts)))
+          and bool(((res.tokens >= 0) & (res.tokens < vocab)).all()), f"{what}: lengths or tokens")
+    snap = reg.snapshot()
+    return {"steps": res.steps, "generate_ms": snap["serve.generate_ms"]["value"],
+            "tokens_per_s": snap["serve.tokens_per_s"]["value"], "generated_tokens": int((res.lengths - plens).sum()),
+            "sha256": tokens_sha256(res.tokens)}
+
+
 def guarded_run(scfg: dict, eng, trace, dev, *, collective: bool, greedy: bool) -> tuple:
     """One serve of the trace under ``CodedServeGuard(K=6, R=2)`` with one
     scheduled kill: counted launches, each snapshot's wall ms, the recovery
@@ -1976,13 +2029,7 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
     prompts = [r.prompt for r in trace[:FIXED_PROMPTS]]
     res = fixed.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
     plens = np.array([len(p) for p in prompts])
-    check(np.array_equal(res.lengths, plens + SERVE_MAX_NEW) and res.tokens.shape == (FIXED_PROMPTS, plens.max()
-                                                                                       + SERVE_MAX_NEW)
-          and all(res.tokens[b, : plens[b]].tolist() == prompts[b] for b in range(FIXED_PROMPTS))
-          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()), "serve/fixed: lengths or tokens")
-    snap = reg.snapshot()
-    record["fixed"] = {"prompts": FIXED_PROMPTS, "steps": res.steps, "generate_ms": snap["serve.generate_ms"]["value"],
-                       "tokens_per_s": snap["serve.tokens_per_s"]["value"],
+    record["fixed"] = {"prompts": FIXED_PROMPTS, **fixed_record("serve/fixed", res, prompts, reg, cfg.vocab_size),
                        "first_tokens_equal_continuous": sum(
                            int(res.tokens[b, plens[b]]) == greedy[trace[b].id][plens[b]] for b in range(FIXED_PROMPTS))}
     # the refeed and the one-pass prefill pick the same first token (bf16; (f) bounds their logits' distance)
@@ -2689,19 +2736,19 @@ def moe_small_vs_cpu(dev) -> dict:
     return small_vs_cpu(smoke_config(MOE_ARCH).replace(dtype="float32"), dev, SEED + 1104, "moe/small")
 
 
-def small_vs_cpu(cfg, dev, seed: int, what: str) -> dict:
+def small_vs_cpu(cfg, dev, seed: int, what: str, steps: int = MOE_SMALL_STEPS) -> dict:
     """A float32 smoke config on the card against the CPU, from the same
-    parameters: ``forward``, MOE_SMALL_STEPS ``decode_step``s and
-    ``prefill_into_cache`` at a bucket where capacity drops, logits within
-    SMALL_LOGITS_ATOL; the router's expert choices of every call equal; with
-    MTP, ``loss`` and its terms (``mtp_ce`` among them) within
+    parameters: ``forward``, ``steps`` ``decode_step``s and, where the model
+    has one, ``prefill_into_cache`` at a bucket where capacity drops, logits
+    within SMALL_LOGITS_ATOL; the router's expert choices of every call
+    equal; ``loss`` and its terms (``mtp_ce`` among them with MTP) within
     SMALL_LOSS_ATOL."""
     check(not torch.backends.cuda.matmul.allow_tf32, f"{what}: TF32 matmuls are on")
     model = build_model(cfg)
     cpu_params = model.init(torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed + 1)
     toks = rng.integers(0, cfg.vocab_size, size=MOE_SMALL_TOKENS).astype(np.int32)
-    steps = rng.integers(0, cfg.vocab_size, size=(MOE_SMALL_STEPS, 3, 1)).astype(np.int32)
+    step_toks = rng.integers(0, cfg.vocab_size, size=(steps, 3, 1)).astype(np.int32)
     tb = np.zeros((1, MOE_SMALL_BUCKET), np.int32)
     tb[0, :MOE_SMALL_PLEN] = rng.integers(1, cfg.vocab_size, size=MOE_SMALL_PLEN)
     runs, losses = {}, {}
@@ -2709,34 +2756,37 @@ def small_vs_cpu(cfg, dev, seed: int, what: str) -> dict:
         p = tree.map(lambda t: t.to(d), cpu_params)
         choices: list = []
         with routed(choices):
-            fwd = model.forward(p, {"tokens": torch.from_numpy(toks).to(d)})[0]
+            out = [model.forward(p, {"tokens": torch.from_numpy(toks).to(d)})[0]]
             cache = model.init_cache(3, 64, device=d)
             dec = []
-            for t in range(MOE_SMALL_STEPS):
-                lg, cache = model.decode_step(p, cache, torch.from_numpy(steps[t]).to(d),
+            for t in range(steps):
+                lg, cache = model.decode_step(p, cache, torch.from_numpy(step_toks[t]).to(d),
                                               torch.tensor([t, 2 * t, 5], dtype=torch.int32, device=d))
                 dec.append(lg)
-            pf, _ = model.prefill_into_cache(p, model.init_cache(3, 64, device=d), torch.from_numpy(tb).to(d), 1)
-        runs[where] = ([fwd.cpu(), torch.stack(dec).cpu(), pf.cpu()], [c.cpu() for c in choices])
-        if cfg.mtp:
-            t = torch.from_numpy(toks).to(d)
-            losses[where] = {k: float(v) for k, v in model.loss(p, {"tokens": t, "labels": t})[1].items()}
+            out.append(torch.stack(dec))
+            if model.supports_prefill:
+                out.append(model.prefill_into_cache(p, model.init_cache(3, 64, device=d), torch.from_numpy(tb).to(d),
+                                                    1)[0])
+        runs[where] = ([o.cpu() for o in out], [c.cpu() for c in choices])
+        t = torch.from_numpy(toks).to(d)
+        losses[where] = {k: float(v) for k, v in model.loss(p, {"tokens": t, "labels": t})[1].items()}
     errs = {k: float((a - b)[..., : cfg.vocab_size].abs().max())
             for k, a, b in zip(("forward", "decode_step", "prefill_into_cache"), runs["cpu"][0], runs["card"][0])}
     (cc, gc) = runs["cpu"][1], runs["card"][1]
     pairs = sum(c.numel() for c in cc)
     equal = sum(int((a == b).sum()) for a, b in zip(cc, gc)) if len(cc) == len(gc) else 0
-    rec = {"config": cfg.name, "dtype": "float32", "tf32": False, "logits_max_abs_err": errs,
+    rec = {"config": cfg.name, "dtype": "float32", "tf32": False, "decode_steps": steps, "logits_max_abs_err": errs,
            "tolerance": SMALL_LOGITS_ATOL, "router_calls": len(cc), "router_choices": pairs,
            "router_choices_equal": equal,
-           "capacity_drops_in_prefill": sum(drops(c, cfg) for c in cc[-model.repeats * len(model.body):])}
+           "loss_cpu": losses["cpu"], "loss_card": losses["card"], "loss_tolerance": SMALL_LOSS_ATOL,
+           "loss_max_abs_err": max(abs(losses["cpu"][k] - losses["card"][k]) for k in losses["cpu"])}
+    if model.supports_prefill:
+        rec["capacity_drops_in_prefill"] = sum(drops(c, cfg) for c in cc[-model.repeats * len(model.body):])
     check(all(e <= SMALL_LOGITS_ATOL for e in errs.values()), f"{what}: card and CPU logits differ: {rec}")
     check(len(cc) == len(gc) and equal == pairs, f"{what}: the router chose other experts on the card: {rec}")
-    if cfg.mtp:
-        rec.update(loss_cpu=losses["cpu"], loss_card=losses["card"], loss_tolerance=SMALL_LOSS_ATOL,
-                   loss_max_abs_err=max(abs(losses["cpu"][k] - losses["card"][k]) for k in losses["cpu"]))
-        check(sorted(losses["card"]) == ["aux", "ce", "loss", "mtp_ce"] and rec["loss_max_abs_err"] <= SMALL_LOSS_ATOL,
-              f"{what}: the card's loss and its terms differ from the CPU's: {rec}")
+    terms = ["aux", "ce", "loss"] + (["mtp_ce"] if cfg.mtp else [])
+    check(sorted(losses["card"]) == sorted(losses["cpu"]) == terms and rec["loss_max_abs_err"] <= SMALL_LOSS_ATOL,
+          f"{what}: the card's loss and its terms differ from the CPU's: {rec}")
     return rec
 
 
@@ -2978,6 +3028,372 @@ def mla_phase(mcfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SSM families, RWKV6-3B whole and Jamba at full width
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH, JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
+# RWKV6-3B runs whole (5.78 GB). Jamba is cut from 32 to 16 layers, two of
+# its four periods of 8 (the reference asserts whole periods), every width
+# kept: 52.1 GB of bf16 weights; a third period would make 77.6 GB.
+JAMBA_LAYERS = 16
+SSM_PARAM_BYTES = {RWKV_ARCH: 5_780_280_320, JAMBA_ARCH: 52_112_375_680}
+SSM_MAX_LEN = 512  # the fixed Engine's max_len: the longest prompt + SERVE_MAX_NEW fits
+SSM_SNAPSHOT_TICK = 40  # the guard's snapshot, mid-prompt (every prompt is longer)
+SSM_LOST_TICKS = 4  # ticks refed after the snapshot, lost with host 3
+# (b) resumes the refeed from the recovered state until the shortest prompt's
+# request has all its new tokens (tick 106 of 457 here), not to the end: a
+# tick is launch-bound (26-34 us of host time a kernel, 2,000-3,300 kernels),
+# and (a) already runs the whole refeed twice a model
+SSM_KILL_HOST = 3
+SSM_SCAN_TOKENS, SSM_SCAN_ROWS = 64, 2  # (c): one full-sequence call against that many decode calls
+# (c): a layer's float32 full-sequence form against its decode form (the same
+# step arithmetic; products of other row counts sum in other orders): the
+# largest error within this share of the largest output
+SSM_SCAN_REL_TOL = 1e-4
+SSM_FORWARD_TOL = 0.15  # (c): bf16 forward against the refeed, rtol = atol (tests/test_models_smoke.py:82)
+SSM_TICK_CHUNK = 4  # decode ticks in the profiled chunk
+SSM_SMALL_STEPS = 8
+
+
+def ssm_prompts(vocab: int) -> list[list[int]]:
+    """The first FIXED_PROMPTS prompts of the serve phase's trace (its seed
+    and length bands) over ``vocab``."""
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW, vocab_size=vocab,
+                          seed=SEED + 1001)
+    return [r.prompt for r in trace[:FIXED_PROMPTS]]
+
+
+def ssm_config() -> dict:
+    """Phase 12's configuration, host-side: each model (RWKV6-3B whole,
+    Jamba cut to JAMBA_LAYERS), its prompts, the spec of the state the guard
+    snapshots (the fixed engine's cache at SSM_MAX_LEN, the token buffer and
+    the position) and its shard width, and the kernel call of one snapshot
+    of each (``runs``)."""
+    plan = build_lcc(SERVE_K, R=SERVE_R)
+    lps = plan_prepare_shoot(plan.N, plan.p)
+    models, runs = {}, {}
+    for arch, cfg in ((RWKV_ARCH, get(RWKV_ARCH)), (JAMBA_ARCH, get(JAMBA_ARCH).replace(n_layers=JAMBA_LAYERS))):
+        model = build_model(cfg)
+        prompts = ssm_prompts(cfg.vocab_size)
+        total = max(map(len, prompts)) + SERVE_MAX_NEW
+        spec = (model.init_cache(FIXED_PROMPTS, SSM_MAX_LEN, device="meta"),
+                {"tokens": meta((FIXED_PROMPTS, total), torch.int32), "pos": meta((), torch.int32)})
+        S = -(-limb_count(spec) // SERVE_K)
+        entry = f"{arch}: CodedServeGuard.snapshot"
+        models[arch] = {"model": model, "prompts": prompts, "total": total, "spec": spec, "S": S, "entry": entry}
+        runs[entry] = [("gf_matmul", (plan.N, lps.n, lps.m, S))]
+    return {"name": "ssm", "q": NTT, "K": SERVE_K, "plan": plan, "models": models, "runs": runs}
+
+
+def launcher_fixed(arch: str, prompts) -> tuple:
+    """``launch/serve.py``'s ``main`` with ``--engine fixed`` over
+    ``prompts`` on the card (its weights: seed 0), its printed lines kept
+    aside. Returns (result, the first line it printed); the engine's
+    numbers are on the global registry."""
+    argv = ["--arch", arch, "--engine", "fixed", "--prompts", ";".join(",".join(map(str, p)) for p in prompts),
+            "--max-new", str(SERVE_MAX_NEW), "--max-len", str(SSM_MAX_LEN)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = serve_main(argv)
+    return res, out.getvalue().splitlines()[0]
+
+
+def refeed(step, params, cache, toks, plen, start: int, stop: int, vocab: int):
+    """Ticks ``start`` .. ``stop - 1`` of the fixed engine's greedy refeed
+    (``Engine.generate``'s loop): token t of every row in at position t, the
+    argmax written at t + 1 past each row's prompt (``toks`` in place)."""
+    B = toks.shape[0]
+    for t in range(start, stop):
+        lg, cache = step(params, cache, toks[:, t: t + 1], torch.full((B,), t, dtype=torch.int32, device=toks.device))
+        nxt = torch.argmax(lg[:, 0, :vocab], dim=-1).to(torch.int32)
+        toks[:, t + 1] = torch.where((t + 1) >= plen, nxt, toks[:, t + 1])
+    return cache
+
+
+def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray) -> dict:
+    """(b): the fixed engine's refeed driven tick by tick through
+    ``make_decode_step``; at SSM_SNAPSHOT_TICK, mid-prompt, the recurrent
+    cache and ``{"tokens", "pos"}`` under ``CodedServeGuard(K=6, R=2)``;
+    SSM_LOST_TICKS more ticks, then host SSM_KILL_HOST dies: ``poll`` and
+    ``recover``. The recovered state equals the snapshotted bytes, and the
+    refeed resumed from it until the shortest prompt's request is complete
+    gives ``want``, (a)'s tokens, in every column written by then."""
+    m = scfg["models"][arch]
+    model, prompts, total = m["model"], m["prompts"], m["total"]
+    V = model.cfg.vocab_size
+    toks_np = np.zeros((len(prompts), total), np.int32)
+    for b, p in enumerate(prompts):
+        toks_np[b, : len(p)] = p
+    toks = torch.from_numpy(toks_np).to(dev)
+    plen = torch.tensor([len(p) for p in prompts], device=dev)
+    step = make_decode_step(model)
+    T = SSM_SNAPSHOT_TICK
+    cache = refeed(step, params, model.init_cache(len(prompts), SSM_MAX_LEN, device=dev), toks, plen, 0, T, V)
+    state = {"tokens": toks, "pos": torch.tensor(T, dtype=torch.int32, device=dev)}
+    held = tree.map(torch.clone, (cache, state))
+    guard = CodedServeGuard(K=SERVE_K, R=SERVE_R, injector=FaultInjector(kills=((T, SSM_KILL_HOST),)), device=dev)
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    guard.snapshot(cache, state, tick=T)
+    torch.cuda.synchronize()
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    counted = check_launches("ssm", m["entry"], before, scfg["runs"][m["entry"]])
+    check(all(len(v) == m["S"] for v in guard.group._mem.values()),
+          f"ssm/{arch}: the coded shards are not {m['S']} limbs wide (the width phase 3 held)")
+    cache = refeed(step, params, cache, toks, plen, T, T + SSM_LOST_TICKS, V)  # progress the fault loses
+    dead = guard.poll(T + SSM_LOST_TICKS)
+    check(dead == [SSM_KILL_HOST], f"ssm/{arch}: the guard found hosts {dead} dead")
+    host_ms: list = []
+    with timed(serve_coded, "lcc_decode", host_ms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = guard.recover(dead)
+        torch.cuda.synchronize()
+        rec_ms = (time.perf_counter() - t0) * 1e3
+    bit_exact = same_bits(back, held)
+    check(bit_exact, f"ssm/{arch}: the recovered state differs from the snapshot's bytes")
+    cache_b, state_b = back
+    stop = min(map(len, prompts)) + SERVE_MAX_NEW - 1  # the shortest request's last token is written at tick stop - 1
+    refeed(step, params, cache_b, state_b["tokens"], plen, int(state_b["pos"]), stop, V)
+    resumed_equal = np.array_equal(state_b["tokens"][:, : stop + 1].cpu().numpy(), want[:, : stop + 1])
+    check(resumed_equal, f"ssm/{arch}: the refeed resumed from the recovered state gives other tokens than (a)")
+    return {"snapshot_tick": T, "lost_ticks": SSM_LOST_TICKS, "killed_host": SSM_KILL_HOST, "K": SERVE_K,
+            "R": SERVE_R, "q": NTT, "state_bytes": spec_bytes(m["spec"]), "cache_bytes": spec_bytes(m["spec"][0]),
+            "limbs_a_shard": m["S"], "gf_matmul_shape": scfg["runs"][m["entry"]][0][1], "launches": counted,
+            "snapshot_ms": snap_ms, "recover_ms": rec_ms, "lcc_decode_host_numpy_ms": host_ms[0],
+            "recovered_bit_exact": bit_exact, "resumed_to_tick": stop, "resumed_tokens_equal": resumed_equal}
+
+
+def ssm_tick(model, params, dev, tick_bytes: int, what: str) -> dict:
+    """One refeed tick of FIXED_PROMPTS rows (median of 10) against its
+    bound (``tick_bytes`` read once), and SSM_TICK_CHUNK ticks under the
+    profiler: kernels a tick, idle share."""
+    V = model.cfg.vocab_size
+    B = FIXED_PROMPTS
+    cache = model.init_cache(B, SSM_MAX_LEN, device=dev)
+    step = make_decode_step(model)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1301).integers(1, V, size=(B, 1)).astype(np.int32)).to(dev)
+    pos = torch.full((B,), SSM_MAX_LEN // 2, dtype=torch.int32, device=dev)  # Jamba's attention reads half its rows
+    tick = lambda: step(params, cache, toks, pos)  # noqa: E731
+    tick()
+    ms = wall_ms(tick, 10)
+
+    def chunk():
+        for _ in range(SSM_TICK_CHUNK):
+            tick()
+
+    prof = profile_encode(f"{what}/decode_chunk", chunk, 1, kind=train_kernel_kind)
+    bound_ms = tick_bytes / HBM_BYTES_PER_S * 1e3
+    return {"decode_tick_ms": ms, "decode_tick_bound": {"bytes": tick_bytes, "ms": bound_ms,
+                                                        "what": "every weight but embed read once a tick"},
+            "decode_tick_share_of_bound": bound_ms / ms,
+            "kernels_a_tick": prof["device_kernels_launched"] / SSM_TICK_CHUNK, "decode_chunk_profile": prof}
+
+
+def layer_scan_check(fwd, decode, layer, cfg, dev, seed: int, what: str) -> dict:
+    """(c): one full-width layer, its bf16 weights taken to float32:
+    ``fwd`` over SSM_SCAN_TOKENS tokens against SSM_SCAN_TOKENS calls of
+    ``decode`` from zeros, outputs and final states within SSM_SCAN_REL_TOL
+    of their largest value."""
+    p = tree.map(lambda t: t.float(), layer)
+    cfg = cfg.replace(dtype="float32")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((SSM_SCAN_ROWS, SSM_SCAN_TOKENS, cfg.d_model), generator=g, device=dev)
+    t0 = time.perf_counter()
+    y, state = fwd(p, x, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    ys, dstate = [], None
+    t0 = time.perf_counter()
+    for t in range(SSM_SCAN_TOKENS):
+        yt, dstate = decode(p, x[:, t: t + 1], cfg, dstate)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    pairs = [("y", y, torch.cat(ys, dim=1))] + [(f"state_{i}", a, b) for i, (a, b) in
+                                                 enumerate(zip(tree.leaves(state), tree.leaves(dstate)))]
+    errs = {k: {"max_abs_err": float((a - b).abs().max()), "largest": float(b.abs().max())} for k, a, b in pairs}
+    rec = {"tokens": SSM_SCAN_TOKENS, "rows": SSM_SCAN_ROWS, "dtype": "float32 (bf16 weights)",
+           "rel_tolerance": SSM_SCAN_REL_TOL, "errors": errs, "full_sequence_ms": fwd_ms, "decode_calls_ms": dec_ms}
+    check(all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
+          and all(e["max_abs_err"] <= SSM_SCAN_REL_TOL * e["largest"] for e in errs.values()),
+          f"{what}: the full-sequence scan differs from the decode steps: {rec}")
+    return rec
+
+
+def mamba_scan_check(layer, cfg, dev) -> dict:
+    def fwd(p, x, c):
+        return SSM.mamba_fwd(p, x, c, return_state=True)
+
+    def decode(p, x, c, state):
+        if state is None:
+            state = SSM.mamba_state_init(c, x.shape[0], torch.float32, x.device)
+        return SSM.mamba_decode(p, x, c, state)
+
+    return layer_scan_check(fwd, decode, layer, cfg, dev, SEED + 1302, "ssm/mamba_scan")
+
+
+def rwkv_scan_check(layer, cfg, dev) -> dict:
+    def fwd(p, x, c):
+        return SSM.rwkv6_time_mix(p, x, c, return_state=True)
+
+    def decode(p, x, c, state):
+        wkv, prev = (None, None) if state is None else state
+        return SSM.rwkv6_time_mix(p, x, c, state=wkv, x_prev=prev, return_state=True)
+
+    return layer_scan_check(fwd, decode, layer, cfg, dev, SEED + 1303, "ssm/wkv6_scan")
+
+
+def rwkv_forward_vs_refeed(model, params, dev) -> dict:
+    """(c): the whole model's bf16 ``forward`` over SSM_SCAN_TOKENS tokens
+    against the same tokens refed through ``decode_step``: every logit
+    within SSM_FORWARD_TOL (rtol = atol)."""
+    V = model.cfg.vocab_size
+    B, S = SSM_SCAN_ROWS, SSM_SCAN_TOKENS
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1304).integers(0, V, size=(B, S)).astype(np.int32)).to(dev)
+    full = model.forward(params, {"tokens": toks})[0][..., :V]
+    cache = model.init_cache(B, S, device=dev)
+    step = make_decode_step(model)
+    worst, big = 0.0, 0.0
+    for t in range(S):
+        lg, cache = step(params, cache, toks[:, t: t + 1], torch.full((B,), t, dtype=torch.int32, device=dev))
+        a, b = lg[:, 0, :V], full[:, t]
+        worst = max(worst, float(((a - b).abs() - SSM_FORWARD_TOL * b.abs()).max()))
+        big = max(big, float(b.abs().max()))
+    rec = {"tokens": S, "rows": B, "rtol": SSM_FORWARD_TOL, "atol": SSM_FORWARD_TOL,
+           "max_excess_over_rtol": worst, "largest_logit": big}
+    check(bool(torch.isfinite(full).all()) and worst <= SSM_FORWARD_TOL,
+          f"ssm/rwkv: forward logits differ from the refeed's beyond rtol = atol = {SSM_FORWARD_TOL}: {rec}")
+    return rec
+
+
+def ssm_init(model, dev, seed: int, arch: str) -> tuple:
+    """The model's bf16 weights drawn on the emptied card from ``seed``
+    (float32 routers); returns (params, record)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < MOE_HELD_MAX, f"ssm/{arch}: earlier phases still hold {held} bytes of the card")
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    by = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    check(all(t.is_cuda for t in tree.leaves(params))
+          and all(t.dtype == (torch.float32 if k.endswith(("router", "A_log", "dt_proj_b", "/D", "w0", "/u"))
+                              else torch.bfloat16) for k, t in tree.flatten_with_names(params).items()),
+          f"ssm/{arch}: the weights are not bf16 (float32 routers and SSM constants) on the card")
+    check(by == SSM_PARAM_BYTES[arch], f"ssm/{arch}: the weights hold {by} bytes")
+    return params, {"params": sum(t.numel() for t in tree.leaves(params)), "param_bytes": by, "held_bytes": held,
+                    "free_bytes_at_start": free_bytes, "total_bytes": total_bytes,
+                    "init_s": time.perf_counter() - t0, "init_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
+    """The SSM families at full width (``scfg`` from :func:`ssm_config`),
+    counted on their own. RWKV6-3B whole, then Jamba at JAMBA_LAYERS layers,
+    each on the emptied card: (a) greedy through the fixed engine (RWKV6
+    through ``launch/serve.py``, Jamba through ``Engine``), twice, the same
+    SHA-256; (b) the guard on the recurrent state mid-refeed, a kill, a
+    bit-exact recovery and the same tokens resumed; (c) one real layer's
+    full-sequence scan against its decode steps, and RWKV6's whole forward
+    against its refeed; (d) the float32 smoke configs on the card against the
+    CPU. Returns (launches, record)."""
+    t_phase = time.perf_counter()
+    record = {}
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+
+    # RWKV6-3B, whole: (a) through the launcher, which draws its weights from seed 0
+    m = scfg["models"][RWKV_ARCH]
+    model, cfg = m["model"], m["model"].cfg
+    check(cfg.n_layers == 32 and cfg.d_model == 2560 and cfg.n_heads == 40 and cfg.d_ff == 8960
+          and cfg.vocab_size == 65536 and model.body == ["rwkv"] and model.repeats == 32, "ssm: not RWKV6-3B's width")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < MOE_HELD_MAX, "ssm: earlier phases still hold the card")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        res, line = launcher_fixed(RWKV_ARCH, m["prompts"])
+        runs.append(fixed_record("ssm/rwkv/launcher", res, m["prompts"], get_registry(), cfg.vocab_size)
+                    | {"printed": line})
+    check(launches() == (0, 0), "ssm: the unguarded RWKV6 serve launched a hand kernel")
+    check(runs[0]["sha256"] == runs[1]["sha256"], "ssm/rwkv: two greedy runs gave other tokens")
+    want = res.tokens
+    rec = {"arch": cfg.name, "layers": f"{cfg.n_layers} of {get(RWKV_ARCH).n_layers}",
+           "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
+           "greedy": runs, "launcher_peak_bytes": torch.cuda.max_memory_allocated()}
+    del res
+    params, rec["init"] = ssm_init(model, dev, 0, RWKV_ARCH)  # the launcher's weights again
+    rec["guard"] = ssm_guard(scfg, RWKV_ARCH, params, dev, want)  # (b)
+    rec["scan"] = rwkv_scan_check(tree.map(lambda t: t[0], params["body"]["b0"]["tm"]), cfg, dev)  # (c)
+    rec["forward_vs_refeed"] = rwkv_forward_vs_refeed(model, params, dev)
+    rec.update(ssm_tick(model, params, dev, rec["init"]["param_bytes"]
+                        - params["embed"].numel() * params["embed"].element_size(), "ssm/rwkv"))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["rwkv"] = rec
+    del params
+    gc.collect()
+
+    # Jamba, 16 of 32 layers: (a) through Engine (the launcher has no depth cut)
+    m = scfg["models"][JAMBA_ARCH]
+    model, cfg = m["model"], m["model"].cfg
+    sc, mc = cfg.ssm, cfg.moe
+    check(cfg.d_model == 4096 and cfg.n_heads == 32 and cfg.n_kv_heads == 8 and cfg.d_ff == 14336
+          and mc.n_experts == 16 and mc.top_k == 2 and mc.expert_ff == 14336 and sc.d_state == 16
+          and sc.expand == 2 and cfg.vocab_size == 65536 and cfg.n_layers == JAMBA_LAYERS and model.repeats == 2
+          and model.body == ["mamba", "mamba_moe", "mamba", "mamba_moe", "dense", "mamba_moe", "mamba", "mamba_moe"],
+          "ssm: not Jamba's width and period")
+    params, init = ssm_init(model, dev, SEED + 1300, JAMBA_ARCH)
+    check(tuple(params["body"]["b1"]["moe"]["w_gate"].shape) == (2, 16, 4096, 14336)
+          and tuple(params["body"]["b0"]["mamba"]["x_proj"].shape) == (2, 8192, 256 + 32), "ssm: Jamba's leaves")
+    rec = {"arch": cfg.name, "layers": f"{cfg.n_layers} of {get(JAMBA_ARCH).n_layers} ({model.repeats} periods of 8)",
+           "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
+           "init": init, "capacity": {"factor": mc.capacity_factor,
+                                      "decode": model_layers.moe_capacity(FIXED_PROMPTS, cfg)}}
+    runs = []
+    before = launches()
+    for i in range(2):
+        reg = MetricsRegistry()
+        choices: list = []
+        with routed(choices) if i == 0 else contextlib.nullcontext():
+            res = Engine(model, params, max_len=SSM_MAX_LEN, metrics=reg).generate(m["prompts"],
+                                                                                   max_new_tokens=SERVE_MAX_NEW)
+        runs.append(fixed_record("ssm/jamba/engine", res, m["prompts"], reg, cfg.vocab_size))
+        if i == 0:
+            moe_layers = model.repeats * sum(k.endswith("moe") for k in model.body)
+            rec["capacity_drops"] = moe_drops(choices, cfg, layers=moe_layers, what="ssm/jamba")
+            del choices
+    check(launches() == before, "ssm: the unguarded Jamba serve launched a hand kernel")
+    check(runs[0]["sha256"] == runs[1]["sha256"], "ssm/jamba: two greedy runs gave other tokens")
+    rec["greedy"] = runs
+    rec["guard"] = ssm_guard(scfg, JAMBA_ARCH, params, dev, res.tokens)  # (b)
+    rec["scan"] = mamba_scan_check(tree.map(lambda t: t[0], params["body"]["b0"]["mamba"]), cfg, dev)  # (c)
+    rec.update(ssm_tick(model, params, dev, init["param_bytes"]
+                        - params["embed"].numel() * params["embed"].element_size(), "ssm/jamba"))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["jamba"] = rec
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+    check(counted["gf_matmul"] == 2, f"the SSM serve path launched gf_matmul {counted['gf_matmul']} times, not 2")
+    record["launches"] = counted
+    # (d): the float32 smoke configs on the card against the CPU
+    record["small_vs_cpu"] = {arch: small_vs_cpu(smoke_config(arch).replace(dtype="float32"), dev, SEED + 1305 + i,
+                                                 f"ssm/small_{arch}", steps=SSM_SMALL_STEPS)
+                              for i, arch in enumerate((RWKV_ARCH, JAMBA_ARCH))}
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -3008,7 +3424,8 @@ def main() -> int:
     ranks_cfgs = ranks_configs()
     moe_cfg = moe_config()
     mla_cfg = mla_config()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg, mla_cfg], P)
+    ssm_cfg = ssm_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg, mla_cfg, ssm_cfg], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -3098,12 +3515,17 @@ def main() -> int:
     mla_launches, mlad = mla_phase(mla_cfg, dev)
     say("mla", card=smi, **mlad)
 
+    # phase 12: the SSM families, RWKV6-3B whole and Jamba at 16 of 32 layers, each on an emptied card
+    ssm_launches, ssmd = ssm_phase(ssm_cfg, dev)
+    say("ssm", card=smi, **ssmd)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
                            + serve_launches[row["name"]] + train_launches[row["name"]]
-                           + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]])
+                           + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
+                           + ssm_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
-"""Model assembly: the dense, MoE and MLA decoder-only LMs.
+"""Model assembly: the dense, MoE, MLA, SSM and hybrid decoder-only LMs.
 
 A model is a layer PATTERN: a non-repeated prefix (``prefix_{i}``: DeepSeek-V3's
-leading dense MLA layers; empty for the dense and MoE families) plus a
-repeated body period whose parameters (and decode cache) are stacked over
+leading dense MLA layers; empty for the other families) plus a
+repeated body period (Jamba's: Mamba layers, dense or MoE, around one
+attention layer) whose parameters (and decode cache) are stacked over
 the repeats, so every body leaf has a leading ``n_layers`` axis — the
 reference's pytree, leaf for leaf, which is what the coded-serving guard
 reads and what a checkpoint holds. The reference scans the body with
@@ -22,10 +23,13 @@ Public surface (used by train/, serve/, launch/):
                             → (logits, cache)   # one-pass KV fill of a slot
     model.supports_prefill  → bool
 
-The ``"dense"``, ``"moe"``, ``"mla_dense"`` and ``"mla_moe"`` layer kinds and
-the multi-token-prediction head (``mtp``) are ported; ``build_model``
-refuses the other families, naming the ROADMAP item each waits for. Decode
-and prefill write the cache in place and return it.
+The ``"dense"``, ``"moe"``, ``"mla_dense"``, ``"mla_moe"``, ``"mamba"``,
+``"mamba_moe"`` and ``"rwkv"`` layer kinds and the multi-token-prediction
+head (``mtp``) are ported; ``build_model`` refuses the encoder-decoder and
+VLM families, naming the ROADMAP item each waits for. Decode and prefill
+write the cache in place and return it. A recurrent layer (Mamba, RWKV)
+keeps a state with no per-position rows, so it has no one-pass prefill:
+its models are served by the fixed ``Engine``'s per-token refeed.
 """
 
 from __future__ import annotations
@@ -41,9 +45,10 @@ from ..configs.base import ModelConfig
 from ..core.field import resolve_device
 from . import layers as L
 from . import mla as MLA
+from . import ssm as SSM
 
 #: the ROADMAP.md queue A4 item each config feature that is not ported yet waits for
-_NOT_PORTED = {"ssm": "A4.3 (Mamba, RWKV6)", "encdec": "A4.4 (encoder-decoder)", "vlm": "A4.4 (VLM)"}
+_NOT_PORTED = {"encdec": "A4.4 (encoder-decoder)", "vlm": "A4.4 (VLM)"}
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +168,17 @@ def _moe_prefill(params, x, cfg, ctx, aux):
     return x + mo, aux + a, {"k": k, "v": v}
 
 
+def _ffn(params, x, cfg, ctx, aux):
+    """The second half of an MLA or Mamba layer: x plus the routed experts
+    (``params["moe"]``) or the SwiGLU (``params["mlp"]``) of ``ln2``(x).
+    Returns (x, aux)."""
+    xn = L.rmsnorm(params["ln2"], x)
+    if "moe" in params:
+        mo, a = L.moe_block(params["moe"], xn, cfg, ctx)
+        return x + mo, aux + a
+    return x + L.swiglu(params["mlp"], xn, ctx), aux
+
+
 def _mla_block(moe: bool) -> dict[str, Any]:
     """The ``"mla_moe"`` (``moe``) or ``"mla_dense"`` layer kind: MLA, then the
     routed experts or a SwiGLU of ``moe.dense_ff`` (DeepSeek-V3's leading
@@ -189,28 +205,99 @@ def _mla_block(moe: bool) -> dict[str, Any]:
             **({"moe": L.moe_specs(cfg)} if moe else {"mlp": L.swiglu_specs()}),
         }
 
-    def mlp(params, x, cfg, ctx, aux):
-        xn = L.rmsnorm(params["ln2"], x)
-        if moe:
-            mo, a = L.moe_block(params["moe"], xn, cfg, ctx)
-            return x + mo, aux + a
-        return x + L.swiglu(params["mlp"], xn, ctx), aux
-
     def fwd(params, x, cfg, ctx, aux):
         h, _ = MLA.mla_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
-        return mlp(params, x + h, cfg, ctx, aux)
+        return _ffn(params, x + h, cfg, ctx, aux)
 
     def decode(params, x, cfg, cache, pos, ctx):
         h, cache = MLA.mla_decode(params["attn"], L.rmsnorm(params["ln1"], x), cfg, cache, pos, ctx)
-        x, _ = mlp(params, x + h, cfg, ctx, 0.0)
+        x, _ = _ffn(params, x + h, cfg, ctx, 0.0)
         return x, cache
 
     def prefill(params, x, cfg, ctx, aux):
         h, (c_kv, k_rope) = MLA.mla_fwd(params["attn"], L.rmsnorm(params["ln1"], x), cfg, ctx)
-        x, aux = mlp(params, x + h, cfg, ctx, aux)
+        x, aux = _ffn(params, x + h, cfg, ctx, aux)
         return x, aux, {"c_kv": c_kv, "k_rope": k_rope}
 
     return dict(init=init, specs=specs, fwd=fwd, decode=decode, prefill=prefill, cache="mla")
+
+
+def _mamba_block(moe: bool) -> dict[str, Any]:
+    """The ``"mamba_moe"`` (``moe``) or ``"mamba"`` layer kind: a Mamba
+    mixer, then the routed experts or a SwiGLU of ``d_ff`` (Jamba). Its
+    decode state is recurrent: no one-pass prefill."""
+
+    def init(generator, cfg, dtype):
+        dev = L.init_device(generator)
+        p = {
+            "ln1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+            "mamba": SSM.mamba_init(generator, cfg, dtype),
+            "ln2": L.rmsnorm_init(cfg.d_model, dtype, dev),
+        }
+        if moe:
+            p["moe"] = L.moe_init(generator, cfg, dtype)
+        else:
+            p["mlp"] = L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        return p
+
+    def specs(cfg):
+        return {
+            "ln1": {"scale": ("d_model",)},
+            "mamba": SSM.mamba_specs(cfg),
+            "ln2": {"scale": ("d_model",)},
+            **({"moe": L.moe_specs(cfg)} if moe else {"mlp": L.swiglu_specs()}),
+        }
+
+    def fwd(params, x, cfg, ctx, aux):
+        h, _ = SSM.mamba_fwd(params["mamba"], L.rmsnorm(params["ln1"], x), cfg, ctx)
+        return _ffn(params, x + h, cfg, ctx, aux)
+
+    def decode(params, x, cfg, cache, pos, ctx):
+        h, cache = SSM.mamba_decode(params["mamba"], L.rmsnorm(params["ln1"], x), cfg, cache)
+        x, _ = _ffn(params, x + h, cfg, ctx, 0.0)
+        return x, cache
+
+    return dict(init=init, specs=specs, fwd=fwd, decode=decode, prefill=None, cache="mamba")
+
+
+def _rwkv_init(generator, cfg, dtype):
+    dev = L.init_device(generator)
+    return {
+        "ln1": L.layernorm_init(cfg.d_model, dtype, dev),
+        "tm": SSM.rwkv6_init(generator, cfg, dtype),
+        "ln2": L.layernorm_init(cfg.d_model, dtype, dev),
+        "cm": SSM.rwkv6_channel_mix_init(generator, cfg, dtype),
+    }
+
+
+def _rwkv_specs(cfg):
+    return {
+        "ln1": {"scale": ("d_model",), "bias": ("d_model",)},
+        "tm": SSM.rwkv6_specs(cfg),
+        "ln2": {"scale": ("d_model",), "bias": ("d_model",)},
+        "cm": SSM.rwkv6_channel_mix_specs(),
+    }
+
+
+def _rwkv_fwd(params, x, cfg, ctx, aux):
+    h, _ = SSM.rwkv6_time_mix(params["tm"], L.layernorm(params["ln1"], x), cfg, ctx)
+    x = x + h
+    h2, _ = SSM.rwkv6_channel_mix(params["cm"], L.layernorm(params["ln2"], x))
+    return x + h2, aux
+
+
+def _rwkv_decode(params, x, cfg, cache, pos, ctx):
+    """One token through the RWKV layer: its ``wkv`` state and both
+    token-shift rows are written into ``cache`` in place."""
+    h, (wkv, tm_prev) = SSM.rwkv6_time_mix(params["tm"], L.layernorm(params["ln1"], x), cfg, ctx,
+                                           state=cache["wkv"], x_prev=cache["tm_prev"], return_state=True)
+    x = x + h
+    h2, cm_prev = SSM.rwkv6_channel_mix(params["cm"], L.layernorm(params["ln2"], x), x_prev=cache["cm_prev"],
+                                        return_state=True)
+    cache["wkv"].copy_(wkv)
+    cache["tm_prev"].copy_(tm_prev)
+    cache["cm_prev"].copy_(cm_prev)
+    return x + h2, cache
 
 
 _KINDS: dict[str, dict[str, Any]] = {
@@ -220,6 +307,10 @@ _KINDS: dict[str, dict[str, Any]] = {
                 cache="kv"),
     "mla_dense": _mla_block(False),
     "mla_moe": _mla_block(True),
+    "mamba": _mamba_block(False),
+    "mamba_moe": _mamba_block(True),
+    "rwkv": dict(init=_rwkv_init, specs=_rwkv_specs, fwd=_rwkv_fwd, decode=_rwkv_decode, prefill=None,
+                 cache="rwkv"),
 }
 
 
@@ -248,16 +339,25 @@ def layer_pattern(cfg: ModelConfig) -> tuple[list[str], list[str], int]:
     return [], ["dense"], n
 
 
-def _cache_init_for(kind: str, cfg, batch: int, s_max: int, dtype, device, layers: int | None = None) -> dict:
+def _cache_init_for(kind: str, cfg, batch: int, s_max: int, dtype, device, layers: int | None = None):
     """Layer kind ``kind``'s decode cache, zeros, with a leading ``layers``
-    axis when it is given (a stacked body)."""
-    if _KINDS[kind]["cache"] == "mla":
+    axis when it is given (a stacked body). A recurrent state (Mamba, RWKV)
+    has no positions: ``s_max`` does not size it."""
+    c = _KINDS[kind]["cache"]
+    if c == "kv":
+        return _kv_cache_init(cfg, batch, s_max, dtype, device, layers)
+    if c == "mla":
         return MLA.mla_cache_init(cfg, batch, s_max, dtype, device, layers)
-    return _kv_cache_init(cfg, batch, s_max, dtype, device, layers)
+    if c == "mamba":
+        return SSM.mamba_state_init(cfg, batch, dtype, device, layers)
+    if c == "rwkv":
+        return SSM.rwkv6_state_init(cfg, batch, dtype, device, layers)
+    raise KeyError(c)
 
 
-def _cache_dims_for(kind: str) -> dict:
-    return MLA.mla_cache_dims() if _KINDS[kind]["cache"] == "mla" else _kv_cache_dims()
+def _cache_dims_for(kind: str):
+    return {"kv": _kv_cache_dims, "mla": MLA.mla_cache_dims, "mamba": SSM.mamba_state_dims,
+            "rwkv": SSM.rwkv6_state_dims}[_KINDS[kind]["cache"]]()
 
 
 def _write_slot(cache_tree, content_tree, slot: int):
@@ -271,11 +371,20 @@ def _write_slot(cache_tree, content_tree, slot: int):
     return tree.map(write, cache_tree, content_tree)
 
 
+def _is_dims(x) -> bool:
+    """A leaf of a logical-dims tree: a tuple of names and ``None``s (the
+    reference's ``is_leaf``); a tuple of such tuples (a Mamba state's dims)
+    is a container."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
 def _stacked_dims(dims):
     """A layer's logical-dims tree with the leading layer axis (``None``)
     added to every leaf."""
     if isinstance(dims, dict):
         return {k: _stacked_dims(v) for k, v in dims.items()}
+    if not _is_dims(dims):
+        return tuple(_stacked_dims(v) for v in dims)
     return (None, *dims)
 
 
@@ -295,7 +404,7 @@ def _unstack(stacked) -> list:
 
 
 class Model(nn.Module):
-    """The dense, MoE or MLA decoder. Parameters are not registered on the
+    """The dense, MoE, MLA, SSM or hybrid decoder. Parameters are not registered on the
     module: they are a pytree passed to every call, as in the reference, so
     that the serving state, checkpoints and the coded guards see the
     reference's leaves."""
@@ -452,7 +561,9 @@ class Model(nn.Module):
         ``{"body": {"b0": ...}, "prefix_0": ..., ...}``, each body leaf
         stacked over the repeats ((n_repeats, batch, s_max, ...)), each
         prefix leaf (batch, s_max, ...); a KV layer holds ``k`` and ``v``, an
-        MLA layer ``c_kv`` and ``k_rope``."""
+        MLA layer ``c_kv`` and ``k_rope``, a Mamba layer the tuple ``(h,
+        conv_tail)`` and an RWKV layer ``wkv``, ``tm_prev`` and ``cm_prev``
+        (recurrent states, no ``s_max`` axis)."""
         cfg, dtype, device = self.cfg, self.dtype, resolve_device(device)
         cache: dict[str, Any] = {"body": {f"b{j}": _cache_init_for(k, cfg, batch, s_max, dtype, device, self.repeats)
                                           for j, k in enumerate(self.body)}}
@@ -548,11 +659,10 @@ def _xent(logits, labels, mask):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The port's model for ``cfg``. The dense, MoE and MLA families are
-    ported, with MTP: the SSM, encoder-decoder and VLM families raise
+    """The port's model for ``cfg``. The dense, MoE, MLA (with MTP), SSM and
+    hybrid families are ported: the encoder-decoder and VLM families raise
     ``NotImplementedError`` naming the ROADMAP item they wait for."""
-    what = [name for name, on in (("ssm", cfg.ssm is not None), ("encdec", cfg.encdec is not None),
-                                  ("vlm", cfg.vlm is not None)) if on]
+    what = [name for name, on in (("encdec", cfg.encdec is not None), ("vlm", cfg.vlm is not None)) if on]
     if what:
         raise NotImplementedError(
             f"{cfg.name}: the {', '.join(what)} layers are not ported yet; they wait for ROADMAP.md queue A4: "

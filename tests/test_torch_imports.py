@@ -46,7 +46,8 @@ def test_the_slice_is_all_there():
         "tree", "coded", "coded.rs_checkpoint", "coded.lagrange_compute", "coded.gradient_coding",
         "train", "train.checkpoint", "train.elastic", "serve", "serve.coded",
         "configs", "configs.base", "configs.registry", "configs.qwen3_1_7b", "models", "models.layers",
-        "models.model", "models.inputs", "train.train_loop", "serve.scheduler", "serve.traffic", "serve.engine",
+        "models.mla", "models.ssm", "models.model", "models.inputs", "train.train_loop", "serve.scheduler",
+        "serve.traffic", "serve.engine",
         "launch", "launch.serve", "train.optimizer", "train.data", "launch.train", "dist.ranks", "launch.mesh",
         "dist.sharding", "launch.roofline", "launch.rules", "launch.profiles",
     ]:

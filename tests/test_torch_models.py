@@ -117,31 +117,34 @@ def test_smoke_config_and_layer_pattern_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", sorted(set(R_ARCHS) - {"qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b",
                                                         "internlm2-20b", "arctic-480b"}))
 def test_build_model_refuses_families_not_ported(arch):
-    """Every family not ported is refused, naming ROADMAP.md queue A4; since
-    MLA and MTP are ported, DeepSeek-V3 builds instead."""
-    if arch == "deepseek-v3-671b":
+    """Every family not ported (the encoder-decoder and VLM families) is
+    refused, naming ROADMAP.md queue A4.4; since MLA and MTP (A4.2) and the
+    SSM families (A4.3) are ported, DeepSeek-V3, Jamba and RWKV6 build
+    instead, with the reference's layer pattern."""
+    if arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "rwkv6-3b"):
         m = build_model(smoke_config(arch))
-        assert (m.prefix, m.body, m.repeats) == (["mla_dense"], ["mla_moe"], 1) and "mtp" in m.param_specs()
+        assert (m.prefix, m.body, m.repeats) == r_layer_pattern(r_smoke_config(arch))
+        assert "mtp" in m.param_specs() if arch == "deepseek-v3-671b" else not m.supports_prefill
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A4: A4\.4"):
         build_model(smoke_config(arch))
 
 
 @pytest.mark.parametrize("arch, item", [("jamba-v0.1-52b", r"A4\.3 \(Mamba"), ("deepseek-v3-671b", r"A4\.2 \(MLA\)")])
 def test_build_model_refuses_hybrid_moe_and_mla(arch, item):
-    """MoE is ported (``arctic-480b``), but a hybrid MoE pattern (Jamba's
-    Mamba layers) is not: it is refused, naming its item of ROADMAP.md queue
-    A4. MLA (A4.2) and MTP are ported since: DeepSeek-V3 builds, at full
-    width too."""
+    """MoE is ported (``arctic-480b``); the families that waited for ``item``
+    of ROADMAP.md queue A4 are ported since and build, smoke and full width,
+    with the reference's ``(prefix, body, repeats)``: DeepSeek-V3 (A4.2, MLA
+    and MTP) and Jamba's hybrid MoE pattern (A4.3, Mamba layers around one
+    attention layer a period of 8)."""
+    for cfg, rcfg in ((smoke_config(arch), r_smoke_config(arch)), (get(arch), R_ARCHS[arch])):
+        m = build_model(cfg)
+        assert (m.prefix, m.body, m.repeats) == r_layer_pattern(rcfg)
     if arch == "deepseek-v3-671b":
-        assert build_model(smoke_config(arch)).prefix == ["mla_dense"]
-        m = build_model(get(arch))
         assert (len(m.prefix), m.body, m.repeats) == (3, ["mla_moe"], 58)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4: .*" + item):
-        build_model(smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A4"):
-        build_model(get(arch))
+    else:
+        assert (m.prefix, m.repeats) == ([], 4) and m.body == ["mamba", "mamba_moe", "mamba", "mamba_moe", "dense",
+                                                               "mamba_moe", "mamba", "mamba_moe"]
     assert build_model(smoke_config("arctic-480b")).body == ["moe"]
 
 

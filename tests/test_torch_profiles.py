@@ -9,9 +9,9 @@ plain tuple in the port, ``tuple(PartitionSpec(...))`` in the reference),
 the logical dims trees, the parameter counts, and the autotuner's choice
 (algorithm, pipeline, plan levels, prices). Every case of
 ``tests/test_profiles.py`` is here, with a ``launch.mesh.RankMesh`` (a tuple
-``shape`` beside ``axis_names``) in place of a JAX mesh; the last one trains
-the Arctic smoke config under ``OPT``'s rules, since Jamba waits for Mamba
-(ROADMAP.md queue A4.3).
+``shape`` beside ``axis_names``) in place of a JAX mesh; the train step
+under ``OPT``'s rules runs the reference's Jamba case and the Arctic case
+that stood in for it before Mamba was ported.
 """
 
 import dataclasses
@@ -339,12 +339,13 @@ def test_resolve_profile_prices_with_fitted_calibration(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_opt_profile_smoke_train_step_equals_the_reference():
-    """``OPT``'s rules drive a train step of the Arctic smoke config (the
-    reference's case trains Jamba, which waits for ROADMAP.md queue A4.3):
-    the loss equals the reference step's under the same rules without a
-    mesh, and the gather form's loss equals the scatter form's."""
-    cfg, rcfg = smoke_config("arctic-480b"), r_smoke_config("arctic-480b")
+@pytest.mark.parametrize("arch", ["arctic-480b", "jamba-v0.1-52b"])
+def test_opt_profile_smoke_train_step_equals_the_reference(arch):
+    """``OPT``'s rules drive a train step of the smoke config (Jamba is the
+    reference's case; Arctic stood in for it before Mamba was ported): the
+    loss equals the reference step's under the same rules without a mesh,
+    and the gather form's loss equals the scatter form's."""
+    cfg, rcfg = smoke_config(arch), r_smoke_config(arch)
     r = rules_for(cfg, SHAPES["train_4k"], OPT)
     rm = r_build_model(rcfg)
     rp = rm.init(jax.random.key(0))
