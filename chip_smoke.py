@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-12 hand it, as they hand it, with its
+                that phases 4 and 6-13 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -190,19 +190,19 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 tick against its bound of every weight but ``embed`` and
                 ``mtp`` read once.
 12. ``ssm``     the SSM families, each on the emptied card with bf16 weights
-                from the seed, counted on their own: RWKV6-3B whole
-                (``rwkv6-3b``: 32 layers, d_model 2560, 40 heads x 64, d_ff
-                8960, vocab 65,536; 5.78 GB) and Jamba cut to 16 of its 32
-                layers, two whole periods of 8, every width kept
-                (``jamba-v0.1-52b``: d_model 4096, d_inner 8192, d_state 16,
-                dt_rank 256, one attention layer a period, 16 experts top-2 of
-                expert_ff 14,336 on alternate layers, vocab 65,536; 52.1 GB).
-                Neither has a one-pass prefill, so both serve through the
-                fixed ``Engine``'s per-token refeed, max_len 512, the serve
-                trace's first 4 prompts, 32 new tokens: (a) greedy twice with
-                one SHA-256 of the tokens (RWKV6-3B through ``launch/serve.py
-                --engine fixed``, Jamba through ``Engine``; Jamba's capacity
-                drops a tick); (b) the same refeed tick by tick through
+                from the seed, counted on their own, every width kept and
+                the depth cut: RWKV6-3B at 16 of its 32 layers
+                (``rwkv6-3b``: d_model 2560, 40 heads x 64, d_ff 8960, vocab
+                65,536; 3.2 GB) and Jamba at 8 of its 32 layers, one whole
+                period of 8 (``jamba-v0.1-52b``: d_model 4096, d_inner 8192,
+                d_state 16, dt_rank 256, one attention layer a period, 16
+                experts top-2 of expert_ff 14,336 on alternate layers, vocab
+                65,536; 26.6 GB); each refeed tick is launch-bound, so its
+                time goes with the depth. Neither has a one-pass prefill, so
+                both serve through the fixed ``Engine``'s per-token refeed,
+                max_len 512, the serve trace's first 4 prompts, 32 new
+                tokens: (a) greedy twice with one SHA-256 of the tokens
+                (Jamba's capacity drops a tick); (b) the same refeed tick by tick through
                 ``make_decode_step``, ``CodedServeGuard(K=6, R=2).snapshot``
                 of the recurrent cache (Mamba ``h`` and conv tails, RWKV
                 ``wkv`` and token-shift rows) with the tokens and position at
@@ -213,16 +213,47 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``gf_matmul`` shape among phase 3's; (c) one real Mamba and
                 one real RWKV layer in float32, the full-sequence scan over 64
                 tokens against 64 decode calls, and RWKV6-3B's bf16
-                ``forward`` against its refeed at rtol = atol = 0.15; (d) both
+                ``forward`` (16 layers) against its refeed at rtol = atol = 0.15; (d) both
                 float32 smoke configs on the card against the CPU: logits of
                 ``forward`` and 8 ``decode_step``s within 1e-4, router choices
                 equal, ``loss`` within 1e-5. Prints tokens/s, the tick's ms
                 beside its bound (every weight but ``embed`` read once),
                 kernels a tick, the idle share of a profiled chunk of 4 ticks,
                 init and peak bytes, the snapshot and recovery ms.
-13. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+13. ``encdec_vlm`` the encoder-decoder and VLM families, each whole at full
+                width on the emptied card with bf16 weights from the seed,
+                counted on their own: Whisper-base (``whisper-base``: 6
+                encoder and 6 decoder layers, d_model 512, 8 heads, d_ff 2048,
+                1,500 stub frames, vocab 51,865 padded to 51,968; 207 MB) and
+                InternVL2-26B (``internvl2-26b``: 48 layers, d_model 6144,
+                48/8 heads, d_ff 16,384, 256 stub patches, vocab 92,553
+                padded to 92,672; 39.7 GB). Neither has a one-pass prefill:
+                (a) ``launch/serve.py`` with its default engine falls back to
+                the fixed ``Engine`` (it must say so) and serves the serve
+                trace's first 4 prompts, 32 new tokens, max_len 512, greedy
+                (Whisper twice, InternVL2 once; one SHA-256); (b) the same
+                refeed tick by tick through ``make_decode_step``,
+                ``CodedServeGuard(K=6, R=2).snapshot`` of the cache (K/V
+                rows and Whisper's ``enc_out``) with the tokens and position
+                at tick 40, four ticks more, host 3 killed, ``poll``,
+                ``recover``: the recovered bytes equal the snapshot's and the
+                refeed resumed from them gives (a)'s tokens until the
+                shortest prompt's request is complete, the guard's
+                ``gf_matmul`` shape among phase 3's; (c) Whisper's ``forward``
+                over 2 x 64 tokens and 1,500 frames against 64
+                ``decode_step``s over their encoding at rtol = atol = 0.2 (the
+                reference's oracle), and InternVL2's ``prefill`` of 256
+                patches and 256 tokens twice, one hash; (d) both float32
+                smoke configs on the card against the CPU (frames and patches
+                in the batch): logits of ``forward`` and 8 ``decode_step``s
+                within 1e-4, ``loss`` within 1e-5. Prints what phase 12
+                prints, the tick's bound counting the weights a tick reads,
+                the K/V rows it attends and Whisper's ``enc_out`` once a
+                cross layer.
+14. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
-   MoE, MLA and SSM serve paths, error, time, bound and plain time;
+   MoE, MLA, SSM, encoder-decoder and VLM serve paths, error, time, bound
+   and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -319,7 +350,7 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     launch_plan,
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, make_batch  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
@@ -2742,7 +2773,8 @@ def small_vs_cpu(cfg, dev, seed: int, what: str, steps: int = MOE_SMALL_STEPS) -
     has one, ``prefill_into_cache`` at a bucket where capacity drops, logits
     within SMALL_LOGITS_ATOL; the router's expert choices of every call
     equal; ``loss`` and its terms (``mtp_ce`` among them with MTP) within
-    SMALL_LOSS_ATOL."""
+    SMALL_LOSS_ATOL. An encoder-decoder's batch carries frames and its
+    decode cache their encoding; a VLM's batch carries patches."""
     check(not torch.backends.cuda.matmul.allow_tf32, f"{what}: TF32 matmuls are on")
     model = build_model(cfg)
     cpu_params = model.init(torch.Generator().manual_seed(seed))
@@ -2751,13 +2783,22 @@ def small_vs_cpu(cfg, dev, seed: int, what: str, steps: int = MOE_SMALL_STEPS) -
     step_toks = rng.integers(0, cfg.vocab_size, size=(steps, 3, 1)).astype(np.int32)
     tb = np.zeros((1, MOE_SMALL_BUCKET), np.int32)
     tb[0, :MOE_SMALL_PLEN] = rng.integers(1, cfg.vocab_size, size=MOE_SMALL_PLEN)
+    extra, dec_frames = {}, None  # drawn last: a config without them draws what it drew before
+    if cfg.encdec is not None:
+        extra["frames"] = rng.normal(size=(toks.shape[0], cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+        dec_frames = rng.normal(size=(3, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.vlm is not None:
+        extra["patches"] = rng.normal(size=(toks.shape[0], cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
     runs, losses = {}, {}
     for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
         p = tree.map(lambda t: t.to(d), cpu_params)
         choices: list = []
+        batch = {"tokens": torch.from_numpy(toks).to(d), **{k: torch.from_numpy(v).to(d) for k, v in extra.items()}}
         with routed(choices):
-            out = [model.forward(p, {"tokens": torch.from_numpy(toks).to(d)})[0]]
+            out = [model.forward(p, batch)[0]]
             cache = model.init_cache(3, 64, device=d)
+            if dec_frames is not None:
+                cache["enc_out"].copy_(model._encode_frames(p, torch.from_numpy(dec_frames).to(d)))
             dec = []
             for t in range(steps):
                 lg, cache = model.decode_step(p, cache, torch.from_numpy(step_toks[t]).to(d),
@@ -2768,8 +2809,7 @@ def small_vs_cpu(cfg, dev, seed: int, what: str, steps: int = MOE_SMALL_STEPS) -
                 out.append(model.prefill_into_cache(p, model.init_cache(3, 64, device=d), torch.from_numpy(tb).to(d),
                                                     1)[0])
         runs[where] = ([o.cpu() for o in out], [c.cpu() for c in choices])
-        t = torch.from_numpy(toks).to(d)
-        losses[where] = {k: float(v) for k, v in model.loss(p, {"tokens": t, "labels": t})[1].items()}
+        losses[where] = {k: float(v) for k, v in model.loss(p, batch | {"labels": batch["tokens"]})[1].items()}
     errs = {k: float((a - b)[..., : cfg.vocab_size].abs().max())
             for k, a, b in zip(("forward", "decode_step", "prefill_into_cache"), runs["cpu"][0], runs["card"][0])}
     (cc, gc) = runs["cpu"][1], runs["card"][1]
@@ -3029,22 +3069,24 @@ def mla_phase(mcfg: dict, dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the SSM families, RWKV6-3B whole and Jamba at full width
+# phase 12: the SSM families at full width, RWKV6-3B and Jamba at cut depths
 # ---------------------------------------------------------------------------
 
 RWKV_ARCH, JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
-# RWKV6-3B runs whole (5.78 GB). Jamba is cut from 32 to 16 layers, two of
-# its four periods of 8 (the reference asserts whole periods), every width
-# kept: 52.1 GB of bf16 weights; a third period would make 77.6 GB.
-JAMBA_LAYERS = 16
-SSM_PARAM_BYTES = {RWKV_ARCH: 5_780_280_320, JAMBA_ARCH: 52_112_375_680}
+# Every width kept, the depth cut to keep the script's time (each refeed tick
+# is launch-bound, so a tick's time goes with the layer count): RWKV6-3B to
+# 16 of its 32 layers (3.2 GB of bf16 weights), Jamba to one of its four
+# periods of 8 (the reference asserts whole periods; 26.6 GB). Phase 13
+# serves whole models through the launcher.
+RWKV_LAYERS, JAMBA_LAYERS = 16, 8
+SSM_PARAM_BYTES = {RWKV_ARCH: 3_225_687_040, JAMBA_ARCH: 26_593_062_848}
 SSM_MAX_LEN = 512  # the fixed Engine's max_len: the longest prompt + SERVE_MAX_NEW fits
 SSM_SNAPSHOT_TICK = 40  # the guard's snapshot, mid-prompt (every prompt is longer)
 SSM_LOST_TICKS = 4  # ticks refed after the snapshot, lost with host 3
 # (b) resumes the refeed from the recovered state until the shortest prompt's
 # request has all its new tokens (tick 106 of 457 here), not to the end: a
-# tick is launch-bound (26-34 us of host time a kernel, 2,000-3,300 kernels),
-# and (a) already runs the whole refeed twice a model
+# tick is launch-bound (21-34 us of host time a kernel), and (a) already runs
+# the whole refeed twice a model
 SSM_KILL_HOST = 3
 SSM_SCAN_TOKENS, SSM_SCAN_ROWS = 64, 2  # (c): one full-sequence call against that many decode calls
 # (c): a layer's float32 full-sequence form against its decode form (the same
@@ -3064,16 +3106,16 @@ def ssm_prompts(vocab: int) -> list[list[int]]:
     return [r.prompt for r in trace[:FIXED_PROMPTS]]
 
 
-def ssm_config() -> dict:
-    """Phase 12's configuration, host-side: each model (RWKV6-3B whole,
-    Jamba cut to JAMBA_LAYERS), its prompts, the spec of the state the guard
+def refeed_config(name: str, cfgs) -> dict:
+    """A refeed phase's configuration, host-side: for each (arch, config) of
+    ``cfgs``, the model, its prompts, the spec of the state the guard
     snapshots (the fixed engine's cache at SSM_MAX_LEN, the token buffer and
     the position) and its shard width, and the kernel call of one snapshot
     of each (``runs``)."""
     plan = build_lcc(SERVE_K, R=SERVE_R)
     lps = plan_prepare_shoot(plan.N, plan.p)
     models, runs = {}, {}
-    for arch, cfg in ((RWKV_ARCH, get(RWKV_ARCH)), (JAMBA_ARCH, get(JAMBA_ARCH).replace(n_layers=JAMBA_LAYERS))):
+    for arch, cfg in cfgs:
         model = build_model(cfg)
         prompts = ssm_prompts(cfg.vocab_size)
         total = max(map(len, prompts)) + SERVE_MAX_NEW
@@ -3081,22 +3123,30 @@ def ssm_config() -> dict:
                 {"tokens": meta((FIXED_PROMPTS, total), torch.int32), "pos": meta((), torch.int32)})
         S = -(-limb_count(spec) // SERVE_K)
         entry = f"{arch}: CodedServeGuard.snapshot"
-        models[arch] = {"model": model, "prompts": prompts, "total": total, "spec": spec, "S": S, "entry": entry}
+        models[arch] = {"arch": arch, "model": model, "prompts": prompts, "total": total, "spec": spec, "S": S,
+                        "entry": entry}
         runs[entry] = [("gf_matmul", (plan.N, lps.n, lps.m, S))]
-    return {"name": "ssm", "q": NTT, "K": SERVE_K, "plan": plan, "models": models, "runs": runs}
+    return {"name": name, "q": NTT, "K": SERVE_K, "plan": plan, "models": models, "runs": runs}
 
 
-def launcher_fixed(arch: str, prompts) -> tuple:
-    """``launch/serve.py``'s ``main`` with ``--engine fixed`` over
-    ``prompts`` on the card (its weights: seed 0), its printed lines kept
-    aside. Returns (result, the first line it printed); the engine's
-    numbers are on the global registry."""
-    argv = ["--arch", arch, "--engine", "fixed", "--prompts", ";".join(",".join(map(str, p)) for p in prompts),
+def ssm_config() -> dict:
+    """Phase 12's configuration: RWKV6-3B cut to RWKV_LAYERS, Jamba to
+    JAMBA_LAYERS."""
+    return refeed_config("ssm", ((RWKV_ARCH, get(RWKV_ARCH).replace(n_layers=RWKV_LAYERS)),
+                                 (JAMBA_ARCH, get(JAMBA_ARCH).replace(n_layers=JAMBA_LAYERS))))
+
+
+def launcher(arch: str, prompts, *extra: str) -> tuple:
+    """``launch/serve.py``'s ``main`` over ``prompts`` on the card (its
+    weights: seed 0) with the flags ``extra``, its printed lines kept aside.
+    Returns (result, the lines it printed); the engine's numbers are on the
+    global registry."""
+    argv = ["--arch", arch, *extra, "--prompts", ";".join(",".join(map(str, p)) for p in prompts),
             "--max-new", str(SERVE_MAX_NEW), "--max-len", str(SSM_MAX_LEN)]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         res = serve_main(argv)
-    return res, out.getvalue().splitlines()[0]
+    return res, out.getvalue().splitlines()
 
 
 def refeed(step, params, cache, toks, plen, start: int, stop: int, vocab: int):
@@ -3111,7 +3161,7 @@ def refeed(step, params, cache, toks, plen, start: int, stop: int, vocab: int):
     return cache
 
 
-def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray) -> dict:
+def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray, what: str = "ssm") -> dict:
     """(b): the fixed engine's refeed driven tick by tick through
     ``make_decode_step``; at SSM_SNAPSHOT_TICK, mid-prompt, the recurrent
     cache and ``{"tokens", "pos"}`` under ``CodedServeGuard(K=6, R=2)``;
@@ -3139,12 +3189,12 @@ def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray) -> dict:
     guard.snapshot(cache, state, tick=T)
     torch.cuda.synchronize()
     snap_ms = (time.perf_counter() - t0) * 1e3
-    counted = check_launches("ssm", m["entry"], before, scfg["runs"][m["entry"]])
+    counted = check_launches(what, m["entry"], before, scfg["runs"][m["entry"]])
     check(all(len(v) == m["S"] for v in guard.group._mem.values()),
-          f"ssm/{arch}: the coded shards are not {m['S']} limbs wide (the width phase 3 held)")
+          f"{what}/{arch}: the coded shards are not {m['S']} limbs wide (the width phase 3 held)")
     cache = refeed(step, params, cache, toks, plen, T, T + SSM_LOST_TICKS, V)  # progress the fault loses
     dead = guard.poll(T + SSM_LOST_TICKS)
-    check(dead == [SSM_KILL_HOST], f"ssm/{arch}: the guard found hosts {dead} dead")
+    check(dead == [SSM_KILL_HOST], f"{what}/{arch}: the guard found hosts {dead} dead")
     host_ms: list = []
     with timed(serve_coded, "lcc_decode", host_ms):
         torch.cuda.synchronize()
@@ -3153,12 +3203,12 @@ def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray) -> dict:
         torch.cuda.synchronize()
         rec_ms = (time.perf_counter() - t0) * 1e3
     bit_exact = same_bits(back, held)
-    check(bit_exact, f"ssm/{arch}: the recovered state differs from the snapshot's bytes")
+    check(bit_exact, f"{what}/{arch}: the recovered state differs from the snapshot's bytes")
     cache_b, state_b = back
     stop = min(map(len, prompts)) + SERVE_MAX_NEW - 1  # the shortest request's last token is written at tick stop - 1
     refeed(step, params, cache_b, state_b["tokens"], plen, int(state_b["pos"]), stop, V)
     resumed_equal = np.array_equal(state_b["tokens"][:, : stop + 1].cpu().numpy(), want[:, : stop + 1])
-    check(resumed_equal, f"ssm/{arch}: the refeed resumed from the recovered state gives other tokens than (a)")
+    check(resumed_equal, f"{what}/{arch}: the refeed resumed from the recovered state gives other tokens than (a)")
     return {"snapshot_tick": T, "lost_ticks": SSM_LOST_TICKS, "killed_host": SSM_KILL_HOST, "K": SERVE_K,
             "R": SERVE_R, "q": NTT, "state_bytes": spec_bytes(m["spec"]), "cache_bytes": spec_bytes(m["spec"][0]),
             "limbs_a_shard": m["S"], "gf_matmul_shape": scfg["runs"][m["entry"]][0][1], "launches": counted,
@@ -3166,10 +3216,12 @@ def ssm_guard(scfg: dict, arch: str, params, dev, want: np.ndarray) -> dict:
             "recovered_bit_exact": bit_exact, "resumed_to_tick": stop, "resumed_tokens_equal": resumed_equal}
 
 
-def ssm_tick(model, params, dev, tick_bytes: int, what: str) -> dict:
-    """One refeed tick of FIXED_PROMPTS rows (median of 10) against its
-    bound (``tick_bytes`` read once), and SSM_TICK_CHUNK ticks under the
-    profiler: kernels a tick, idle share."""
+def ssm_tick(model, params, dev, tick_bytes: int, what: str,
+             counted: str = "every weight but embed read once a tick") -> dict:
+    """One refeed tick of FIXED_PROMPTS rows at position SSM_MAX_LEN // 2
+    (median of 10) against its bound (``tick_bytes`` read once, which
+    ``counted`` names), and SSM_TICK_CHUNK ticks under the profiler:
+    kernels a tick, idle share."""
     V = model.cfg.vocab_size
     B = FIXED_PROMPTS
     cache = model.init_cache(B, SSM_MAX_LEN, device=dev)
@@ -3186,8 +3238,7 @@ def ssm_tick(model, params, dev, tick_bytes: int, what: str) -> dict:
 
     prof = profile_encode(f"{what}/decode_chunk", chunk, 1, kind=train_kernel_kind)
     bound_ms = tick_bytes / HBM_BYTES_PER_S * 1e3
-    return {"decode_tick_ms": ms, "decode_tick_bound": {"bytes": tick_bytes, "ms": bound_ms,
-                                                        "what": "every weight but embed read once a tick"},
+    return {"decode_tick_ms": ms, "decode_tick_bound": {"bytes": tick_bytes, "ms": bound_ms, "what": counted},
             "decode_tick_share_of_bound": bound_ms / ms,
             "kernels_a_tick": prof["device_kernels_launched"] / SSM_TICK_CHUNK, "decode_chunk_profile": prof}
 
@@ -3270,13 +3321,15 @@ def rwkv_forward_vs_refeed(model, params, dev) -> dict:
     return rec
 
 
-def ssm_init(model, dev, seed: int, arch: str) -> tuple:
+def ssm_init(model, dev, seed: int, arch: str, what: str = "ssm", nbytes: int | None = None) -> tuple:
     """The model's bf16 weights drawn on the emptied card from ``seed``
-    (float32 routers); returns (params, record)."""
+    (float32 routers and SSM constants), ``nbytes`` of them (by default
+    SSM_PARAM_BYTES[arch]); returns (params, record)."""
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    check(held < MOE_HELD_MAX, f"ssm/{arch}: earlier phases still hold {held} bytes of the card")
+    check(held < MOE_HELD_MAX, f"{what}/{arch}: earlier phases still hold {held} bytes of the card")
     free_bytes, total_bytes = torch.cuda.mem_get_info()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3286,8 +3339,9 @@ def ssm_init(model, dev, seed: int, arch: str) -> tuple:
     check(all(t.is_cuda for t in tree.leaves(params))
           and all(t.dtype == (torch.float32 if k.endswith(("router", "A_log", "dt_proj_b", "/D", "w0", "/u"))
                               else torch.bfloat16) for k, t in tree.flatten_with_names(params).items()),
-          f"ssm/{arch}: the weights are not bf16 (float32 routers and SSM constants) on the card")
-    check(by == SSM_PARAM_BYTES[arch], f"ssm/{arch}: the weights hold {by} bytes")
+          f"{what}/{arch}: the weights are not bf16 (float32 routers and SSM constants) on the card")
+    want = SSM_PARAM_BYTES[arch] if nbytes is None else nbytes
+    check(by == want, f"{what}/{arch}: the weights hold {by} bytes, not {want}")
     return params, {"params": sum(t.numel() for t in tree.leaves(params)), "param_bytes": by, "held_bytes": held,
                     "free_bytes_at_start": free_bytes, "total_bytes": total_bytes,
                     "init_s": time.perf_counter() - t0, "init_peak_bytes": torch.cuda.max_memory_allocated()}
@@ -3295,42 +3349,37 @@ def ssm_init(model, dev, seed: int, arch: str) -> tuple:
 
 def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     """The SSM families at full width (``scfg`` from :func:`ssm_config`),
-    counted on their own. RWKV6-3B whole, then Jamba at JAMBA_LAYERS layers,
-    each on the emptied card: (a) greedy through the fixed engine (RWKV6
-    through ``launch/serve.py``, Jamba through ``Engine``), twice, the same
-    SHA-256; (b) the guard on the recurrent state mid-refeed, a kill, a
-    bit-exact recovery and the same tokens resumed; (c) one real layer's
-    full-sequence scan against its decode steps, and RWKV6's whole forward
-    against its refeed; (d) the float32 smoke configs on the card against the
-    CPU. Returns (launches, record)."""
+    counted on their own. RWKV6-3B at RWKV_LAYERS layers, then Jamba at
+    JAMBA_LAYERS layers, each on the emptied card: (a) greedy through the
+    fixed ``Engine``, twice, the same SHA-256; (b) the guard on the recurrent
+    state mid-refeed, a kill, a bit-exact recovery and the same tokens
+    resumed; (c) one real layer's full-sequence scan against its decode
+    steps, and RWKV6's forward against its refeed; (d) the float32 smoke
+    configs on the card against the CPU. Returns (launches, record)."""
     t_phase = time.perf_counter()
     record = {}
     gf_matmul_cuda.launches = 0
     butterfly_mac_rows_cuda.launches = 0
 
-    # RWKV6-3B, whole: (a) through the launcher, which draws its weights from seed 0
+    # RWKV6-3B, RWKV_LAYERS of 32 layers: (a) through Engine
     m = scfg["models"][RWKV_ARCH]
     model, cfg = m["model"], m["model"].cfg
-    check(cfg.n_layers == 32 and cfg.d_model == 2560 and cfg.n_heads == 40 and cfg.d_ff == 8960
-          and cfg.vocab_size == 65536 and model.body == ["rwkv"] and model.repeats == 32, "ssm: not RWKV6-3B's width")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    check(torch.cuda.memory_allocated() < MOE_HELD_MAX, "ssm: earlier phases still hold the card")
-    torch.cuda.reset_peak_memory_stats()
+    check(cfg.n_layers == RWKV_LAYERS and cfg.d_model == 2560 and cfg.n_heads == 40 and cfg.d_ff == 8960
+          and cfg.vocab_size == 65536 and model.body == ["rwkv"] and model.repeats == RWKV_LAYERS,
+          "ssm: not RWKV6-3B's width")
+    params, init = ssm_init(model, dev, 0, RWKV_ARCH)
     runs = []
     for _ in range(2):
-        res, line = launcher_fixed(RWKV_ARCH, m["prompts"])
-        runs.append(fixed_record("ssm/rwkv/launcher", res, m["prompts"], get_registry(), cfg.vocab_size)
-                    | {"printed": line})
+        reg = MetricsRegistry()
+        res = Engine(model, params, max_len=SSM_MAX_LEN, metrics=reg).generate(m["prompts"],
+                                                                               max_new_tokens=SERVE_MAX_NEW)
+        runs.append(fixed_record("ssm/rwkv/engine", res, m["prompts"], reg, cfg.vocab_size))
     check(launches() == (0, 0), "ssm: the unguarded RWKV6 serve launched a hand kernel")
     check(runs[0]["sha256"] == runs[1]["sha256"], "ssm/rwkv: two greedy runs gave other tokens")
-    want = res.tokens
     rec = {"arch": cfg.name, "layers": f"{cfg.n_layers} of {get(RWKV_ARCH).n_layers}",
            "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
-           "greedy": runs, "launcher_peak_bytes": torch.cuda.max_memory_allocated()}
-    del res
-    params, rec["init"] = ssm_init(model, dev, 0, RWKV_ARCH)  # the launcher's weights again
-    rec["guard"] = ssm_guard(scfg, RWKV_ARCH, params, dev, want)  # (b)
+           "init": init, "greedy": runs}
+    rec["guard"] = ssm_guard(scfg, RWKV_ARCH, params, dev, res.tokens)  # (b)
     rec["scan"] = rwkv_scan_check(tree.map(lambda t: t[0], params["body"]["b0"]["tm"]), cfg, dev)  # (c)
     rec["forward_vs_refeed"] = rwkv_forward_vs_refeed(model, params, dev)
     rec.update(ssm_tick(model, params, dev, rec["init"]["param_bytes"]
@@ -3340,18 +3389,20 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     del params
     gc.collect()
 
-    # Jamba, 16 of 32 layers: (a) through Engine (the launcher has no depth cut)
+    # Jamba, JAMBA_LAYERS of 32 layers: (a) through Engine
     m = scfg["models"][JAMBA_ARCH]
     model, cfg = m["model"], m["model"].cfg
     sc, mc = cfg.ssm, cfg.moe
     check(cfg.d_model == 4096 and cfg.n_heads == 32 and cfg.n_kv_heads == 8 and cfg.d_ff == 14336
           and mc.n_experts == 16 and mc.top_k == 2 and mc.expert_ff == 14336 and sc.d_state == 16
-          and sc.expand == 2 and cfg.vocab_size == 65536 and cfg.n_layers == JAMBA_LAYERS and model.repeats == 2
+          and sc.expand == 2 and cfg.vocab_size == 65536 and cfg.n_layers == JAMBA_LAYERS
+          and model.repeats == JAMBA_LAYERS // 8
           and model.body == ["mamba", "mamba_moe", "mamba", "mamba_moe", "dense", "mamba_moe", "mamba", "mamba_moe"],
           "ssm: not Jamba's width and period")
     params, init = ssm_init(model, dev, SEED + 1300, JAMBA_ARCH)
-    check(tuple(params["body"]["b1"]["moe"]["w_gate"].shape) == (2, 16, 4096, 14336)
-          and tuple(params["body"]["b0"]["mamba"]["x_proj"].shape) == (2, 8192, 256 + 32), "ssm: Jamba's leaves")
+    check(tuple(params["body"]["b1"]["moe"]["w_gate"].shape) == (model.repeats, 16, 4096, 14336)
+          and tuple(params["body"]["b0"]["mamba"]["x_proj"].shape) == (model.repeats, 8192, 256 + 32),
+          "ssm: Jamba's leaves")
     rec = {"arch": cfg.name, "layers": f"{cfg.n_layers} of {get(JAMBA_ARCH).n_layers} ({model.repeats} periods of 8)",
            "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
            "init": init, "capacity": {"factor": mc.capacity_factor,
@@ -3393,6 +3444,197 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     record["seconds"] = time.perf_counter() - t_phase
     return counted, record
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder and VLM families, Whisper-base and InternVL2-26B whole
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
+# both whole, at full width, bf16: the frontends are stubs (precomputed frame
+# and patch embeddings), so InternVL2's weights are InternLM2-20B's
+ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 39_725_445_120}
+ORACLE_TOL = 0.2  # (c): tests/test_attention_oracle.py:57-85, decode against forward, rtol = atol
+ORACLE_ROWS, ORACLE_TOKENS = 2, 64
+VLM_FORWARD_TEXT = 256  # (c): one forward of n_patches (256) patches and this many text tokens
+
+
+def encvlm_config() -> dict:
+    """Phase 13's configuration: Whisper-base and InternVL2-26B whole (the
+    guard's state holds Whisper's ``enc_out``)."""
+    return refeed_config("encdec_vlm", ((arch, get(arch)) for arch in (WHISPER_ARCH, VLM_ARCH)))
+
+
+def encvlm_serve(m: dict, runs_n: int, what: str) -> dict:
+    """(a): ``runs_n`` greedy serves of the prompts through the launcher's
+    default engine, which must fall back to the fixed engine and say so;
+    every run hashes alike. Returns the record, the last run's tokens under
+    ``"want"``."""
+    model, cfg = m["model"], m["model"].cfg
+    runs, res = [], None
+    before = launches()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(runs_n):
+        del res
+        res, lines = launcher(m["arch"], m["prompts"])  # the default engine
+        check(lines[0] == f"{cfg.name}: no one-pass prefill; falling back to fixed-batch",
+              f"{what}: the launcher did not fall back to the fixed engine: {lines[:2]}")
+        runs.append(fixed_record(f"{what}/launcher", res, m["prompts"], get_registry(), cfg.vocab_size)
+                    | {"printed": lines[:2]})
+    check(launches() == before, f"{what}: the unguarded serve launched a hand kernel")
+    check(len({r["sha256"] for r in runs}) == 1, f"{what}: two greedy runs gave other tokens")
+    return {"arch": cfg.name, "layers": f"{cfg.n_layers} of {cfg.n_layers} (whole)",
+            "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
+            "greedy": runs, "launcher_peak_bytes": torch.cuda.max_memory_allocated(), "want": res.tokens}
+
+
+def decode_tick_bytes(model, params) -> tuple[int, str]:
+    """What one decode tick of FIXED_PROMPTS rows at position
+    SSM_MAX_LEN // 2 must read, and its description: every weight it uses
+    once (all but ``embed`` and, for the encoder-decoder, the encoder's own
+    layers and ``ln_post``), the K/V rows at positions 0 .. pos of every
+    layer, and the encoder-decoder's ``enc_out`` once a cross layer."""
+    cfg = model.cfg
+    unused = ("embed", "encoder/layers/", "encoder/ln_post/")
+    w = sum(t.numel() * t.element_size() for k, t in tree.flatten_with_names(params).items()
+            if not k.startswith(unused))
+    el = torch.finfo(model.dtype).bits // 8
+    kv = 2 * cfg.n_layers * FIXED_PROMPTS * (SSM_MAX_LEN // 2 + 1) * cfg.n_kv_heads * cfg.head_dim * el
+    enc = cfg.n_layers * FIXED_PROMPTS * cfg.encdec.n_frames * cfg.d_model * el if model.is_encdec else 0
+    return w + kv + enc, (f"weights {w} B (all but embed{' and the encoder' if enc else ''}) + K/V rows 0..pos {kv} B"
+                          + (f" + enc_out a cross layer {enc} B" if enc else ""))
+
+
+def whisper_oracle(model, params, dev) -> dict:
+    """(c): the reference's own oracle at full width: ``forward`` over
+    ``make_batch(cfg, 2, 64)`` (1,500 frames through the encoder), then 64
+    ``decode_step``s over a cache whose ``enc_out`` is the frames' encoding:
+    every decode logit within ORACLE_TOL (rtol = atol) of the forward's, and
+    the cross-attention adds something (the first tick over a zero
+    ``enc_out`` gives other logits)."""
+    cfg = model.cfg
+    V, B, S = cfg.vocab_size, ORACLE_ROWS, ORACLE_TOKENS
+    batch = make_batch(cfg, B, S, seed=SEED + 1401, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = model._encode_frames(params, batch["frames"].to(model.dtype))
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    full = model.forward(params, batch)[0][..., :V]
+    step = make_decode_step(model)
+    bare = model.init_cache(B, S, device=dev)
+    first_bare = step(params, bare, batch["tokens"][:, :1], torch.zeros((B,), dtype=torch.int32, device=dev))[0]
+    cache = model.init_cache(B, S, device=dev)
+    cache["enc_out"].copy_(enc)
+    worst, big, moved = -float("inf"), 0.0, 0.0
+    for t in range(S):
+        lg, cache = step(params, cache, batch["tokens"][:, t: t + 1], torch.full((B,), t, dtype=torch.int32, device=dev))
+        a, b = lg[:, 0, :V], full[:, t]
+        worst = max(worst, float(((a - b).abs() - ORACLE_TOL * b.abs()).max()))
+        big = max(big, float(b.abs().max()))
+        if t == 0:
+            moved = float((lg - first_bare)[:, 0, :V].abs().max())
+    rec = {"rows": B, "tokens": S, "frames": cfg.encdec.n_frames, "rtol": ORACLE_TOL, "atol": ORACLE_TOL,
+           "max_excess_over_rtol": worst, "largest_logit": big, "encode_frames_ms": enc_ms,
+           "enc_out_rms": float(enc.float().pow(2).mean().sqrt()), "cross_attention_moves_logits_by": moved}
+    check(bool(torch.isfinite(full).all()) and worst <= ORACLE_TOL,
+          f"encdec/whisper: decode logits differ from forward's beyond rtol = atol = {ORACLE_TOL}: {rec}")
+    check(moved > 0, f"encdec/whisper: cross-attention onto the encoder's output changes nothing: {rec}")
+    return rec
+
+
+def vlm_forward(model, params, dev) -> dict:
+    """(c): one ``prefill`` (``forward``) at batch 1 over n_patches patches
+    and VLM_FORWARD_TEXT text tokens at full width, twice: the logits'
+    hashes equal, finite, of shape (1, VLM_FORWARD_TEXT, vocab_padded)."""
+    cfg = model.cfg
+    batch = make_batch(cfg, 1, cfg.vlm.n_patches + VLM_FORWARD_TEXT, seed=SEED + 1402, device=dev)
+    hashes, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(params, batch)[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        host = logits.cpu().numpy()
+        hashes.append(hashlib.sha256(host.tobytes()).hexdigest())
+    rec = {"patches": cfg.vlm.n_patches, "text_tokens": VLM_FORWARD_TEXT, "shape": list(host.shape),
+           "ms": ms, "sha256": hashes, "finite": bool(np.isfinite(host).all())}
+    check(host.shape == (1, VLM_FORWARD_TEXT, cfg.vocab_padded) and rec["finite"] and hashes[0] == hashes[1],
+          f"vlm/internvl2: the prefill's logits: {rec}")
+    return rec
+
+
+def encvlm_phase(ecfg: dict, dev) -> tuple[dict, dict]:
+    """The encoder-decoder and VLM families whole at full width (``ecfg``
+    from :func:`encvlm_config`), counted on their own, each on the emptied
+    card: (a) greedy through ``launch/serve.py`` with its default engine,
+    which falls back to the fixed engine (Whisper twice, InternVL2 once, one
+    SHA-256); (b) the guard on the decode cache mid-refeed, a kill, a
+    bit-exact recovery and the same tokens resumed; (c) Whisper's decode
+    against its forward over encoded frames, InternVL2's prefill twice; (d)
+    the float32 smoke configs on the card against the CPU. Returns
+    (launches, record)."""
+    t_phase = time.perf_counter()
+    record = {}
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+
+    m = ecfg["models"][WHISPER_ARCH]
+    model, cfg = m["model"], m["model"].cfg
+    check(cfg.n_layers == 6 and cfg.encdec.n_enc_layers == 6 and cfg.d_model == 512 and cfg.n_heads == 8
+          and cfg.d_ff == 2048 and cfg.encdec.n_frames == 1500 and cfg.vocab_padded == 51968
+          and model.body == ["dense"] and model.repeats == 6 and model.is_encdec, "encdec: not Whisper-base's width")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < MOE_HELD_MAX, "encdec: earlier phases still hold the card")
+    rec = encvlm_serve(m, 2, "encdec/whisper")  # (a)
+    want = rec.pop("want")
+    params, rec["init"] = ssm_init(model, dev, 0, WHISPER_ARCH, "encdec", ENCVLM_PARAM_BYTES[WHISPER_ARCH])
+    check(tuple(params["encoder"]["layers"]["mlp"]["w_up"].shape) == (6, 512, 2048)
+          and tuple(params["encoder"]["cross"]["attn"]["wq"].shape) == (6, 512, 512), "encdec: Whisper's leaves")
+    rec["guard"] = ssm_guard(ecfg, WHISPER_ARCH, params, dev, want, "encdec")  # (b)
+    rec["oracle"] = whisper_oracle(model, params, dev)  # (c)
+    tick_bytes, counted = decode_tick_bytes(model, params)
+    rec.update(ssm_tick(model, params, dev, tick_bytes, "encdec/whisper", counted))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["whisper"] = rec
+    del params, want
+    gc.collect()
+
+    m = ecfg["models"][VLM_ARCH]
+    model, cfg = m["model"], m["model"].cfg
+    check(cfg.n_layers == 48 and cfg.d_model == 6144 and cfg.n_heads == 48 and cfg.n_kv_heads == 8
+          and cfg.d_ff == 16384 and cfg.vocab_padded == 92672 and cfg.vlm.n_patches == 256
+          and model.body == ["dense"] and model.repeats == 48 and model.is_vlm, "vlm: not InternVL2-26B's width")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < MOE_HELD_MAX, "vlm: earlier phases still hold the card")
+    rec = encvlm_serve(m, 1, "vlm/internvl2")  # (a)
+    want = rec.pop("want")
+    params, rec["init"] = ssm_init(model, dev, 0, VLM_ARCH, "vlm", ENCVLM_PARAM_BYTES[VLM_ARCH])
+    rec["guard"] = ssm_guard(ecfg, VLM_ARCH, params, dev, want, "vlm")  # (b)
+    rec["prefill"] = vlm_forward(model, params, dev)  # (c)
+    tick_bytes, counted = decode_tick_bytes(model, params)
+    rec.update(ssm_tick(model, params, dev, tick_bytes, "vlm/internvl2", counted))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["internvl2"] = rec
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+    check(counted["gf_matmul"] == 2,
+          f"the encoder-decoder and VLM serve paths launched gf_matmul {counted['gf_matmul']} times, not 2")
+    record["launches"] = counted
+    # (d): the float32 smoke configs on the card against the CPU
+    record["small_vs_cpu"] = {arch: small_vs_cpu(smoke_config(arch).replace(dtype="float32"), dev, SEED + 1405 + i,
+                                                 f"encdec_vlm/small_{arch}", steps=SSM_SMALL_STEPS)
+                              for i, arch in enumerate((WHISPER_ARCH, VLM_ARCH))}
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return counted, record
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3425,7 +3667,9 @@ def main() -> int:
     moe_cfg = moe_config()
     mla_cfg = mla_config()
     ssm_cfg = ssm_config()
-    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs + [moe_cfg, mla_cfg, ssm_cfg], P)
+    encvlm_cfg = encvlm_config()
+    shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs
+                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -3515,9 +3759,13 @@ def main() -> int:
     mla_launches, mlad = mla_phase(mla_cfg, dev)
     say("mla", card=smi, **mlad)
 
-    # phase 12: the SSM families, RWKV6-3B whole and Jamba at 16 of 32 layers, each on an emptied card
+    # phase 12: the SSM families, RWKV6-3B at 16 and Jamba at 8 of 32 layers, each on an emptied card
     ssm_launches, ssmd = ssm_phase(ssm_cfg, dev)
     say("ssm", card=smi, **ssmd)
+
+    # phase 13: the encoder-decoder and VLM families, Whisper-base and InternVL2-26B whole, each on an emptied card
+    encvlm_launches, encvlmd = encvlm_phase(encvlm_cfg, dev)
+    say("encdec_vlm", card=smi, **encvlmd)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -3525,7 +3773,7 @@ def main() -> int:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
                            + serve_launches[row["name"]] + train_launches[row["name"]]
                            + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
-                           + ssm_launches[row["name"]])
+                           + ssm_launches[row["name"]] + encvlm_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

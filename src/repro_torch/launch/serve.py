@@ -1,7 +1,9 @@
 """Serving launcher: parameters on the card + a serving engine.
 
 Continuous batching by default (bucketed one-pass prefill + slot
-scheduler); ``--engine fixed`` runs the fixed-batch loop instead.
+scheduler); ``--engine fixed`` runs the fixed-batch loop instead, and so does
+the default for a model with no one-pass prefill (recurrent,
+encoder-decoder, VLM), which says so in one line.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \\
         --prompts "1,2,3;4,5" --max-new 16
@@ -79,10 +81,13 @@ def main(argv=None):
         params, _ = restore_checkpoint(args.ckpt, model.param_specs(), device=dev)
 
     prompts = [[int(t) for t in p.split(",") if t] for p in args.prompts.split(";")]
-    if args.coded is not None and args.engine != "continuous":
-        ap.error("--coded needs the continuous engine")
+    use_continuous = args.engine == "continuous" and model.supports_prefill
+    if args.engine == "continuous" and not use_continuous:
+        print(f"{cfg.name}: no one-pass prefill; falling back to fixed-batch")
+    if args.coded is not None and not use_continuous:
+        raise SystemExit("--coded needs the continuous engine")
 
-    if args.engine == "continuous":
+    if use_continuous:
         guard = None
         if args.coded is not None:
             K, R = (int(x) for x in args.coded.split(","))

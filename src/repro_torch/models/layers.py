@@ -372,6 +372,34 @@ def swiglu(params, x, ctx=NO_CTX):
     return ctx.cons(h @ params["w_down"], ("batch", "seq", "d_model"))
 
 
+def gelu_mlp_init(generator, d, d_ff, dtype=torch.bfloat16):
+    dev = init_device(generator)
+    return {
+        "w_up": truncnorm_init(generator, (d, d_ff), dtype),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_down": truncnorm_init(generator, (d_ff, d), dtype),
+        "b_down": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp_specs():
+    return {
+        "w_up": ("d_model", "d_ff"),
+        "b_up": ("d_ff",),
+        "w_down": ("d_ff", "d_model"),
+        "b_down": ("d_model",),
+    }
+
+
+def gelu_mlp(params, x, ctx=NO_CTX):
+    """The encoder's MLP: biases before the activation and after
+    ``w_down``; the GELU is the tanh approximation (``jax.nn.gelu``'s
+    default)."""
+    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    h = ctx.cons(h, ("batch", "seq", "d_ff"))
+    return ctx.cons(h @ params["w_down"] + params["b_down"], ("batch", "seq", "d_model"))
+
+
 # ---------------------------------------------------------------------------
 # MoE (top-k, capacity-based sort dispatch — FLOPs ∝ active experts)
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Model assembly: the dense, MoE, MLA, SSM and hybrid decoder-only LMs.
+"""Model assembly: decoder-only LM / MoE / MLA / SSM / hybrid / enc-dec / VLM.
 
 A model is a layer PATTERN: a non-repeated prefix (``prefix_{i}``: DeepSeek-V3's
 leading dense MLA layers; empty for the other families) plus a
@@ -8,6 +8,14 @@ the repeats, so every body leaf has a leading ``n_layers`` axis — the
 reference's pytree, leaf for leaf, which is what the coded-serving guard
 reads and what a checkpoint holds. The reference scans the body with
 ``jax.lax.scan``; here a Python loop indexes the stacked tensors.
+
+The encoder-decoder (Whisper) adds an ``encoder`` leaf: a stacked
+bidirectional encoder (layernorm, GELU MLP, sinusoidal positions, no RoPE)
+over precomputed frame embeddings (the stub frontend) and one
+cross-attention block after each decoder layer; its decode cache holds the
+encoder's output as ``enc_out``. The VLM (InternVL2) puts precomputed patch
+embeddings (the stub frontend) before the text tokens in ``forward``; its
+decode is text only, as the reference's.
 
 Public surface (used by train/, serve/, launch/):
     build_model(cfg)        → Model
@@ -23,19 +31,23 @@ Public surface (used by train/, serve/, launch/):
                             → (logits, cache)   # one-pass KV fill of a slot
     model.supports_prefill  → bool
 
-The ``"dense"``, ``"moe"``, ``"mla_dense"``, ``"mla_moe"``, ``"mamba"``,
-``"mamba_moe"`` and ``"rwkv"`` layer kinds and the multi-token-prediction
-head (``mtp``) are ported; ``build_model`` refuses the encoder-decoder and
-VLM families, naming the ROADMAP item each waits for. Decode and prefill
-write the cache in place and return it. A recurrent layer (Mamba, RWKV)
-keeps a state with no per-position rows, so it has no one-pass prefill:
-its models are served by the fixed ``Engine``'s per-token refeed.
+Every layer kind of the reference (``"dense"``, ``"moe"``, ``"mla_dense"``,
+``"mla_moe"``, ``"mamba"``, ``"mamba_moe"``, ``"rwkv"``), the
+multi-token-prediction head (``mtp``), the encoder with its cross-attention
+and the patch prefix are ported: ``build_model`` builds every config of the
+registry. Decode and prefill write the cache in place and return it. A
+recurrent layer (Mamba, RWKV) keeps a state with no per-position rows, and
+the encoder-decoder and VLM frontends have no per-position cache, so these
+models have no one-pass prefill: they are served by the fixed ``Engine``'s
+per-token refeed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -46,10 +58,6 @@ from ..core.field import resolve_device
 from . import layers as L
 from . import mla as MLA
 from . import ssm as SSM
-
-#: the ROADMAP.md queue A4 item each config feature that is not ported yet waits for
-_NOT_PORTED = {"encdec": "A4.4 (encoder-decoder)", "vlm": "A4.4 (VLM)"}
-
 
 # ---------------------------------------------------------------------------
 # layer-kind registry
@@ -404,7 +412,7 @@ def _unstack(stacked) -> list:
 
 
 class Model(nn.Module):
-    """The dense, MoE, MLA, SSM or hybrid decoder. Parameters are not registered on the
+    """The decoder-only, encoder-decoder or VLM model. Parameters are not registered on the
     module: they are a pytree passed to every call, as in the reference, so
     that the serving state, checkpoints and the coded guards see the
     reference's leaves."""
@@ -422,8 +430,9 @@ class Model(nn.Module):
         """Random parameters drawn from ``generator``, on its device (truncated
         normals at scale 0.02, norms at one); ``None`` gives the same pytree
         as ``meta`` tensors. The draws come in the order embed, lm_head, the
-        prefix layers, the body, MTP, so a config without a prefix or MTP
-        draws what it drew before they were ported."""
+        prefix layers, the body, the encoder, MTP (the reference's key
+        order), so a config without a prefix, an encoder or MTP draws what
+        it drew before they were ported."""
         cfg, dtype = self.cfg, self.dtype
         params: dict[str, Any] = {
             "embed": L.truncnorm_init(generator, (cfg.vocab_padded, cfg.d_model), dtype),
@@ -434,12 +443,35 @@ class Model(nn.Module):
         for i, kind in enumerate(self.prefix):
             params[f"prefix_{i}"] = _fill(generator, lambda g, k=kind: _KINDS[k]["init"](g, cfg, dtype))
         params["body"] = _fill(generator, self._layer_init, self.repeats)
+        if self.is_encdec:
+            params["encoder"] = self._encoder_init(generator)
         if cfg.mtp:
             params["mtp"] = _fill(generator, self._mtp_init)
         return params
 
     def _layer_init(self, generator) -> dict:
         return {f"b{j}": _KINDS[kind]["init"](generator, self.cfg, self.dtype) for j, kind in enumerate(self.body)}
+
+    def _encoder_init(self, generator) -> dict:
+        """The encoder: its layers (layernorm, attention, GELU MLP) stacked
+        over ``n_enc_layers``, ``ln_post``, and one cross-attention block
+        (layernorm, attention) a decoder layer, stacked over ``n_layers``.
+        Drawn in that order: the layers, then the cross blocks."""
+        cfg, dtype = self.cfg, self.dtype
+
+        def layer(g):
+            d = L.init_device(g)
+            return {"ln1": L.layernorm_init(cfg.d_model, dtype, d), "attn": L.attention_init(g, cfg, dtype),
+                    "ln2": L.layernorm_init(cfg.d_model, dtype, d),
+                    "mlp": L.gelu_mlp_init(g, cfg.d_model, cfg.d_ff, dtype)}
+
+        def cross(g):
+            return {"ln": L.layernorm_init(cfg.d_model, dtype, L.init_device(g)),
+                    "attn": L.attention_init(g, cfg, dtype)}
+
+        return {"layers": _fill(generator, layer, cfg.encdec.n_enc_layers),
+                "ln_post": L.layernorm_init(cfg.d_model, dtype, L.init_device(generator)),
+                "cross": _fill(generator, cross, cfg.n_layers)}
 
     def _mtp_init(self, generator) -> dict:
         """The multi-token-prediction head: two norms, a (2d, d) projection and
@@ -470,6 +502,14 @@ class Model(nn.Module):
         for i, kind in enumerate(self.prefix):
             dims[f"prefix_{i}"] = _KINDS[kind]["specs"](cfg)
         dims["body"] = {f"b{j}": _stacked_dims(_KINDS[kind]["specs"](cfg)) for j, kind in enumerate(self.body)}
+        if self.is_encdec:
+            ln = {"scale": ("d_model",), "bias": ("d_model",)}
+            dims["encoder"] = {
+                "layers": _stacked_dims({"ln1": ln, "attn": L.attention_specs(cfg), "ln2": ln,
+                                         "mlp": L.gelu_mlp_specs()}),
+                "ln_post": ln,
+                "cross": _stacked_dims({"ln": ln, "attn": L.attention_specs(cfg)}),
+            }
         if cfg.mtp:
             dims["mtp"] = {
                 "norm_h": {"scale": ("d_model",)},
@@ -492,6 +532,40 @@ class Model(nn.Module):
             logits = logits - pad
         return logits
 
+    # -- encoder (Whisper's stub frontend) ------------------------------------
+    def _encode_frames(self, params, frames, ctx=L.NO_CTX):
+        """frames: (B, F, d) precomputed stub embeddings → the encoder's
+        output: sinusoidal positions added, then every encoder layer
+        (bidirectional attention, no RoPE), then ``ln_post``."""
+        cfg = self.cfg
+        x = frames + _sinusoidal(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None]
+        enc = params["encoder"]
+        for lp in _unstack(enc["layers"]):
+            h, _ = L.attention_fwd(lp["attn"], L.layernorm(lp["ln1"], x), cfg, ctx, rope=False, causal=False)
+            x = x + h
+            x = x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x), ctx)
+        return L.layernorm(enc["ln_post"], x)
+
+    def _cross_attn(self, cp, x, enc_out):
+        """The decoder's cross-attention onto the encoder's output: queries
+        from ``layernorm(x)``, keys and values from ``enc_out`` (recomputed
+        on every call), no RoPE, no mask."""
+        cfg = self.cfg
+        xn = L.layernorm(cp["ln"], x)
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (xn @ cp["attn"]["wq"]).reshape(B, S, H, hd)
+        k = (enc_out @ cp["attn"]["wk"]).reshape(B, -1, Hkv, hd)
+        v = (enc_out @ cp["attn"]["wv"]).reshape(B, -1, Hkv, hd)
+        o = L.chunked_causal_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+        return o.transpose(1, 2).reshape(B, S, -1) @ cp["attn"]["wo"]
+
+    def _crosses(self, params) -> list | None:
+        """The cross-attention blocks, one a body layer in ``_layers``'s
+        order (repeat ``li``, body layer ``j`` at ``li * len(body) + j``), or
+        ``None`` without an encoder."""
+        return _unstack(params["encoder"]["cross"]) if self.is_encdec else None
+
     # -- trunk ----------------------------------------------------------------
     def _layers(self, params, cache=None):
         """Every layer in order, as (kind, its parameters, its cache or
@@ -505,28 +579,44 @@ class Model(nn.Module):
             out += [(k, blk[f"b{j}"], None if bcache is None else bcache[f"b{j}"]) for j, k in enumerate(self.body)]
         return out
 
-    def _trunk(self, params, x, ctx):
-        """Full-seq forward through the prefix and the body. Returns (x, aux).
-        With ``remat="block"`` and autograd recording, each block keeps only
-        its input for the backward pass and runs again there (the
-        reference's ``jax.checkpoint`` of each block)."""
+    def _trunk(self, params, x, ctx, enc_out=None):
+        """Full-seq forward through the prefix and the body, with the
+        encoder-decoder's cross-attention after each body layer. Returns
+        (x, aux). With ``remat="block"`` and autograd recording, each block
+        keeps only its input for the backward pass and runs again there (the
+        reference's ``jax.checkpoint`` of each block); the encoder-decoder's
+        branch of the reference applies none."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for kind, p, _ in self._layers(params):
+        remat = cfg.remat == "block" and torch.is_grad_enabled() and not self.is_encdec
+        crosses = self._crosses(params)
+        for i, (kind, p, _) in enumerate(self._layers(params)):
             fn = _KINDS[kind]["fwd"]
             if remat:
                 x, aux = checkpoint(fn, p, x, cfg, ctx, aux, use_reentrant=False)
             else:
                 x, aux = fn(p, x, cfg, ctx, aux)
+            if crosses is not None and i >= len(self.prefix):
+                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, enc_out)
         return L.rmsnorm(params["ln_f"], x), aux
 
     # -- public forward --------------------------------------------------------
     def forward(self, params, batch, ctx=L.NO_CTX):
-        """batch: {"tokens": (B,S) int} → (logits (B,S,V_padded) f32, aux, h)."""
+        """batch: {"tokens": (B,S) int, "frames" (encoder-decoder) or
+        "patches" (VLM): (B, F or P, d)} → (logits (B,S,V_padded) f32, aux,
+        h), over the text positions only."""
+        cfg = self.cfg
         x = self._embed(params, batch["tokens"]).to(self.dtype)
+        enc_out = None
+        if self.is_encdec:
+            enc_out = self._encode_frames(params, batch["frames"].to(self.dtype), ctx)
+            x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        if self.is_vlm:
+            x = torch.cat([batch["patches"].to(self.dtype), x], dim=1)
         x = ctx.cons(x, ("batch", "seq", "d_model"))
-        h, aux = self._trunk(params, x, ctx)
+        h, aux = self._trunk(params, x, ctx, enc_out)
+        if self.is_vlm:
+            h = h[:, batch["patches"].shape[1]:]
         logits = self._head(params, h)
         return logits, aux, h
 
@@ -563,27 +653,40 @@ class Model(nn.Module):
         prefix leaf (batch, s_max, ...); a KV layer holds ``k`` and ``v``, an
         MLA layer ``c_kv`` and ``k_rope``, a Mamba layer the tuple ``(h,
         conv_tail)`` and an RWKV layer ``wkv``, ``tm_prev`` and ``cm_prev``
-        (recurrent states, no ``s_max`` axis)."""
+        (recurrent states, no ``s_max`` axis); the encoder-decoder adds the
+        encoder's output ``enc_out`` (batch, n_frames, d_model)."""
         cfg, dtype, device = self.cfg, self.dtype, resolve_device(device)
         cache: dict[str, Any] = {"body": {f"b{j}": _cache_init_for(k, cfg, batch, s_max, dtype, device, self.repeats)
                                           for j, k in enumerate(self.body)}}
         for i, kind in enumerate(self.prefix):
             cache[f"prefix_{i}"] = _cache_init_for(kind, cfg, batch, s_max, dtype, device)
+        if self.is_encdec:
+            cache["enc_out"] = torch.zeros((batch, cfg.encdec.n_frames, cfg.d_model), dtype=dtype, device=device)
         return cache
 
     def cache_dims(self):
         dims: dict[str, Any] = {"body": {f"b{j}": _stacked_dims(_cache_dims_for(k)) for j, k in enumerate(self.body)}}
         for i, kind in enumerate(self.prefix):
             dims[f"prefix_{i}"] = _cache_dims_for(kind)
+        if self.is_encdec:
+            dims["enc_out"] = ("batch", "frames", "d_model")
         return dims
 
     def decode_step(self, params, cache, tokens, pos, ctx=L.NO_CTX):
         """tokens: (B,1) int; pos: (B,) int → (logits (B,1,V), cache), the
-        cache written in place at ``pos``."""
+        cache written in place at ``pos``. The encoder-decoder adds the
+        sinusoidal position of ``pos`` and attends ``cache["enc_out"]``
+        after each body layer; the VLM decodes text only (no patch prefix),
+        as the reference does."""
         cfg = self.cfg
         x = self._embed(params, tokens).to(self.dtype)
-        for kind, p, c in self._layers(params, cache):
+        if self.is_encdec:
+            x = x + _sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None, :]
+        crosses = self._crosses(params)
+        for i, (kind, p, c) in enumerate(self._layers(params, cache)):
             x, _ = _KINDS[kind]["decode"](p, x, cfg, c, pos, ctx)
+            if crosses is not None and i >= len(self.prefix):
+                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, cache["enc_out"])
         logits = self._head(params, L.rmsnorm(params["ln_f"], x))
         return logits, cache
 
@@ -658,14 +761,28 @@ def _xent(logits, labels, mask):
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
+@functools.lru_cache(maxsize=8)
+def _sin_table(S: int, d: int) -> np.ndarray:
+    """The (S, d) sinusoidal position table, built in float64 numpy and
+    cast to float32, as the reference builds it."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
+def _sinusoidal(S: int, d: int, device) -> torch.Tensor:
+    return torch.from_numpy(_sin_table(S, d)).to(device)
+
+
+def _sinusoidal_at(pos, d: int) -> torch.Tensor:
+    """The sinusoidal rows of positions ``pos`` (B,), computed in float32 on
+    ``pos``'s device in the reference's order of operations."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[:, None] / (10000 ** (2 * i / d))[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    """The port's model for ``cfg``. The dense, MoE, MLA (with MTP), SSM and
-    hybrid families are ported: the encoder-decoder and VLM families raise
-    ``NotImplementedError`` naming the ROADMAP item they wait for."""
-    what = [name for name, on in (("encdec", cfg.encdec is not None), ("vlm", cfg.vlm is not None)) if on]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: the {', '.join(what)} layers are not ported yet; they wait for ROADMAP.md queue A4: "
-            + ", ".join(dict.fromkeys(_NOT_PORTED[w] for w in what))
-        )
+    """The port's model for ``cfg``: every family of the registry."""
     return Model(cfg)

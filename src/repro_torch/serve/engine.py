@@ -5,7 +5,8 @@ Two tiers share the model's decode and prefill callables:
 * :class:`Engine` — the fixed-capacity batch: prompts are right-padded and
   refed token by token through the decode step, then new tokens are sampled
   until max length or EOS. One long prompt or one slow finisher stalls the
-  whole batch; it stays as the measured baseline.
+  whole batch; it stays as the measured baseline and the fall-back for
+  the models with no one-pass prefill (recurrent, encoder-decoder, VLM).
 
 * :class:`ContinuousEngine` — continuous batching. A **separate prefill
   callable** (``train.train_loop.make_prefill_step(into_cache=True)`` →
@@ -143,7 +144,8 @@ class GenerationResult:
 
 
 class Engine:
-    """Fixed-batch engine (the baseline). Runs on the device that holds
+    """Fixed-batch engine (the baseline, and the recurrent, encoder-decoder
+    and VLM fall-back). Runs on the device that holds
     ``params``; ``rules`` (``dist.sharding.ShardingRules``) reach the model
     through its decode step."""
 
@@ -190,6 +192,9 @@ class Engine:
         for b, p in enumerate(prompts):
             toks[b, : len(p)] = p
         cache = self.model.init_cache(B, self.max_len, device=dev)
+        if self.model.is_encdec:
+            # stub frames: zeros (a real system: the audio frontend's output)
+            cache["enc_out"].zero_()
         toks_t = torch.from_numpy(toks).to(dev)
         plen_t = torch.from_numpy(plen).to(dev)
         # the batch's sampling streams: (seed, row), token t of row b at counter t

@@ -117,17 +117,25 @@ def test_smoke_config_and_layer_pattern_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", sorted(set(R_ARCHS) - {"qwen3-1.7b", "qwen1.5-32b", "deepseek-coder-33b",
                                                         "internlm2-20b", "arctic-480b"}))
 def test_build_model_refuses_families_not_ported(arch):
-    """Every family not ported (the encoder-decoder and VLM families) is
-    refused, naming ROADMAP.md queue A4.4; since MLA and MTP (A4.2) and the
-    SSM families (A4.3) are ported, DeepSeek-V3, Jamba and RWKV6 build
-    instead, with the reference's layer pattern."""
-    if arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "rwkv6-3b"):
-        m = build_model(smoke_config(arch))
-        assert (m.prefix, m.body, m.repeats) == r_layer_pattern(r_smoke_config(arch))
-        assert "mtp" in m.param_specs() if arch == "deepseek-v3-671b" else not m.supports_prefill
-        return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A4: A4\.4"):
-        build_model(smoke_config(arch))
+    """No family is refused any more: since MLA and MTP (A4.2), the SSM
+    families (A4.3) and the encoder-decoder and VLM families (A4.4) are
+    ported, every config builds, smoke and full width, with the reference's
+    layer pattern; DeepSeek-V3 with its MTP head, Whisper with its encoder
+    and ``enc_out`` cache, InternVL2 with its patch prefix, and none of the
+    recurrent, encoder-decoder or VLM models with a one-pass prefill."""
+    for cfg, rcfg in ((smoke_config(arch), r_smoke_config(arch)), (get(arch), R_ARCHS[arch])):
+        m = build_model(cfg)
+        assert (m.prefix, m.body, m.repeats) == r_layer_pattern(rcfg)
+    m = build_model(smoke_config(arch))
+    if arch == "deepseek-v3-671b":
+        assert "mtp" in m.param_specs() and m.supports_prefill
+    elif arch == "whisper-base":
+        assert m.is_encdec and not m.is_vlm and "encoder" in m.param_specs()
+        assert "enc_out" in m.init_cache(1, 4, device="meta") and not m.supports_prefill
+    elif arch == "internvl2-26b":
+        assert m.is_vlm and not m.is_encdec and m.cfg.vlm.n_patches == 4 and not m.supports_prefill
+    else:
+        assert not m.supports_prefill
 
 
 @pytest.mark.parametrize("arch, item", [("jamba-v0.1-52b", r"A4\.3 \(Mamba"), ("deepseek-v3-671b", r"A4\.2 \(MLA\)")])

@@ -338,12 +338,15 @@ def test_init_undrawn_leaves_equal_the_reference_in_every_layer(arch):
 @pytest.mark.parametrize("arch, n_layers, weights, tick, state", [
     (RWKV, 32, 5_780_280_320, 5_444_736_000, 85_196_800),
     (JAMBA, 16, 52_112_375_680, 51_575_504_768, 65_667_072),
+    (RWKV, 16, 3_225_687_040, 2_890_142_720, 42_598_400),
+    (JAMBA, 8, 26_593_062_848, 26_056_191_936, 32_833_536),
 ])
 def test_full_width_param_specs_dims_and_bytes(arch, n_layers, weights, tick, state):
     """Every leaf's shape and dtype and the logical dims of the whole model
-    equal the reference's ``param_specs``; the cut ``chip_smoke.py`` serves
-    (RWKV6-3B whole, Jamba 2 of its 4 periods) holds these bytes of bf16
-    weights, its tick reads all but ``embed``, and its decode state at 4 rows
+    equal the reference's ``param_specs``; at ``n_layers`` (RWKV6-3B whole
+    and at 16 layers, Jamba at 2 of its 4 periods and at one, the depths
+    ``chip_smoke.py`` serves at) the model holds these bytes of bf16
+    weights, a tick reads all but ``embed``, and the decode state at 4 rows
     × 1,024 positions holds these bytes."""
     m = build_model(get(arch))
     rshapes, rdims = r_build_model(R_ARCHS[arch]).param_specs()
@@ -542,11 +545,17 @@ def test_train_step_equals_the_reference(arch):
 
 def test_launcher_serves_rwkv_through_the_fixed_engine_only(capsys):
     """``launch/serve.py --engine fixed`` serves RWKV6's smoke config on the
-    CPU; the default continuous engine refuses it, as the reference's does."""
+    CPU; the default continuous engine falls back to the fixed engine, as the
+    reference's does, with the same tokens, and ``--coded`` (continuous only)
+    ends the run."""
     argv = ["--arch", RWKV, "--smoke", "--device", "cpu", "--prompts", "1,2,3;4,5", "--max-new", "6", "--max-len", "32"]
     res = serve_main(argv + ["--engine", "fixed"])
     text = capsys.readouterr().out
     assert res.tokens.shape == (2, 9) and list(res.lengths) == [9, 8] and "on cpu" in text
     assert list(res.tokens[0, :3]) == [1, 2, 3] and list(res.tokens[1, :2]) == [4, 5]
-    with pytest.raises(NotImplementedError, match="fixed-batch"):
-        serve_main(argv)
+    fell_back = serve_main(argv)
+    text = capsys.readouterr().out
+    assert text.startswith(f"{RWKV}-smoke: no one-pass prefill; falling back to fixed-batch\n")
+    assert np.array_equal(fell_back.tokens, res.tokens)
+    with pytest.raises(SystemExit, match="--coded needs the continuous engine"):
+        serve_main(argv + ["--coded", "3,2"])
