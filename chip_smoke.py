@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-13 hand it, as they hand it, with its
+                that phases 4 and 6-14 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -250,10 +250,29 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 prints, the tick's bound counting the weights a tick reads,
                 the K/V rows it attends and Whisper's ``enc_out`` once a
                 cross layer.
-14. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+14. ``analysis`` the analysis layer, the examples and ``trace_encode`` on the
+                card, with their own launch counts: (a) the four examples
+                that compute (``examples/{quickstart,coded_checkpoint_recovery,
+                serve_lm,train_lm}_torch.py``) in this process at their own
+                sizes (``train_lm`` with ``--steps 2 --fail-at 1
+                --coded-every 1``: ~110M parameters, the recovery bit-exact),
+                each held to its own asserts and its launches to the calls
+                phase 3 held; (b) ``tools/trace_encode_torch.py`` at its
+                default payload: one span a round, output equal to the
+                untraced encode and the host oracle, both trace files through
+                ``tools/check_trace.py``; (c) the roofline shares of phases 7
+                and 8's steps, counted on meta tensors at their shapes
+                (``launch.op_cost``) and nothing rerun: the train step's
+                flops and ``model_flops`` over its median time × 989 TFLOP/s
+                (``mfu_*``), its live-bytes peak against the measured one, the
+                decode tick's bytes and its least bytes over its time × 3.35
+                TB/s; (d) the one-card dry run of all 40 cells
+                (``launch.dryrun``, worker processes) and its roofline table,
+                within 60 s.
+15. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
-   MoE, MLA, SSM, encoder-decoder and VLM serve paths, error, time, bound
-   and plain time;
+   MoE, MLA, SSM, encoder-decoder and VLM serve paths and the analysis
+   phase, error, time, bound and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -267,12 +286,14 @@ import dataclasses
 import datetime
 import gc
 import hashlib
+import importlib.util
 import io
 import json
 import math
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -289,7 +310,8 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.coded import gradient_coding  # noqa: E402
-from repro_torch.configs import get, smoke_config  # noqa: E402
+from repro_torch.configs import SHAPES as ARCH_SHAPES  # noqa: E402
+from repro_torch.configs import get, shape_applicable, smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.coded.lagrange_compute import (  # noqa: E402
     build_lcc,
@@ -310,7 +332,7 @@ from repro_torch.core.draw_loose import decode_dft, decode_draw_loose  # noqa: E
 from repro_torch.core.encode import a2a_encode, plan_for  # noqa: E402
 from repro_torch.core.field import M31, NTT, Field, shoup_precompute, to_numpy, to_tensor  # noqa: E402
 from repro_torch.core.ir import LocalOp, ir_permute_count  # noqa: E402
-from repro_torch.core.matrices import butterfly_target_matrix, random_matrix  # noqa: E402
+from repro_torch.core.matrices import butterfly_target_matrix, distinct_points, random_matrix, vandermonde  # noqa: E402
 from repro_torch.core.prepare_shoot import encode_oracle  # noqa: E402
 from repro_torch.core.schedule import draw_loose_target_matrix, plan_butterfly, plan_prepare_shoot  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
@@ -350,7 +372,7 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     launch_plan,
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
-from repro_torch.models import build_model, make_batch  # noqa: E402
+from repro_torch.models import build_model, make_batch, train_batch_specs  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibration, get_registry  # noqa: E402
@@ -359,8 +381,12 @@ from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
 from repro_torch.serve.scheduler import bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.op_cost import count_fn  # noqa: E402
 from repro_torch.launch.profiles import BASELINE, profile_with, rules_for  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS, model_flops, render_table  # noqa: E402
+from repro_torch.launch.roofline import load_all as roofline_load_all  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -3486,19 +3512,20 @@ def encvlm_serve(m: dict, runs_n: int, what: str) -> dict:
             "greedy": runs, "launcher_peak_bytes": torch.cuda.max_memory_allocated(), "want": res.tokens}
 
 
-def decode_tick_bytes(model, params) -> tuple[int, str]:
-    """What one decode tick of FIXED_PROMPTS rows at position
-    SSM_MAX_LEN // 2 must read, and its description: every weight it uses
-    once (all but ``embed`` and, for the encoder-decoder, the encoder's own
-    layers and ``ln_post``), the K/V rows at positions 0 .. pos of every
-    layer, and the encoder-decoder's ``enc_out`` once a cross layer."""
+def decode_tick_bytes(model, params, positions=(SSM_MAX_LEN // 2,) * FIXED_PROMPTS) -> tuple[int, str]:
+    """What one decode tick of a row at each of ``positions`` (by default
+    FIXED_PROMPTS rows at SSM_MAX_LEN // 2) must read, and its description:
+    every weight it uses once (all but ``embed`` and, for the
+    encoder-decoder, the encoder's own layers and ``ln_post``), the K/V rows
+    at positions 0 .. pos of every layer, and the encoder-decoder's
+    ``enc_out`` once a cross layer. ``params`` may be meta tensors."""
     cfg = model.cfg
     unused = ("embed", "encoder/layers/", "encoder/ln_post/")
     w = sum(t.numel() * t.element_size() for k, t in tree.flatten_with_names(params).items()
             if not k.startswith(unused))
     el = torch.finfo(model.dtype).bits // 8
-    kv = 2 * cfg.n_layers * FIXED_PROMPTS * (SSM_MAX_LEN // 2 + 1) * cfg.n_kv_heads * cfg.head_dim * el
-    enc = cfg.n_layers * FIXED_PROMPTS * cfg.encdec.n_frames * cfg.d_model * el if model.is_encdec else 0
+    kv = 2 * cfg.n_layers * sum(p + 1 for p in positions) * cfg.n_kv_heads * cfg.head_dim * el
+    enc = cfg.n_layers * len(positions) * cfg.encdec.n_frames * cfg.d_model * el if model.is_encdec else 0
     return w + kv + enc, (f"weights {w} B (all but embed{' and the encoder' if enc else ''}) + K/V rows 0..pos {kv} B"
                           + (f" + enc_out a cross layer {enc} B" if enc else ""))
 
@@ -3636,6 +3663,225 @@ def encvlm_phase(ecfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the analysis layer, the examples and trace_encode on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "coded_checkpoint_recovery", "serve_lm", "train_lm")
+TRAIN_LM_ARGV = ["--steps", "2", "--fail-at", "1", "--coded-every", "1"]  # at the example's own sizes
+TRACE_K, TRACE_LEVELS, TRACE_PAYLOAD = 8, (2, 2, 2), 1 << 14  # tools/trace_encode_torch.py's defaults
+TRACE_CALLS = 3  # the warm-up, the traced call and the untraced one it is held against
+TRAIN_PEAK_SLACK = 1.5  # the tracker's peak at most this over the measured peak of the step
+DRYRUN_LIMIT_S = 60.0
+
+
+def load_script(rel: str):
+    """A script of the checkout (``examples/``, ``tools/``) as a module; its
+    ``main`` does not run."""
+    spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def analysis_configs() -> list[dict]:
+    """The kernel calls of the examples and of ``trace_encode_torch`` (host
+    side), for phase 3 (``path_shapes``) and the launch checks."""
+    K = 16
+    qplan = plan_for("general", K, 1, M31)
+    dplan = plan_for("dft", K, 1, NTT)
+    state = {"params": meta((1_000_000,), torch.float32), "m": meta((1_000_000,), torch.float32),
+             "v": meta((1_000_000,), torch.float32), "step": meta((), torch.int32)}
+    pplan = build_parity_plan(K)
+    S_ck = -(-limb_count(state) // K)
+    lm = build_model(load_script("examples/train_lm_torch.py").model_config())
+    lm_spec = {"params": lm.param_specs(), "opt": state_specs(OptConfig(), lm.param_specs())}
+    gplan = build_parity_plan(8)
+    S_lm = -(-limb_count(lm_spec) // 8)
+    f = Field(M31)
+    ir = plan_multilevel(TRACE_K, 1, TRACE_LEVELS).to_ir(np.asarray(vandermonde(f, distinct_points(f, TRACE_K, seed=0))))
+    return [
+        {"name": "quickstart", "q": M31, "runs": {
+            "a2a_encode": a2a_kernel_calls({"kind": "general", "plan": qplan, "K": K}, 1)}},
+        {"name": "quickstart_dft", "q": NTT, "runs": {
+            "a2a_encode": a2a_kernel_calls({"kind": "dft", "plan": dplan, "K": K}, 1)}},
+        {"name": "coded_checkpoint_recovery", "q": M31, "S": S_ck, "runs": {
+            "encode_parity": [("gf_matmul", (K, pplan.ps_plan.n, pplan.ps_plan.m, S_ck))]}},
+        {"name": "train_lm", "q": M31, "S": S_lm, "runs": {
+            "CodedStateGuard.snapshot": [("gf_matmul", (8, gplan.ps_plan.n, gplan.ps_plan.m, S_lm))] * 2}},
+        {"name": "trace_encode", "q": M31, "ir": ir, "runs": {
+            "ir_encode": ir_kernel_calls(ir, TRACE_PAYLOAD) * TRACE_CALLS}},
+    ]
+
+
+def run_examples(acfgs: list[dict], dev) -> dict:
+    """(a): the examples in this process on the card, each held to its own
+    asserts and its launches to the calls phase 3 held."""
+    runs = {c["name"]: c["runs"] for c in acfgs}
+    out = {}
+    for name in EXAMPLES:
+        mod = load_script(f"examples/{name}_torch.py")
+        argv = ["--device", str(dev)]
+        if name == "train_lm":
+            d = tempfile.mkdtemp(prefix="train_lm_ckpt")
+            argv += TRAIN_LM_ARGV + ["--ckpt", d]
+        before = launches()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        rec = {"argv": argv, "seconds": time.perf_counter() - t0}
+        calls = {"quickstart": runs["quickstart"]["a2a_encode"] + runs["quickstart_dft"]["a2a_encode"],
+                 "coded_checkpoint_recovery": runs["coded_checkpoint_recovery"]["encode_parity"],
+                 "train_lm": runs["train_lm"]["CodedStateGuard.snapshot"]}.get(name, [])
+        rec["launches"] = check_launches(name, "main", before, calls)
+        if name == "quickstart":
+            for form, (o, report) in res.items():
+                check(o.is_cuda, f"quickstart: the {form} encode did not run on the card")
+            rec["c1_c2"] = {form: [report.c1, report.c2] for form, (o, report) in res.items()}
+        elif name == "coded_checkpoint_recovery":
+            check(all(res["recovered"].values()), "coded_checkpoint_recovery: a recovery was not bit-exact")
+            rec["recovered"] = res["recovered"]
+            rec["shards"] = res["shards"]
+            check(res["shards"][1] == next(c for c in acfgs if c["name"] == name)["S"],
+                  "coded_checkpoint_recovery: the shard width is not the one phase 3 held")
+        elif name == "serve_lm":
+            rep = res["continuous"]
+            check(len(rep.results) == 8 and res["sampled_differs"], "serve_lm: the demo did not serve its trace")
+            rec.update(tokens_per_s=rep.tokens_per_s, ttft_ms=rep.ttft_ms, fixed_steps=int(res["fixed"].steps))
+        else:
+            check(res["recovered_exact"] is True, "train_lm: the recovery was not bit-exact")
+            check(len(res["losses"]) == 2 and all(np.isfinite(res["losses"])), f"train_lm: losses {res['losses']}")
+            rec.update(losses=res["losses"], params=res["params"], recovered_bit_exact=True)
+            shutil.rmtree(d, ignore_errors=True)
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_trace_encode(acfg: dict, dev) -> dict:
+    """(b): tools/trace_encode_torch.py on the card at its default payload;
+    its three files, the first two through the unchanged tools/check_trace.py."""
+    tool = load_script("tools/trace_encode_torch.py")
+    get_registry().reset()
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "encode_torch")
+        before = launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(["--out", prefix, "--device", str(dev), "--drift"])
+        text = buf.getvalue()
+        check(rc == 0, f"trace_encode: exit {rc}")
+        counted = check_launches("trace_encode", "main", before, acfg["runs"]["ir_encode"])
+        ir = acfg["ir"]
+        check(f"traced {ir.c1} comm rounds" in text, f"trace_encode: {text.splitlines()[:1]}")
+        checks = {}
+        for suffix in (".trace.json", ".jsonl"):
+            r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_trace.py"), prefix + suffix],
+                               capture_output=True, text=True, timeout=120)
+            check(r.returncode == 0, f"check_trace {suffix}: {r.stdout}{r.stderr}")
+            checks[suffix] = r.stdout.strip()
+        with open(prefix + ".metrics.json") as fh:
+            metrics = json.load(fh)
+        check(metrics["encode.rounds"]["value"] == 2 * ir.c1, f"trace_encode: encode.rounds {metrics['encode.rounds']}")
+        spans = [json.loads(line) for line in open(prefix + ".jsonl")]
+    return {"K": TRACE_K, "levels": TRACE_LEVELS, "payload_elems": TRACE_PAYLOAD, "c1": ir.c1, "launches": counted,
+            "check_trace": checks, "encode.rounds": metrics["encode.rounds"]["value"],
+            "rounds": [{k: s["attrs"].get(k) for k in ("comm_round", "level", "predicted_us")} | {"measured_us": s["dur_us"]}
+                       for s in spans if "comm_round" in s.get("attrs", {})]}
+
+
+def roofline_shares(served: dict, trained: dict, scfg: dict, card: str) -> dict:
+    """(c): the op-level count of the train step and the decode tick that
+    phases 7 and 8 timed, on meta tensors at the same shapes (nothing is
+    rerun), against the card's data-sheet peaks (``card``: its name and
+    power limit)."""
+    tw = trained["full_width"]
+    model = build_model(get(TRAIN_ARCH))
+    batch, seq = tw["batch"], tw["seq"]
+    step = make_train_step(model, OptConfig())
+    pspec = model.param_specs()
+    t0 = time.perf_counter()
+    counter = count_fn(step, pspec, state_specs(OptConfig(), pspec),
+                       train_batch_specs(model.cfg, ShapeSpec("train", "train", seq, batch)))
+    count_s = time.perf_counter() - t0
+    step_s = tw["median_step_ms_2_to_6"] / 1e3
+    mf = model_flops(model.cfg, ShapeSpec("train", "train", seq, batch))
+    state_bytes = sum(tw["state_bytes"].values())
+    peak = counter.memory["peak_bytes"]
+    check(state_bytes <= peak <= TRAIN_PEAK_SLACK * tw["peak_bytes"],
+          f"analysis: the train step's tracker peak {peak} is not between the state's {state_bytes} B and "
+          f"{TRAIN_PEAK_SLACK} x the measured peak {tw['peak_bytes']} B")
+    train = {"arch": model.cfg.name, "batch": batch, "seq": seq, "remat": model.cfg.remat, "card": card,
+             "median_step_ms": step_s * 1e3, "op_cost_flops": counter.cost.flops,
+             "op_cost_product_flops": counter.cost.product_flops, "model_flops": mf,
+             "mfu_op_cost": counter.cost.flops / (step_s * PEAK_FLOPS),
+             "mfu_model_flops": mf / (step_s * PEAK_FLOPS), "peak_flops": PEAK_FLOPS,
+             "tracker_peak_bytes": peak, "measured_peak_bytes": tw["peak_bytes"], "state_bytes": state_bytes,
+             "count_s": count_s}
+    smodel = scfg["model"]
+    eng = serve_engine(smodel, smodel.param_specs())
+    tick = eng._tick_for(True)
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=smodel.cfg.vocab_size, seed=SEED + 1001)
+    positions = [len(trace[s].prompt) for s in range(SERVE_SLOTS)]  # serve_timings' slots as its ticks start
+    counter = count_fn(lambda p, c, st: tick(p, c, st, -1, 1.0), smodel.param_specs(),
+                       smodel.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device="meta"), eng.init_state())
+    tick_s = served["decode_tick_ms"] / 1e3
+    least = decode_tick_bytes(smodel, smodel.param_specs(), positions)[0]
+    check(counter.cost.bytes >= least,
+          f"analysis: op_cost counts {counter.cost.bytes} B for the tick, under the {least} B it must read")
+    decode = {"arch": smodel.cfg.name, "slots": SERVE_SLOTS, "max_len": SERVE_POSITIONS, "positions": positions,
+              "card": card, "tick_ms": tick_s * 1e3, "op_cost_bytes": counter.cost.bytes,
+              "op_cost_flash_bytes": counter.cost.bytes_flash, "least_bytes": least,
+              "op_cost_over_least": counter.cost.bytes / least,
+              "hbm_share_op_cost": counter.cost.bytes / (tick_s * HBM_BW),
+              "hbm_share_least": least / (tick_s * HBM_BW), "hbm_bw": HBM_BW,
+              "op_cost_flops": counter.cost.flops}
+    return {"train_step": train, "decode_tick": decode}
+
+
+def dry_run_all() -> dict:
+    """(d): the one-card dry run of every (arch × shape) cell on meta
+    tensors, in worker processes, and its roofline table."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        recs = dryrun.run_all(d, force=True, jobs=os.cpu_count() or 1)
+        wall = time.perf_counter() - t0
+        rows = roofline_load_all(d)
+    print(render_table(rows), flush=True)
+    check(len(recs) == 40, f"dry run: {len(recs)} records")
+    for r in recs:
+        ok, reason = shape_applicable(get(r["arch"]), ARCH_SHAPES[r["shape"]])
+        check(r["status"] == ("ok" if ok else "skipped") and (ok or r["reason"] == reason),
+              f"dry run: {r['arch']} x {r['shape']} is {r['status']}: {r.get('error', r.get('reason'))}")
+    check(wall <= DRYRUN_LIMIT_S, f"dry run: {wall:.1f} s, over {DRYRUN_LIMIT_S} s")
+    return {"seconds": wall, "jobs": os.cpu_count(), "ok": sum(r["status"] == "ok" for r in recs),
+            "skipped": sum(r["status"] == "skipped" for r in recs),
+            "fits_80GB": sorted(f"{r['arch']}/{r['shape']}" for r in recs if r.get("fits")),
+            "rows": [{k: getattr(row, k) for k in ("arch", "shape", "status", "compute_s", "memory_s", "bottleneck",
+                                                   "useful_ratio", "hbm_gb_per_dev")} for row in rows
+                     if row.status == "ok"]}
+
+
+def analysis_phase(acfgs: list[dict], dev, served: dict, trained: dict, scfg: dict, card: str) -> tuple[dict, dict]:
+    """The examples and trace_encode on the card, counted on their own, then
+    the roofline shares of phases 7 and 8's steps and the dry run. Returns
+    (launches, record)."""
+    t_phase = time.perf_counter()
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+    record = {"examples": run_examples(acfgs, dev)}  # (a)
+    record["trace_encode"] = run_trace_encode(next(c for c in acfgs if c["name"] == "trace_encode"), dev)  # (b)
+    counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+    check(counted["gf_matmul"] > 0 and counted["butterfly_mac"] > 0,
+          f"the examples and trace_encode launched {counted}")
+    record["launches"] = counted
+    record["roofline"] = roofline_shares(served, trained, scfg, card)  # (c)
+    record["dryrun"] = dry_run_all()  # (d)
+    record["seconds"] = time.perf_counter() - t_phase
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -3668,8 +3914,9 @@ def main() -> int:
     mla_cfg = mla_config()
     ssm_cfg = ssm_config()
     encvlm_cfg = encvlm_config()
+    analysis_cfgs = analysis_configs()
     shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs
-                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg], P)
+                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs, P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -3767,13 +4014,18 @@ def main() -> int:
     encvlm_launches, encvlmd = encvlm_phase(encvlm_cfg, dev)
     say("encdec_vlm", card=smi, **encvlmd)
 
+    # phase 14: the examples and trace_encode on the card, counted on their own; the roofline shares; the dry run
+    analysis_launches, analysisd = analysis_phase(analysis_cfgs, dev, served, trained, serve_cfg, smi)
+    say("analysis", card=smi, **analysisd)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = (main_path_launches[row["name"]] + coded_launches[row["name"]]
                            + serve_launches[row["name"]] + train_launches[row["name"]]
                            + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
-                           + ssm_launches[row["name"]] + encvlm_launches[row["name"]])
+                           + ssm_launches[row["name"]] + encvlm_launches[row["name"]]
+                           + analysis_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -1,5 +1,5 @@
-# The dense, MoE and MLA decoders (layers, mla, model, inputs). The other families wait
-# for a later slice: build_model refuses them, naming the ROADMAP item.
-from .inputs import batch_dims, make_batch  # noqa: F401
+# Every family of the registry (layers, mla, ssm, model) and its inputs:
+# concrete batches and meta specs.
+from .inputs import batch_dims, decode_input_specs, make_batch, train_batch_specs  # noqa: F401
 from .layers import NO_CTX, Ctx  # noqa: F401
 from .model import Model, build_model  # noqa: F401

@@ -1,4 +1,5 @@
-"""Model input construction: concrete batches for tests and the smoke run.
+"""Model input construction: concrete batches for tests and the smoke run,
+and ``meta`` tensor specs for the dry run (shapes and dtypes, no storage).
 
 The batches are drawn with numpy from a seed, exactly as the reference
 draws them, so both packages see the same tokens for the same seed.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..core.field import resolve_device
 
 
@@ -26,6 +27,30 @@ def batch_dims(cfg: ModelConfig, kind: str) -> dict:
     if kind == "decode":
         d = {"tokens": ("batch", None), "pos": ("batch",)}
     return d
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16) -> dict:
+    """A train or prefill batch of ``shape`` as ``meta`` tensors."""
+    B, S = shape.global_batch, shape.seq_len
+    text_s = S - (cfg.vlm.n_patches if cfg.vlm else 0)
+    spec: dict = {
+        "tokens": torch.empty((B, text_s), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((B, text_s), dtype=torch.int32, device="meta"),
+    }
+    if cfg.encdec is not None:
+        spec["frames"] = torch.empty((B, cfg.encdec.n_frames, cfg.d_model), dtype=dtype, device="meta")
+    if cfg.vlm is not None:
+        spec["patches"] = torch.empty((B, cfg.vlm.n_patches, cfg.d_model), dtype=dtype, device="meta")
+    return spec
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """One decode step's tokens (B, 1) and positions (B,) as ``meta`` tensors."""
+    B = shape.global_batch
+    return {
+        "tokens": torch.empty((B, 1), dtype=torch.int32, device="meta"),
+        "pos": torch.empty((B,), dtype=torch.int32, device="meta"),
+    }
 
 
 def make_batch(cfg: ModelConfig, B: int, S: int, seed: int = 0, device=None) -> dict:

@@ -3,7 +3,7 @@ RWKV-6 "Finch" (data-dependent decay WKV), with O(1)-state decode steps.
 
 A port of the reference package's ``models/ssm.py``. The reference scans
 time with ``jax.lax.scan``; here each scan is a Python loop over the S
-steps, with the per-step discretisation (``dA_t``, ``dBu_t``) and the WKV
+steps (:func:`_scan`), with the per-step discretisation (``dA_t``, ``dBu_t``) and the WKV
 outer product ``k_t v_tᵀ`` made inside the loop: materialising them for the
 whole sequence would cost about 2 × 69 GB a layer at Jamba's width.
 ``cfg.time_chunk > 0`` runs the steps in checkpointed chunks when autograd
@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 from torch.utils.checkpoint import checkpoint
 
 from .layers import NO_CTX, init_device, layernorm, rmsnorm, rmsnorm_init, truncnorm_init
@@ -49,6 +50,35 @@ def _shift(x, x_prev):
     if x_prev is None:
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([x_prev.to(x.dtype), x], dim=1)[:, :-1]
+
+
+def _sampled_steps(n: int) -> int:
+    """How many of a scan's ``n`` steps to run: all of them, unless a
+    dispatch mode that counts ops (``launch.op_cost.OpCounter``) is active
+    and asks, through its ``scan_steps``, for fewer (it is told ``n``)."""
+    for mode in _get_current_dispatch_mode_stack():
+        steps = getattr(mode, "scan_steps", None)
+        if steps is not None:
+            mode.scan_lengths.add(n)
+            return min(steps, n)
+    return n
+
+
+def _scan(step, carry, n: int):
+    """``step(carry, t) → (carry, y_t)`` over ``t`` in ``range(n)`` (the
+    reference's ``lax.scan``): returns (the last carry, the y_t stacked on
+    axis 1). Under an op counter that asks for ``m < n`` steps, only steps
+    0..m-1 run and zeros (no gradient, no op) stand for the rest, whose
+    carry stops at step m: the stack costs what all n outputs cost, and the
+    count is affine in m, so two such counts extrapolate to n exactly."""
+    run = _sampled_steps(n)
+    ys = []
+    for t in range(run):
+        carry, y = step(carry, t)
+        ys.append(y)
+    if run < n:
+        ys += [torch.zeros_like(ys[-1])] * (n - run)
+    return carry, torch.stack(ys, dim=1)
 
 
 def _chunked_scan(run, state, xs: tuple, time_chunk: int):
@@ -120,13 +150,13 @@ def _mamba_scan(u, dt, B, C, A, D, h0=None, time_chunk: int = 0):
     h = torch.zeros((Bt, Din, A.shape[1]), dtype=torch.float32, device=u.device) if h0 is None else h0
 
     def run(h, u, dt, B, C):
-        ys = []
-        for t in range(u.shape[1]):
+        def step(h, t):
             dA = torch.exp(dt[:, t, :, None] * A)  # (Bt, Din, N)
             dBu = (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
             h = dA * h + dBu
-            ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-        return h, torch.stack(ys, dim=1)
+            return h, torch.einsum("bdn,bn->bd", h, C[:, t])
+
+        return _scan(step, h, u.shape[1])
 
     h_last, ys = _chunked_scan(run, h, (u, dt, B, C), time_chunk)
     return ys + D * u, h_last
@@ -246,12 +276,12 @@ def _wkv6_scan(r, k, v, w, u, S0=None, time_chunk: int = 0):
     state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device) if S0 is None else S0
 
     def run(state, r, k, v, w):
-        ys = []
-        for t in range(r.shape[1]):
+        def step(state, t):
             kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, hd, hd)
-            ys.append(torch.einsum("bhij,bhi->bhj", state + u[None, :, :, None] * kv, r[:, t]))
-            state = w[:, t, :, :, None] * state + kv
-        return state, torch.stack(ys, dim=1)
+            y = torch.einsum("bhij,bhi->bhj", state + u[None, :, :, None] * kv, r[:, t])
+            return w[:, t, :, :, None] * state + kv, y
+
+        return _scan(step, state, r.shape[1])
 
     S_last, ys = _chunked_scan(run, state, tuple(a.float() for a in (r, k, v, w)), time_chunk)
     return ys, S_last

@@ -50,6 +50,7 @@ def test_the_slice_is_all_there():
         "serve.traffic", "serve.engine",
         "launch", "launch.serve", "train.optimizer", "train.data", "launch.train", "dist.ranks", "launch.mesh",
         "dist.sharding", "launch.roofline", "launch.rules", "launch.profiles",
+        "launch.op_cost", "launch.costpass", "launch.dryrun", "launch.hillclimb", "launch.perf_report",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -106,11 +107,61 @@ def test_import_order_does_not_matter(order):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+SCRIPTS = [f"examples/{name}_torch.py" for name in
+           ("quickstart", "coded_checkpoint_recovery", "topology_planner", "serve_lm", "train_lm")] + [
+    "tools/trace_encode_torch.py"]
+
+
+def test_examples_and_tools_import_without_jax_or_the_jax_package():
+    """Every example of the port and its trace tool load as modules (their
+    ``main`` does not run) without JAX or the JAX package, and the spec
+    functions the dry run uses are where the reference keeps them."""
+    r = run_fresh(f"""
+        import importlib.util, sys
+        for path in {SCRIPTS!r}:
+            spec = importlib.util.spec_from_file_location(path.split("/")[-1][:-3], path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            assert callable(mod.main), path
+        from repro_torch.models import decode_input_specs, train_batch_specs
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        print("loaded", len({SCRIPTS!r}))
+    """)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "loaded 6" in r.stdout
+
+
+def test_scripts_without_device_need_a_card():
+    """Without ``--device`` an example (and the trace tool) runs on the card:
+    here, with no card, each stops with the card's error instead of running
+    on the CPU. (The topology planner computes nothing on a device.)"""
+    scripts = [s for s in SCRIPTS if "topology_planner" not in s]
+    r = run_fresh(f"""
+        import importlib.util, os, torch
+        for path in {scripts!r}:
+            spec = importlib.util.spec_from_file_location(path.split("/")[-1][:-3], path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            argv = ["--smoke", "--steps", "1", "--ckpt", os.devnull] if "train_lm" in path else []
+            try:
+                mod.main(argv)
+            except RuntimeError as e:
+                assert not torch.cuda.is_available() and "torch.cuda.is_available() is False" in str(e), e
+            else:
+                assert torch.cuda.is_available(), path + " ran without a card"
+        print("checked", len({scripts!r}))
+    """)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "checked 5" in r.stdout
+
+
 def test_sources_name_no_jax_import():
     import re
 
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [os.path.join(REPO, s) for s in SCRIPTS]
     for root, _, fs in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
