@@ -220,14 +220,15 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 beside its bound (every weight but ``embed`` read once),
                 kernels a tick, the idle share of a profiled chunk of 4 ticks,
                 init and peak bytes, the snapshot and recovery ms.
-13. ``encdec_vlm`` the encoder-decoder and VLM families, each whole at full
+13. ``encdec_vlm`` the encoder-decoder and VLM families, each at full
                 width on the emptied card with bf16 weights from the seed,
                 counted on their own: Whisper-base (``whisper-base``: 6
                 encoder and 6 decoder layers, d_model 512, 8 heads, d_ff 2048,
                 1,500 stub frames, vocab 51,865 padded to 51,968; 207 MB) and
-                InternVL2-26B (``internvl2-26b``: 48 layers, d_model 6144,
-                48/8 heads, d_ff 16,384, 256 stub patches, vocab 92,553
-                padded to 92,672; 39.7 GB). Neither has a one-pass prefill:
+                InternVL2-26B (``internvl2-26b``: 24 of its 48 layers since
+                PR 24, d_model 6144, 48/8 heads, d_ff 16,384, 256 stub
+                patches, vocab 92,553 padded to 92,672; 21.0 GB; 39.7 GB
+                whole). Neither has a one-pass prefill:
                 (a) ``launch/serve.py`` with its default engine falls back to
                 the fixed ``Engine`` (it must say so) and serves the serve
                 trace's first 4 prompts, 32 new tokens, max_len 512, greedy
@@ -269,7 +270,33 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 TB/s; (d) the one-card dry run of all 40 cells
                 (``launch.dryrun``, worker processes) and its roofline table,
                 within 60 s.
-15. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+15. ``mesh``     the sharding substrate (DTensor over a ``RankMesh``): one
+                spawned world of four ranks on ``cuda:0`` over the port's
+                staging backend (``dist.staging``: gloo on pinned host
+                copies) runs (a)-(d) while the parent computes the
+                one-process references: (a) Qwen3-1.7B whole (28 layers, bf16
+                weights from the seed, each rank keeping its shard) served by
+                ``ContinuousEngine(mesh=(data 2, model 2))`` under the
+                reference's decode preset with its ``opt`` profile, 4 slots,
+                max_len 1,024, over the serve trace's first 6 requests and
+                (b)'s two prompts, 16 new tokens, greedy: tokens equal on
+                every rank; against the one-process engine on the same
+                weights, the float32 smoke config's tokens equal and the
+                full-width logits of one prefill and one tick within phase
+                7's bf16 tolerances (greedy bf16 tokens may part on
+                near-ties); a tick's ms, its collectives (``CommDebugMode``)
+                and staged bytes; (b) ``launch/serve.py --mesh 2x2 --profile
+                opt`` on the two prompts: (a)'s tokens; (c) three float32
+                smoke train steps of ``make_train_step(mesh=)`` against the
+                CPU's at phase 8's tolerances, then ``launch/train.py --mesh
+                2x2`` at full width cut to 4 of 28 layers, 2 steps of 8 x
+                256, its checkpoint restored under its shardings and the
+                parameters resharded onto a 4 x 1 mesh, bit for bit against
+                the file; (d) ``pipeline_apply`` over four Qwen3-1.7B blocks
+                (one a rank, axis ``pipe``), 6 microbatches of (2, 256,
+                2048), against the blocks in sequence on one rank. The phase
+                holds itself within 150 s; no hand kernel runs in it.
+16. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
    MoE, MLA, SSM, encoder-decoder and VLM serve paths and the analysis
    phase, error, time, bound and plain time;
@@ -379,12 +406,13 @@ from repro_torch.obs import MetricsRegistry, Tracer, drift_rows, feed_calibratio
 from repro_torch.serve import coded as serve_coded  # noqa: E402
 from repro_torch.serve.coded import CodedServeGuard, FaultInjector  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
-from repro_torch.serve.scheduler import bucket_for  # noqa: E402
+from repro_torch.serve.scheduler import Request, bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.dist import pipeline_apply, stack_stage_params, staging  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.op_cost import count_fn  # noqa: E402
-from repro_torch.launch.profiles import BASELINE, profile_with, rules_for  # noqa: E402
+from repro_torch.launch.profiles import BASELINE, OPT, profile_with, rules_for  # noqa: E402
 from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS, model_flops, render_table  # noqa: E402
 from repro_torch.launch.roofline import load_all as roofline_load_all  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
@@ -402,7 +430,15 @@ from repro_torch.train import (  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.train.data import to_device  # noqa: E402
 from repro_torch.train.elastic import CodedStateGuard  # noqa: E402
-from repro_torch.train.train_loop import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.train.train_loop import (  # noqa: E402
+    batch_shardings,
+    make_decode_step,
+    make_prefill_step,
+    opt_state_shardings,
+    param_shardings,
+    place,
+)
+from torch.distributed.tensor import DTensor  # noqa: E402
 from repro_torch.topo import (  # noqa: E402
     FullyConnected,
     Hierarchy,
@@ -2228,6 +2264,20 @@ def train_small_vs_cpu(dev) -> dict:
         check(all(t.device.type == d.type for t in tree.leaves((p, st))), f"train/small: the {where} run left {d}")
         runs[where] = (p, st, losses, lrs)
     (cp, cs, cl, lrs), (gp, gs, gl, _) = runs["cpu"], runs["card"]
+    worst, tol = small_errors(gp, gs, gl, cp, cs, cl, lrs)
+    record = {"config": model.cfg.name, "dtype": "float32", "steps": SMALL_TRAIN_STEPS,
+              "batch": SMALL_TRAIN_BATCH, "seq": SMALL_TRAIN_SEQ, "tf32": False, "losses_cpu": cl,
+              "losses_card": gl, "max_err": worst, "tolerance": tol}
+    check(int(gs["step"]) == int(cs["step"]) == SMALL_TRAIN_STEPS
+          and all(worst[k] <= tol[k] for k in worst), f"train/small: the card and the CPU differ: {record}")
+    return record
+
+
+def small_errors(gp, gs, gl, cp, cs, cl, lrs) -> tuple[dict, dict]:
+    """The largest differences of a float32 smoke run's parameters, moments
+    and losses (``gp``, ``gs``, ``gl``) from the CPU's (``cp``, ``cs``,
+    ``cl``), and their tolerances (the ``SMALL_*`` constants; ``lrs`` the
+    run's learning rates)."""
     bound_p = 2 * sum(lrs) * SMALL_STEP_SLACK + SMALL_TIGHT
     worst = {"params": 0.0, "params_share_beyond_tight": 0.0, "moments_of_scale": 0.0,
              "loss": max(abs(a - b) for a, b in zip(cl, gl))}
@@ -2239,14 +2289,9 @@ def train_small_vs_cpu(dev) -> dict:
     for a, b in zip(tree.leaves((gs["m"], gs["v"])), tree.leaves((cs["m"], cs["v"]))):
         worst["moments_of_scale"] = max(worst["moments_of_scale"],
                                         float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)))
-    tol = {"params": bound_p, "params_share_beyond_tight": SMALL_FRACTION, "tight": SMALL_TIGHT,
-           "moments_of_scale": SMALL_MOMENT_SCALE, "loss": SMALL_LOSS_ATOL}
-    record = {"config": model.cfg.name, "dtype": "float32", "steps": SMALL_TRAIN_STEPS,
-              "batch": SMALL_TRAIN_BATCH, "seq": SMALL_TRAIN_SEQ, "tf32": False, "losses_cpu": cl,
-              "losses_card": gl, "max_err": worst, "tolerance": tol}
-    check(int(gs["step"]) == int(cs["step"]) == SMALL_TRAIN_STEPS
-          and all(worst[k] <= tol[k] for k in worst), f"train/small: the card and the CPU differ: {record}")
-    return record
+    tol = {"params": bound_p, "params_share_beyond_tight": SMALL_FRACTION, "moments_of_scale": SMALL_MOMENT_SCALE,
+           "loss": SMALL_LOSS_ATOL}
+    return worst, tol
 
 
 def train_resume(tcfg: dict, dev) -> dict:
@@ -3471,22 +3516,26 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 # ---------------------------------------------------------------------------
-# phase 13: the encoder-decoder and VLM families, Whisper-base and InternVL2-26B whole
+# phase 13: the encoder-decoder and VLM families, Whisper-base whole, InternVL2-26B at 24 of 48 layers
 # ---------------------------------------------------------------------------
 
 WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
-# both whole, at full width, bf16: the frontends are stubs (precomputed frame
-# and patch embeddings), so InternVL2's weights are InternLM2-20B's
-ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 39_725_445_120}
+# both at full width, bf16: the frontends are stubs (precomputed frame and
+# patch embeddings), so InternVL2's weights are InternLM2-20B's. Whisper is
+# whole; InternVL2 runs 24 of its 48 layers (PR 24, for time: phase mesh was
+# added; 39.7 GB whole, PR 22-23)
+VLM_LAYERS = 24
+ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 21_001_482_240}
 ORACLE_TOL = 0.2  # (c): tests/test_attention_oracle.py:57-85, decode against forward, rtol = atol
 ORACLE_ROWS, ORACLE_TOKENS = 2, 64
 VLM_FORWARD_TEXT = 256  # (c): one forward of n_patches (256) patches and this many text tokens
 
 
 def encvlm_config() -> dict:
-    """Phase 13's configuration: Whisper-base and InternVL2-26B whole (the
-    guard's state holds Whisper's ``enc_out``)."""
-    return refeed_config("encdec_vlm", ((arch, get(arch)) for arch in (WHISPER_ARCH, VLM_ARCH)))
+    """Phase 13's configuration: Whisper-base whole and InternVL2-26B at
+    VLM_LAYERS layers (the guard's state holds Whisper's ``enc_out``)."""
+    return refeed_config("encdec_vlm", ((WHISPER_ARCH, get(WHISPER_ARCH)),
+                                        (VLM_ARCH, get(VLM_ARCH).replace(n_layers=VLM_LAYERS))))
 
 
 def encvlm_serve(m: dict, runs_n: int, what: str) -> dict:
@@ -3500,14 +3549,14 @@ def encvlm_serve(m: dict, runs_n: int, what: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for _ in range(runs_n):
         del res
-        res, lines = launcher(m["arch"], m["prompts"])  # the default engine
+        res, lines = launcher(m["arch"], m["prompts"], "--layers", str(cfg.n_layers))  # the default engine
         check(lines[0] == f"{cfg.name}: no one-pass prefill; falling back to fixed-batch",
               f"{what}: the launcher did not fall back to the fixed engine: {lines[:2]}")
         runs.append(fixed_record(f"{what}/launcher", res, m["prompts"], get_registry(), cfg.vocab_size)
                     | {"printed": lines[:2]})
     check(launches() == before, f"{what}: the unguarded serve launched a hand kernel")
     check(len({r["sha256"] for r in runs}) == 1, f"{what}: two greedy runs gave other tokens")
-    return {"arch": cfg.name, "layers": f"{cfg.n_layers} of {cfg.n_layers} (whole)",
+    return {"arch": cfg.name, "layers": f"{cfg.n_layers} of {get(m['arch']).n_layers}",
             "prompt_lens": [len(p) for p in m["prompts"]], "max_len": SSM_MAX_LEN, "max_new": SERVE_MAX_NEW,
             "greedy": runs, "launcher_peak_bytes": torch.cuda.max_memory_allocated(), "want": res.tokens}
 
@@ -3630,9 +3679,10 @@ def encvlm_phase(ecfg: dict, dev) -> tuple[dict, dict]:
 
     m = ecfg["models"][VLM_ARCH]
     model, cfg = m["model"], m["model"].cfg
-    check(cfg.n_layers == 48 and cfg.d_model == 6144 and cfg.n_heads == 48 and cfg.n_kv_heads == 8
+    check(cfg.n_layers == VLM_LAYERS and cfg.d_model == 6144 and cfg.n_heads == 48 and cfg.n_kv_heads == 8
           and cfg.d_ff == 16384 and cfg.vocab_padded == 92672 and cfg.vlm.n_patches == 256
-          and model.body == ["dense"] and model.repeats == 48 and model.is_vlm, "vlm: not InternVL2-26B's width")
+          and model.body == ["dense"] and model.repeats == VLM_LAYERS and model.is_vlm,
+          "vlm: not InternVL2-26B's width")
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3882,6 +3932,520 @@ def analysis_phase(acfgs: list[dict], dev, served: dict, trained: dict, scfg: di
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharding substrate on a (data=2, model=2) mesh of four ranks
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_REQUESTS, MESH_MAX_NEW = 6, 16  # the serve trace's first requests, each with this budget
+# (b): the launcher's two prompts, served by (a)'s engine too, after the trace
+MESH_PROMPTS = ((3, 14, 15, 92, 65, 35), (89, 79, 32, 38, 46, 26, 43, 38, 32, 79))
+MESH_LAUNCHER_NEW = 4  # (b)'s budget: its tokens are the first of (a)'s for the same prompts
+MESH_BUCKETS = (32, 64, 128, 256, 512)  # the launcher's buckets (scheduler.DEFAULT_BUCKETS) and 512
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2  # (c): launch/train.py at full width, 4 of 28 layers
+PIPE_MICRO, PIPE_MB = 6, (2, 256, 2048)  # (d): microbatches of one Qwen3-1.7B block's input
+# (d): the pipeline applies the same kernels to the same microbatches as the
+# blocks in sequence on one rank; held within one bf16 ulp of the largest output
+PIPE_TOL = 2.0 ** -7
+# (a): the full-width logits of one prefill and one tick over the vocabulary,
+# mesh against one process: bf16 sums in another order (partial products over
+# the model axis, split-KV), held as phase 7 holds bf16 prefill against
+# refeed: the rms error within REFEED_RMS_TOL of the rms, the largest error
+# within REFEED_MAX_TOL of the largest logit
+MESH_TIMEOUT_S = 300  # a rank's wait for its peers (the group's timeout)
+MESH_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
+MESH_PHASE_S = 150  # what the phase may take
+
+
+def mesh_config() -> dict:
+    """Phase ``mesh``'s configuration, handed to every rank: the served
+    model (Qwen3-1.7B whole), the pipeline's block config, max_len and the
+    prefill buckets of (a), the serve trace's prompt mix, the pipeline's microbatch and the launchers'
+    extra flags."""
+    return {"serve": get(SERVE_ARCH), "pipe": get(TRAIN_ARCH), "max_len": SERVE_POSITIONS, "buckets": MESH_BUCKETS,
+            "mix": SERVE_MIX, "pipe_mb": PIPE_MB, "launcher_extra": []}
+
+
+def mesh_requests(mcfg: dict) -> list:
+    """The serve trace's first MESH_REQUESTS requests, each with budget
+    MESH_MAX_NEW, then (b)'s prompts (ids ``cli-i``, the launcher's), which
+    arrive after them."""
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=mcfg["mix"], max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=mcfg["serve"].vocab_size, seed=SEED + 1001)[:MESH_REQUESTS]
+    late = trace[-1].arrival_s + 1e-3
+    return ([dataclasses.replace(r, max_new_tokens=MESH_MAX_NEW) for r in trace]
+            + [Request(id=f"cli-{i}", prompt=list(p), max_new_tokens=MESH_MAX_NEW, arrival_s=late)
+               for i, p in enumerate(MESH_PROMPTS)])
+
+
+def mesh_small_requests() -> list:
+    """The reference's staggered trace (tests/test_serve.py:298-332)."""
+    prompts = [[5, 9, 2, 7, 1], [3, 3, 8], [11, 4, 6, 2, 9, 10, 1], [2], [7, 5, 5, 5, 1, 2]]
+    return [Request(id=f"r{i}", prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+
+
+def mesh_rules(cfg, max_len: int):
+    """(a)'s rules: the reference's decode preset under its ``opt`` profile,
+    which keeps a model of at most 8B parameters off FSDP (``d_model``
+    whole): the launcher's with ``--profile opt``."""
+    return rules_for(cfg, ShapeSpec("mesh", "decode", max_len, SERVE_SLOTS), OPT)
+
+
+def mesh_engine(model, params, mcfg: dict, mesh=None, rules=None):
+    """(a)'s engine; traced, so that its decode chunks are timed."""
+    return ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=mcfg["max_len"], buckets=mcfg["buckets"],
+                            max_new_tokens=MESH_MAX_NEW, mesh=mesh, rules=rules, metrics=MetricsRegistry(),
+                            tracer=Tracer())
+
+
+def logits_probe(model, params, req, max_len: int, buckets, mesh, rules) -> dict:
+    """One prefill of ``req`` into slot 0 and one tick of all slots: both
+    logits, whole (float32 numpy)."""
+    from repro_torch.serve.engine import _init_cache
+
+    cache = _init_cache(model, SERVE_SLOTS, max_len, tree.leaves(params)[0].device, mesh, rules)
+    pf = make_prefill_step(model, into_cache=True, rules=rules, mesh=mesh)
+    dec = make_decode_step(model, rules, mesh=mesh)
+    dev = tree.leaves(params)[0].device
+    bucket = bucket_for(len(req.prompt), buckets)
+    toks = torch.zeros((1, bucket), dtype=torch.int32)
+    toks[0, :len(req.prompt)] = torch.tensor(req.prompt, dtype=torch.int32)
+    last, cache = pf(params, cache, toks.to(dev), 0, len(req.prompt))
+    last = whole(last)
+    tok = torch.argmax(last[:, :model.cfg.vocab_size], dim=-1).to(torch.int32)
+    step_toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    step_toks[0, 0] = tok[0]
+    pos = torch.zeros((SERVE_SLOTS,), dtype=torch.int32, device=dev)
+    pos[0] = len(req.prompt)
+    lg, cache = dec(params, cache, step_toks, pos)
+    V = model.cfg.vocab_size
+    return {"prefill": last[0, :V].float().cpu().numpy(), "tick": whole(lg)[0, 0, :V].float().cpu().numpy(),
+            "cache": cache, "step": (dec, step_toks, pos)}
+
+
+def whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def local_bytes(params) -> int:
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel() * t.element_size()
+               for t in tree.leaves(params))
+
+
+def mesh_serve(rank: int, dev, mcfg: dict) -> dict:
+    """(a) on a rank: Qwen3-1.7B whole, the full weights drawn from the seed
+    and each rank's shard kept; the engine over the trace and (b)'s prompts,
+    its decode chunks timed; one prefill's and one tick's logits, and the
+    collectives and staged bytes of a tick; the float32 smoke config over
+    the reference's staggered trace."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    rules = mesh_rules(cfg, max_len)
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    eng = mesh_engine(model, params, mcfg, mesh, rules)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    held = local_bytes(eng.params)
+    rep = eng.serve(mesh_requests(mcfg), greedy=True, sync_every=SERVE_SYNC)
+    hist = eng._registry().snapshot()
+    probe = logits_probe(model, eng.params, mesh_requests(mcfg)[0], max_len, mcfg["buckets"], mesh, rules)
+    dec, step_toks, pos = probe.pop("step")
+    cache = probe.pop("cache")
+    staging.reset_counts()
+    sync(dev)
+    t = time.perf_counter()
+    with CommDebugMode() as cdm:
+        dec(eng.params, cache, step_toks, pos)
+    sync(dev)
+    counted_tick_ms = (time.perf_counter() - t) * 1e3
+    comm = {str(k): int(v) for k, v in cdm.get_comm_counts().items()}
+    staged = {"bytes": staging.staged_bytes(), "calls": staging.staged_calls()}
+    del cache
+    out = {"tokens": tokens_of(rep), "tokens_per_s": rep.tokens_per_s, "decode_steps": rep.decode_steps,
+           "wall_s": rep.wall_s, "ttft_ms": rep.ttft_ms,
+           "tick_ms": hist["serve.decode_chunk_us"]["p50"] / SERVE_SYNC / 1e3,
+           "prefill_ms": {"p50": hist["serve.prefill_us"]["p50"] / 1e3, "max": hist["serve.prefill_us"]["max"] / 1e3},
+           "counted_tick_ms": counted_tick_ms, "tick_collectives": comm, "tick_staged": staged, "init_s": init_s,
+           "held_bytes": held, "peak_bytes": peak(dev),
+           "param_placements": {k: str(tuple(v.placements)) for k, v in
+                                tree.flatten_with_names(eng.params["body"]["b0"]).items()}}
+    if rank == 0:
+        out["probe"] = probe
+    del eng
+    small = build_model(smoke_config(SERVE_ARCH).replace(dtype="float32", n_layers=2))
+    sp = small.init(torch.Generator().manual_seed(SEED + 1300))
+    seng = ContinuousEngine(small, sp, n_slots=4, max_len=32, buckets=(8, 16), max_new_tokens=8, mesh=mesh,
+                            rules=rules_for(small.cfg, ShapeSpec("serve-test", "decode", 32, 4), BASELINE),
+                            metrics=MetricsRegistry())
+    out["small_tokens"] = tokens_of(seng.serve(mesh_small_requests(), greedy=True, sync_every=2))
+    return out
+
+
+def mesh_launcher(dev, mcfg: dict) -> dict:
+    """(b) on a rank: ``launch/serve.py --mesh 2x2`` over MESH_PROMPTS in
+    this world (rank 0 prints)."""
+    argv = ["--arch", SERVE_ARCH, "--mesh", "2x2", "--max-new", str(MESH_LAUNCHER_NEW), "--max-len",
+            str(mcfg["max_len"]), "--profile", "opt", "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS),
+            *mcfg["launcher_extra"]]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rep = serve_main(argv)
+    return {"tokens": tokens_of(rep), "printed": out.getvalue().splitlines()}
+
+
+def mesh_train_small(rank: int, dev) -> dict:
+    """(c) on a rank: the float32 smoke config, SMALL_TRAIN_STEPS steps of
+    ``make_train_step(mesh=)`` from train_small_vs_cpu's parameters and
+    batches; rank 0 returns the whole state."""
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    model = build_model(smoke_config(TRAIN_ARCH).replace(dtype="float32"))
+    rules = rules_for(model.cfg, ShapeSpec("mesh", "train", SMALL_TRAIN_SEQ, SMALL_TRAIN_BATCH), BASELINE)
+    p = model.init(torch.Generator().manual_seed(SEED + 1100))
+    st = init_state(RESUME_OPT, p)
+    p, st = place((p, st), (param_shardings(model, mesh, rules), opt_state_shardings(RESUME_OPT, model, mesh, rules)))
+    bsh = batch_shardings(model, mesh, rules)
+    step = make_train_step(model, RESUME_OPT, rules=rules, mesh=mesh)
+    ds = SyntheticLM(model.cfg)
+    losses, lrs = [], []
+    for s in range(SMALL_TRAIN_STEPS):
+        b = ds.batch(s, SMALL_TRAIN_BATCH, SMALL_TRAIN_SEQ)
+        p, st, m = step(p, st, place(to_device(b, dev), {k: bsh[k] for k in b}))
+        losses.append(float(whole(m["loss"])))
+        lrs.append(float(whole(m["lr"])))
+    on_mesh = all(isinstance(t, DTensor) and t.device.type == dev.type for t in tree.leaves((p, st["m"], st["v"])))
+    full = tree.map(lambda t: whole(t).cpu(), (p, st))
+    return {"losses": losses, "lrs": lrs, "on_mesh": on_mesh, **({"state": full} if rank == 0 else {})}
+
+
+def mesh_train_full(rank: int, dev, ckpt: str, mcfg: dict) -> dict:
+    """(c) on a rank: ``launch/train.py --mesh 2x2`` at full width, cut to
+    MESH_TRAIN_LAYERS layers, MESH_TRAIN_STEPS steps of 8 x 256, its
+    checkpoint in ``ckpt``; then the checkpoint restored under the same
+    shardings and the parameters resharded onto a 4 x 1 mesh, each rank's
+    blocks held bit for bit against the file."""
+    from repro_torch.train.checkpoint import _to_torch
+
+    reset_peak(dev)
+    argv = ["--arch", TRAIN_ARCH, "--mesh", "2x2", "--layers", str(MESH_TRAIN_LAYERS), "--steps",
+            str(MESH_TRAIN_STEPS), "--batch", "8", "--seq", "256", "--coded-every", "0", "--ckpt", ckpt,
+            *mcfg["launcher_extra"]]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run = train_main(argv)
+    sync(dev)
+    rec = {"history": run["history"], "seconds": run["seconds"], "peak_bytes": peak(dev),
+           "held_bytes": local_bytes(run["state"])}
+    model, rules, state = run["model"], run["rules"], run["state"]
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    like = {"params": model.param_specs(), "opt": state_specs(run["opt_cfg"], model.param_specs())}
+    shardings = {"params": param_shardings(model, mesh, rules), "opt": opt_state_shardings(run["opt_cfg"], model,
+                                                                                          mesh, rules)}
+    t0 = time.perf_counter()
+    restored, step = restore_checkpoint(ckpt, like, shardings=shardings)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restored_step"] = step
+    rec["restored_equal"] = all(tuple(a.placements) == tuple(b.placements) and same(a.to_local(), b.to_local())
+                                for a, b in zip(tree.leaves(restored), tree.leaves(state)))
+    del restored
+    mesh41 = make_mesh((4, 1), MESH_AXES, device=dev)
+    t0 = time.perf_counter()
+    moved = elastic.reshard_state(state["params"], param_shardings(model, mesh41, rules))
+    sync(dev)
+    rec["reshard_s"] = time.perf_counter() - t0
+    names = list(tree.flatten_with_names({"params": like["params"]}))
+    equal, sharded = True, 0
+    with np.load(os.path.join(ckpt, f"state_{step:08d}.npz")) as data:
+        for name, t in zip(names, tree.leaves(moved)):
+            full = _to_torch(data[name], t.dtype)
+            off = model_layers._local_offsets(t)
+            loc = t.to_local()
+            block = full[tuple(slice(o, o + n) for o, n in zip(off, loc.shape))]
+            equal &= same(loc.cpu(), block)
+            sharded += any(pl.is_shard() for pl in t.placements)
+    rec["reshard_equal"], rec["resharded_leaves"] = equal, sharded
+    rec["printed"] = out.getvalue().splitlines()[-3:]
+    return rec
+
+
+def mesh_pipeline(rank: int, dev, mcfg: dict) -> dict:
+    """(d) on a rank: ``pipeline_apply`` of four Qwen3-1.7B decoder blocks,
+    one a rank on the axis ``pipe``, over PIPE_MICRO microbatches; rank 0
+    also applies the blocks in sequence."""
+    from repro_torch.models.model import _KINDS
+
+    mesh = make_mesh((4,), ("pipe",), device=dev)
+    cfg = mcfg["pipe"]
+    dense = _KINDS["dense"]
+    blocks = [dense["init"](torch.Generator(device=dev).manual_seed(SEED + 1400 + i), cfg, torch.bfloat16)
+              for i in range(4)]
+    x = (torch.randn((PIPE_MICRO, *mcfg["pipe_mb"]), generator=torch.Generator().manual_seed(SEED + 1410))
+         .to(torch.bfloat16).to(dev))
+
+    def stage(p, mb):
+        return dense["fwd"](p, mb, cfg, model_layers.NO_CTX, 0.0)[0]
+
+    stacked = stack_stage_params(blocks)
+    sync(dev)
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage, stacked, x, mesh=mesh, axis="pipe")
+    sync(dev)
+    rec = {"ms": (time.perf_counter() - t0) * 1e3, "shape": list(out.shape)}
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref = []
+        for i in range(PIPE_MICRO):
+            y = x[i]
+            for b in blocks:
+                y = stage(b, y)
+            ref.append(y)
+        ref = torch.stack(ref)
+        sync(dev)
+        rec["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["max_abs_err"] = float((out.float() - ref.float()).abs().max())
+        rec["max_abs_ref"] = float(ref.float().abs().max())
+        rec["bit_equal"] = same(out, ref)
+        rec["finite"] = bool(torch.isfinite(out.float()).all())
+    return rec
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def mesh_worker(rank: int, world: int, init: str, ckpt: str, mcfg: dict, go, out, device_type: str):
+    """A rank of phase ``mesh``: joins the world (the port's staging backend
+    on the card, gloo on the CPU), says it is ready, waits for the parent's
+    go and runs (a)-(d), sending each part's result. Any error is sent to
+    the parent, which fails the run."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank lives on this host
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+        dev = torch.device("cpu")
+        backend = "gloo"
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+            staging.register()
+            backend = staging.BACKEND
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        torch.zeros(1, device=dev)
+        out.put(("ready", rank, None, None))
+        if not go.wait(MESH_DEADLINE_S):
+            raise TimeoutError("the parent never said go")
+        for part, fn in (("serve", lambda: mesh_serve(rank, dev, mcfg)), ("launcher", lambda: mesh_launcher(dev, mcfg)),
+                         ("train_small", lambda: mesh_train_small(rank, dev)),
+                         ("train_full", lambda: mesh_train_full(rank, dev, ckpt, mcfg)),
+                         ("pipeline", lambda: mesh_pipeline(rank, dev, mcfg))):
+            t0 = time.perf_counter()
+            res = fn()
+            res["seconds"] = time.perf_counter() - t0
+            out.put(("ok", rank, part, res))
+            if dev.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out.put(("done", rank, None, None))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("error", rank, None, traceback.format_exc()))
+
+
+def mesh_reference(dev, mcfg: dict) -> dict:
+    """The parent's side: the one-process engine on the same weights and
+    requests, on the card ((a), (b)), one prefill's and one tick's logits,
+    the float32 smoke config's tokens, and the float32 smoke train run on
+    the CPU ((c))."""
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    eng = mesh_engine(model, params, mcfg)
+    ref = {"tokens": tokens_of(eng.serve(mesh_requests(mcfg), greedy=True, sync_every=SERVE_SYNC))}
+    probe = logits_probe(model, params, mesh_requests(mcfg)[0], max_len, mcfg["buckets"], None, None)
+    ref["probe"] = {k: probe[k] for k in ("prefill", "tick")}
+    del eng, params, probe
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    small = build_model(smoke_config(SERVE_ARCH).replace(dtype="float32", n_layers=2))
+    sp = tree.map(lambda t: t.to(dev), small.init(torch.Generator().manual_seed(SEED + 1300)))
+    seng = ContinuousEngine(small, sp, n_slots=2, max_len=32, buckets=(8, 16), max_new_tokens=8,
+                            metrics=MetricsRegistry())
+    ref["small_tokens"] = tokens_of(seng.serve(mesh_small_requests(), greedy=True, sync_every=3))
+    tmodel = build_model(smoke_config(TRAIN_ARCH).replace(dtype="float32"))
+    p = tmodel.init(torch.Generator().manual_seed(SEED + 1100))
+    st = init_state(RESUME_OPT, p)
+    step = make_train_step(tmodel, RESUME_OPT)
+    ds = SyntheticLM(tmodel.cfg)
+    losses, lrs = [], []
+    for s in range(SMALL_TRAIN_STEPS):
+        p, st, m = step(p, st, to_device(ds.batch(s, SMALL_TRAIN_BATCH, SMALL_TRAIN_SEQ), "cpu"))
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    ref["train_small"] = {"state": (p, st), "losses": losses, "lrs": lrs}
+    return ref
+
+
+def mesh_phase(mcfg: dict, dev) -> dict:
+    """Phase ``mesh``: one spawned world of four ranks on the card runs
+    (a)-(d) while the parent computes the one-process references; every
+    check is the parent's. Returns the phase's record."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = math.prod(MESH_SHAPE)
+    ctx = mp.get_context("spawn")  # the parent has initialised CUDA: no fork
+    tmp = tempfile.TemporaryDirectory()
+    go, out = ctx.Event(), ctx.Queue()
+    init = "file://" + os.path.join(tmp.name, "store")
+    ckpt = os.path.join(tmp.name, "ckpt")
+    procs = [ctx.Process(target=mesh_worker, args=(r, world, init, ckpt, mcfg, go, out, dev.type), daemon=True)
+             for r in range(world)]
+    results: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        t_ref = time.perf_counter()
+        ref = mesh_reference(dev, mcfg)
+        ref_s = time.perf_counter() - t_ref
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        go.set()
+        want, got, deadline = world * 7, 0, time.monotonic() + MESH_DEADLINE_S  # ready, 5 parts, done
+        while got < want:
+            try:
+                status, rank, part, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                check(not dead, f"mesh: rank(s) {dead} died (exit codes {[procs[r].exitcode for r in dead]})")
+                check(time.monotonic() < deadline, f"mesh: the ranks did not finish within {MESH_DEADLINE_S} s")
+                continue
+            check(status != "error", f"mesh: rank {rank} raised:\n{value}")
+            got += 1
+            if status == "ok":
+                results.setdefault(part, {})[rank] = value
+                if rank == 0:  # progress, on the error stream
+                    nums = {k: v for k, v in value.items() if isinstance(v, (int, float, dict)) and "tokens" not in k
+                            and k not in ("probe", "state", "param_placements")}
+                    print(f"chip_smoke: mesh/{part} done on rank 0 in {value['seconds']:.1f} s, "
+                          f"{time.perf_counter() - t0:.1f} s into the phase: {json.dumps(nums, default=str)[:1500]}",
+                          file=sys.stderr, flush=True)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t0
+    ranks = range(world)
+
+    # (a) serving
+    sv = results["serve"]
+    toks = [sv[r]["tokens"] for r in ranks]
+    check(all(t == toks[0] for t in toks), "mesh/serve: the ranks' tokens differ")
+    equal_one = toks[0] == ref["tokens"]
+    small_equal = all(sv[r]["small_tokens"] == ref["small_tokens"] for r in ranks)
+    check(small_equal, "mesh/serve: the float32 smoke config's tokens differ from the one-process engine's")
+    pr, rp = sv[0]["probe"], ref["probe"]
+    lerr = {k: {"rms_of_rms": float(np.sqrt(np.mean((pr[k] - rp[k]) ** 2)) / np.sqrt(np.mean(rp[k] ** 2))),
+                "max_of_max": float(np.abs(pr[k] - rp[k]).max() / np.abs(rp[k]).max()),
+                "argmax_equal": bool(pr[k].argmax() == rp[k].argmax())} for k in ("prefill", "tick")}
+    check(all(v["rms_of_rms"] <= REFEED_RMS_TOL and v["max_of_max"] <= REFEED_MAX_TOL for v in lerr.values()),
+          f"mesh/serve: the full-width logits differ from one process's: {lerr}")
+    n_same = sum(x == y for k in toks[0] for x, y in zip(toks[0][k], ref["tokens"][k]))
+    serve_rec = {
+        "arch": SERVE_ARCH, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "slots": SERVE_SLOTS,
+        "max_len": mcfg["max_len"], "buckets": mcfg["buckets"], "requests": MESH_REQUESTS + len(MESH_PROMPTS),
+        "max_new": MESH_MAX_NEW,
+        "tokens_equal_across_ranks": True, "tokens_equal_one_process": equal_one,
+        "tokens_first_divergence": None if equal_one else first_divergence(toks[0], ref["tokens"]),
+        "tokens_same_one_process": [n_same, sum(len(v) for v in toks[0].values())],
+        "small_float32_tokens_equal": small_equal, "logits_err": lerr,
+        "logits_tolerance": {"rms_of_rms": REFEED_RMS_TOL, "max_of_max": REFEED_MAX_TOL},
+        "tokens_per_s": [sv[r]["tokens_per_s"] for r in ranks], "decode_steps": sv[0]["decode_steps"],
+        "wall_s": sv[0]["wall_s"], "ttft_ms": sv[0]["ttft_ms"], "tick_ms": [sv[r]["tick_ms"] for r in ranks],
+        "prefill_ms": sv[0]["prefill_ms"], "counted_tick_ms": sv[0]["counted_tick_ms"],
+        "tick_collectives": sv[0]["tick_collectives"], "tick_staged": sv[0]["tick_staged"],
+        "init_s": [sv[r]["init_s"] for r in ranks], "held_bytes": [sv[r]["held_bytes"] for r in ranks],
+        "peak_bytes": [sv[r]["peak_bytes"] for r in ranks], "b0_placements": sv[0]["param_placements"],
+        "seconds": [sv[r]["seconds"] for r in ranks]}
+
+    # (b) the launcher: its tokens are the first MESH_LAUNCHER_NEW of (a)'s for its prompts
+    ln = results["launcher"]
+    cut = {k: v[:len(MESH_PROMPTS[int(k[4:])]) + MESH_LAUNCHER_NEW] for k, v in toks[0].items() if k.startswith("cli-")}
+    check(all(ln[r]["tokens"] == cut for r in ranks),
+          f"mesh/launcher: launch/serve.py --mesh 2x2 gives other tokens than (a)'s engine: {ln[0]['tokens']} {cut}")
+    check(any("cli-0" in line for line in ln[0]["printed"]) and not any(ln[r]["printed"] for r in ranks if r),
+          "mesh/launcher: rank 0 alone must print the sequences")
+    launcher_rec = {"tokens_equal_engine": True, "max_new": MESH_LAUNCHER_NEW, "printed": ln[0]["printed"],
+                    "seconds": [ln[r]["seconds"] for r in ranks]}
+
+    # (c) training
+    ts = results["train_small"]
+    cp, cs = ref["train_small"]["state"]
+    gp, gs = ts[0]["state"]
+    check(all(ts[r]["on_mesh"] for r in ranks), "mesh/train: the state left the mesh")
+    check(all(ts[r]["losses"] == ts[0]["losses"] for r in ranks), "mesh/train: the ranks' losses differ")
+    worst, tol = small_errors(gp, gs, ts[0]["losses"], cp, cs, ref["train_small"]["losses"], ref["train_small"]["lrs"])
+    check(int(gs["step"]) == SMALL_TRAIN_STEPS and all(worst[k] <= tol[k] for k in worst),
+          f"mesh/train: the 2x2 step and the CPU's differ: {worst} against {tol}")
+    tf = results["train_full"]
+    check(all(tf[r]["restored_equal"] and tf[r]["reshard_equal"] for r in ranks),
+          "mesh/train: the restored or resharded state is not bit-equal to the checkpoint")
+    check(all(tf[r]["restored_step"] == MESH_TRAIN_STEPS for r in ranks), "mesh/train: restored the wrong step")
+    losses = [h["loss"] for h in tf[0]["history"]]
+    check(all(math.isfinite(v) for v in losses), f"mesh/train: full-width losses not finite: {losses}")
+    hist = tf[0]["history"]
+    train_rec = {"small": {"config": "qwen3-1.7b smoke, float32", "losses_mesh": ts[0]["losses"],
+                           "losses_cpu": ref["train_small"]["losses"], "max_err": worst, "tolerance": tol,
+                           "seconds": ts[0]["seconds"]},
+                 "full": {"layers": MESH_TRAIN_LAYERS, "steps": MESH_TRAIN_STEPS, "batch": [8, 256],
+                          "losses": losses, "step_ms": [(b["s"] - a) * 1e3 for a, b in
+                                                        zip([0.0] + [h["s"] for h in hist[:-1]], hist)],
+                          "peak_bytes": [tf[r]["peak_bytes"] for r in ranks],
+                          "held_bytes": [tf[r]["held_bytes"] for r in ranks],
+                          "restore_s": tf[0]["restore_s"], "reshard_s": tf[0]["reshard_s"],
+                          "restore_bit_equal": True, "reshard_4x1_bit_equal": True,
+                          "resharded_leaves": tf[0]["resharded_leaves"], "seconds": tf[0]["seconds"]}}
+
+    # (d) the pipeline
+    pl = results["pipeline"][0]
+    check(pl["finite"] and pl["max_abs_err"] <= PIPE_TOL * pl["max_abs_ref"],
+          f"mesh/pipeline: GPipe differs from the blocks in sequence by {pl['max_abs_err']}")
+    pipe_rec = {**pl, "stages": 4, "microbatches": PIPE_MICRO, "microbatch": list(PIPE_MB),
+                "tolerance_of_largest": PIPE_TOL}
+    check(phase_s <= MESH_PHASE_S, f"mesh: the phase took {phase_s:.1f} s, over {MESH_PHASE_S} s")
+    return {"serve": serve_rec, "launcher": launcher_rec, "train": train_rec, "pipeline": pipe_rec,
+            "reference_s": ref_s, "seconds": phase_s}
+
+
+def first_divergence(a: dict, b: dict):
+    """(request, index) of the first token where two runs' tokens part."""
+    for k in sorted(a):
+        for i, (x, y) in enumerate(zip(a[k], b.get(k, ()))):
+            if x != y:
+                return [k, i]
+    return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -4010,13 +4574,18 @@ def main() -> int:
     ssm_launches, ssmd = ssm_phase(ssm_cfg, dev)
     say("ssm", card=smi, **ssmd)
 
-    # phase 13: the encoder-decoder and VLM families, Whisper-base and InternVL2-26B whole, each on an emptied card
+    # phase 13: the encoder-decoder and VLM families, Whisper-base whole and InternVL2-26B at 24 layers, each on an emptied card
     encvlm_launches, encvlmd = encvlm_phase(encvlm_cfg, dev)
     say("encdec_vlm", card=smi, **encvlmd)
 
     # phase 14: the examples and trace_encode on the card, counted on their own; the roofline shares; the dry run
     analysis_launches, analysisd = analysis_phase(analysis_cfgs, dev, served, trained, serve_cfg, smi)
     say("analysis", card=smi, **analysisd)
+
+    # phase 15: the sharding substrate, Qwen3-1.7B served and trained on a 2x2 mesh of four ranks on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("mesh", card=smi, **mesh_phase(mesh_config(), dev))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

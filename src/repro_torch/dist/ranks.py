@@ -100,9 +100,10 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def gloo_exchange(payload, send_to, recv_from, shape, *, group, tag: int, device):
+def gloo_exchange(payload, send_to, recv_from, shape, *, group, tag: int, device, dtype=torch.int32):
     """One port group on this rank, over gloo: send ``payload`` to the global
-    rank ``send_to`` and receive a ``shape`` tensor from ``recv_from`` in ONE
+    rank ``send_to`` and receive a ``shape`` tensor of ``dtype`` (residues'
+    ``int32`` bit patterns by default) from ``recv_from`` in ONE
     ``batch_isend_irecv`` (either may be ``None``; when both are this rank's
     own, the pair is a local copy and nothing is sent). Returns the received
     tensor on ``device`` (``None`` when nothing was received). On a CUDA
@@ -115,7 +116,7 @@ def gloo_exchange(payload, send_to, recv_from, shape, *, group, tag: int, device
         ops.append(dist.P2POp(dist.isend, _to_host(payload), send_to, group, tag))
     inbox = None
     if recv_from is not None:
-        inbox = torch.empty(shape, dtype=torch.int32, pin_memory=device.type == "cuda")
+        inbox = torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
         ops.append(dist.P2POp(dist.irecv, inbox, recv_from, group, tag))
     if ops:
         for work in dist.batch_isend_irecv(ops):

@@ -23,17 +23,31 @@ device the flags are all that the model reads (``models.layers.Ctx.flag``).
 
 A spec is a plain tuple, one entry a dim: ``None`` (replicated), an axis
 name, or a tuple of axis names — what ``tuple(PartitionSpec(...))`` is in
-the reference. Placing arrays by a spec (``named_sharding``, ``constrain``)
-waits for the device half of the sharding substrate (ROADMAP.md queue A3).
+the reference.
+
+The device half places tensors by a spec on the ranks of a
+:class:`~repro_torch.launch.mesh.RankMesh` as DTensors
+(``torch.distributed.tensor``, PyTorch's form of GSPMD) over the mesh's
+``DeviceMesh``. :func:`named_sharding` lowers a spec to DTensor placements,
+one a mesh dim: a tensor dim that names an axis is ``Shard(dim)`` on that
+axis's mesh dim, every other mesh dim ``Replicate()``. A spec entry that
+names several axes (``("pod", "data")``) shards its dim over each of them;
+DTensor lays such a dim out in the mesh's axis order, so a rank's block can
+differ from the reference's where a spec names the axes out of mesh order
+(the full tensor is the same). :func:`constrain` is the reference's
+``with_sharding_constraint``: a ``redistribute`` of a DTensor.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Sequence
+import dataclasses
+from typing import Any, Iterable, Mapping, Sequence
 
-__all__ = ["ShardingRules", "spec_for", "named_sharding", "constrain", "DEFAULT_RULES"]
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-_DEVICE_HALF = "ROADMAP.md queue A3 (the device half of the sharding substrate)"
+__all__ = ["ShardingRules", "NamedSharding", "spec_for", "spec_of", "placements_for", "named_sharding", "constrain",
+           "DEFAULT_RULES"]
 
 
 # Default logical→mesh-axis mapping: FSDP-flavored presets over the
@@ -63,6 +77,13 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "conv": (),
     "enc_out": (),
 }
+
+
+def is_dims(x) -> bool:
+    """A leaf of a logical-dims tree: a tuple of names and ``None``s (the
+    reference's ``is_leaf``); a tuple of such tuples (a Mamba state's dims)
+    is a container."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
 
 
 def _normalize(axes) -> tuple[str, ...]:
@@ -179,14 +200,95 @@ def spec_for(mesh, rules: ShardingRules | None, dims, shape=None) -> tuple:
     return tuple(entries)
 
 
-def named_sharding(mesh, rules: ShardingRules | None, dims, shape=None):
-    """Placing an array by its spec across devices: not ported (one card
-    holds every array whole)."""
-    raise NotImplementedError(f"named_sharding waits for {_DEVICE_HALF}")
+def placements_for(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``'s dims: ``Shard(i)`` on the
+    mesh dim of every axis that tensor dim ``i`` names, ``Replicate()`` on
+    the rest."""
+    out: list = [Replicate()] * len(mesh.axis_names)
+    for i, entry in enumerate(spec):
+        for ax in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+            out[mesh.axis_names.index(ax)] = Shard(i)
+    return tuple(out)
+
+
+def spec_of(t: DTensor, mesh) -> tuple:
+    """The spec of a DTensor's placements on ``mesh`` (the inverse of
+    :func:`placements_for`)."""
+    entries: list[list[str]] = [[] for _ in range(t.ndim)]
+    for ax, pl in zip(mesh.axis_names, t.placements):
+        if isinstance(pl, Shard):
+            entries[pl.dim].append(ax)
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e) for e in entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh of ranks (the reference's
+    ``jax.sharding.NamedSharding``): ``spec`` as :func:`spec_for` gives it,
+    ``placements`` the DTensor placements it lowers to."""
+
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.mesh, self.spec)
+
+    def place(self, t: torch.Tensor):
+        """``t`` as a DTensor under this sharding, on the mesh's device.
+
+        A plain tensor is the full tensor, the same on every rank (drawn
+        from one seed): each rank keeps its own block, and nothing is sent
+        (``src_data_rank=None``). A DTensor of this mesh is redistributed;
+        one of another mesh of the same group goes through its full
+        tensor."""
+        if isinstance(t, DTensor):
+            if t.device_mesh == self.mesh.device_mesh:
+                pl = self.placements
+                return t if tuple(t.placements) == pl else t.redistribute(self.mesh.device_mesh, pl)
+            t = t.full_tensor()
+        return distribute_tensor(t.to(self.mesh.device), self.mesh.device_mesh, self.placements, src_data_rank=None)
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves with no pending partial sum: a
+    partial gradient summed with a split one would need a split-to-partial
+    redistribution, which DTensor refuses (torch 2.11)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and any(p.is_partial() for p in g.placements):
+            g = g.redistribute(g.device_mesh, [Replicate() if p.is_partial() else p for p in g.placements])
+        return g
+
+
+def whole_grad(x):
+    """``x`` (a DTensor that takes part in a gradient) with its gradient's
+    pending sums completed on the way back; anything else as it is."""
+    return _WholeGrad.apply(x) if isinstance(x, DTensor) and x.requires_grad else x
+
+
+def named_sharding(mesh, rules: ShardingRules | None, dims, shape=None) -> NamedSharding:
+    """The :class:`NamedSharding` of a logical dims-tuple (see
+    :func:`spec_for`)."""
+    return NamedSharding(mesh, spec_for(mesh, rules, dims, shape))
 
 
 def constrain(x, mesh, rules: ShardingRules | None, dims):
-    """A sharding constraint on an array across devices: not ported (one
-    card holds every array whole; ``models.layers.Ctx.cons`` is the
-    identity there)."""
-    raise NotImplementedError(f"constrain waits for {_DEVICE_HALF}")
+    """The reference's ``with_sharding_constraint`` against the logical dims
+    of ``x``: a DTensor is redistributed to the placements of its dims on
+    ``mesh``. Its own shape drives the divisibility check, so a constraint
+    never fails for a shape — worst case it replicates. A plain tensor, and
+    any tensor on a mesh of one rank, is returned as it is."""
+    if not isinstance(x, DTensor) or mesh is None or mesh.device_mesh.size() == 1:
+        return x
+    if any(p.is_partial() for p in x.placements):
+        # a pending sum is completed first: the gradient of a partial sum
+        # reduced straight into a split dim would be a split-to-partial
+        # redistribution, which DTensor refuses (torch 2.11)
+        x = x.redistribute(mesh.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    return whole_grad(x.redistribute(mesh.device_mesh, named_sharding(mesh, rules, dims, x.shape).placements))

@@ -13,20 +13,29 @@ row-major index of its coordinates on those axes, in the order they are
 named — exactly how the reference's ``P(axes)`` flattens the packet
 dimension onto a mesh.
 
-:func:`production_topology` keeps the reference's model of the production
-TPU pods' encode domain (its values are the reference's, not measured on any
-GPU); ``make_production_mesh`` and the sharding rules wait for the sharding
-substrate (ROADMAP A3).
+Each mesh also carries the ``torch.distributed.device_mesh.DeviceMesh`` of
+its ranks (same axis names, shape and row-major order, on the rank's device
+type): the mesh the sharding substrate places DTensors on
+(:mod:`repro_torch.dist.sharding`). The rank executors and the sharding
+functions take the same :class:`RankMesh`.
+
+:func:`make_production_mesh` is the reference's production mesh over a
+group of 256 (512) ranks; :func:`production_topology` keeps the reference's
+model of the production TPU pods' encode domain (its values are the
+reference's, not measured on any GPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
+import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.field import resolve_device
 from ..topo import Hierarchy
@@ -39,8 +48,9 @@ class RankMesh:
     ``group`` is the process group whose ranks fill the mesh, ``shape`` and
     ``axis_names`` its axes outermost first, ``rank`` this process's flat
     (row-major) position in it and ``coords`` its coordinates, ``ranks``
-    the global rank at each flat position, and ``device`` where this rank
-    computes."""
+    the global rank at each flat position, ``device`` where this rank
+    computes and ``device_mesh`` the DeviceMesh of the same ranks (``None``
+    for a mesh made by hand, with no process group)."""
 
     group: object
     shape: tuple[int, ...]
@@ -49,6 +59,7 @@ class RankMesh:
     coords: tuple[int, ...]
     ranks: tuple[int, ...]
     device: torch.device
+    device_mesh: DeviceMesh | None = dataclasses.field(default=None, compare=False, repr=False)
     _axis_groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def _dims(self, axes) -> tuple[int, ...]:
@@ -114,7 +125,9 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, group=None, devi
     """The mesh of ``shape`` with axis names ``axes`` over the ranks of
     ``group`` (``None``: the default group, which must be initialised), as
     seen from this process; ``device`` is where this rank computes
-    (``None``: the card)."""
+    (``None``: the card). Builds the mesh's ``DeviceMesh`` (a collective
+    call: every rank of the group makes it), whose one-axis groups the mesh's
+    :meth:`RankMesh.axis_group` then reuses."""
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
     if len(shape) != len(axes):
@@ -130,7 +143,81 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, group=None, devi
     rank = dist.get_rank(group)
     ranks = tuple(dist.get_global_rank(group, i) for i in range(n))
     coords = tuple(int(c) for c in np.unravel_index(rank, shape))
-    return RankMesh(group, shape, axes, rank, coords, ranks, resolve_device(device))
+    device = resolve_device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device() if device.index is None else device.index)
+        # a rank on an initialised device keeps it: DeviceMesh would otherwise
+        # pick one from LOCAL_RANK, and every rank here shares one card
+        torch.cuda.set_device(device)
+        torch.cuda.init()
+    dm = DeviceMesh(device.type, torch.tensor(ranks).reshape(shape), mesh_dim_names=axes)
+    mesh = RankMesh(group, shape, axes, rank, coords, ranks, device, dm)
+    if len(shape) > 1:
+        mesh._axis_groups.update({(d,): dm.get_group(d) for d in range(len(shape))})
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, group=None, device=None) -> RankMesh:
+    """The reference's production mesh: (data=16, model=16) over 256 ranks,
+    or (pod=2, data=16, model=16) over 512. On a group of another size it
+    raises ``ValueError`` naming the size it needs (as ``jax.make_mesh``
+    fails for want of devices)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised torch.distributed process group")
+    n = dist.get_world_size(dist.group.WORLD if group is None else group)
+    if n != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} needs a group of {math.prod(shape)} "
+                         f"ranks; this group has {n}")
+    return make_mesh(shape, axes, group=group, device=device)
+
+
+#: how long a rank of a launcher's mesh waits for its peers before it fails
+GROUP_TIMEOUT_S = 300
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """``"DxM"`` → (D, M)."""
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {spec!r}: expected DATAxMODEL, e.g. 2x2") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {spec!r}: both sizes must be positive")
+    return d, m
+
+
+def launcher_mesh(spec: str, device) -> tuple[RankMesh | None, bool]:
+    """The (data, model) mesh a launcher's ``--mesh DxM`` asks for, over
+    the world ``torchrun`` starts (``RANK`` and ``WORLD_SIZE`` in the
+    environment), and whether this call joined the world. ``1x1`` is no
+    mesh. An already initialised default group is used as it is; otherwise
+    the group is joined over the port's staging backend on a CUDA device
+    (``dist.staging``) and gloo on the CPU. A mesh whose size differs from
+    the world size raises ``ValueError``."""
+    d, m = parse_mesh(spec)
+    if d * m == 1:
+        return None, False
+    joined = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError(f"--mesh {spec} needs {d * m} ranks: run it under "
+                             f"torchrun --nproc-per-node {d * m}")
+        backend = "gloo"
+        if device.type == "cuda":
+            from ..dist.staging import BACKEND, register
+
+            register()
+            backend = BACKEND
+        dist.init_process_group(backend, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        joined = True
+    n = dist.get_world_size()
+    if n != d * m:
+        if joined:
+            dist.destroy_process_group()
+        raise ValueError(f"--mesh {spec} holds {d * m} ranks; the world has {n}")
+    return make_mesh((d, m), ("data", "model"), device=device), joined
 
 
 def production_topology(*, multi_pod: bool = False) -> Hierarchy:

@@ -3,9 +3,10 @@
 
 ``baseline`` is the paper-faithful first implementation. Each lever is an
 independently-toggleable change with an explicit hypothesis (the reference's
-reasoning, kept as it is: the mesh levers act once arrays are placed across
-devices, ROADMAP.md queue A3; on one card the flags are what the model
-reads, e.g. ``moe_gather`` picks the MoE block's gather-form dispatch):
+reasoning, kept as it is: the mesh levers act on a mesh of ranks, where
+arrays are DTensors placed by the rules; on one device the flags are what
+the model reads, e.g. ``moe_gather`` picks the MoE block's gather-form
+dispatch):
 
 * ``attn_heads``   — constrain q/k/v to head-sharding inside attention
                      instead of inheriting the block-boundary seq-sharding

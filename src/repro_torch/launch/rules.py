@@ -12,8 +12,9 @@ decode:
     long_500k (batch=1): KV seq → (data, model) — all 256/512 chips split
     the half-million-token cache.
 
-The axes take effect once arrays are placed across devices (ROADMAP.md queue
-A3); on one card the rules' flags are what the model reads.
+The axes take effect on a mesh of ranks, where arrays are DTensors placed by
+them (``dist.sharding``); on one device the rules' flags are what the model
+reads.
 """
 
 from __future__ import annotations

@@ -20,10 +20,21 @@ surviving shards, not dropped:
 Everything runs on the card unless ``--device cpu`` asks for the CPU. The
 weights are random from seed 0 unless ``--ckpt`` names a checkpoint
 directory (the reference's format, ``train.checkpoint``). The engines run
-under the reference's decode rules for the baseline profile
-(``launch.profiles.rules_for``), whose flags the model reads. Only a ``1x1``
-mesh runs: a larger one waits for the device half of the sharding substrate
-(ROADMAP.md queue A3).
+under the reference's decode rules (``launch.profiles.rules_for``) for
+``--profile`` (``baseline``, the reference launcher's, by default; ``opt``
+keeps a model that fits off FSDP), whose flags the model reads.
+``--layers N`` cuts the depth to N layers (every width kept).
+
+``--mesh DxM`` serves on a (data, model) mesh of D·M ranks started by
+torchrun, each drawing the full weights from the seed and keeping its shard
+(``train.train_loop.param_shardings``); only rank 0 prints:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu
+
+On the card the ranks share it over the port's staging backend
+(``dist.staging``); on the CPU over gloo. ``--coded`` with a mesh is
+refused: the coded guard over a mesh waits for ROADMAP.md queue A2.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get, smoke_config
 from ..configs.base import ShapeSpec
@@ -39,20 +51,25 @@ from ..core.field import resolve_device
 from ..models import build_model
 from ..serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
 from ..train import latest_step, restore_checkpoint
-from .profiles import BASELINE, rules_for
+from ..train.train_loop import param_shardings
+from .mesh import launcher_mesh, parse_mesh
+from .profiles import BASELINE, OPT, rules_for
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL ranks (under torchrun)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--prompts", default="1,2,3;7,8")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--engine", choices=["continuous", "fixed"], default="continuous")
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--profile", default="baseline", choices=["baseline", "opt"],
+                    help="the sharding rules (launch.profiles)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument(
         "--coded", default=None, metavar="K,R",
@@ -66,24 +83,46 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.kill and args.coded is None:
         ap.error("--kill requires --coded K,R")
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: only 1x1 runs; a mesh waits for the sharding substrate "
-                 "(ROADMAP.md queue A3)")
+    try:
+        meshed = parse_mesh(args.mesh) != (1, 1)
+    except ValueError as e:
+        ap.error(str(e))
+    if meshed and args.coded is not None:
+        ap.error(f"--coded with --mesh {args.mesh}: the coded guard over a mesh of ranks waits for "
+                 "ROADMAP.md queue A2")
 
     dev = resolve_device(args.device)
+    try:
+        mesh, joined = launcher_mesh(args.mesh, dev)
+    except ValueError as e:
+        ap.error(str(e))
+    try:
+        return _serve(args, dev, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh):
+    """The launcher after its flags: build, serve, print (rank 0 alone on a
+    mesh)."""
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
-    rules = rules_for(cfg, ShapeSpec("cli", "decode", args.max_len, 1), BASELINE)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
+    rules = rules_for(cfg, ShapeSpec("cli", "decode", args.max_len, 1), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model.init(gen)
     if args.ckpt and latest_step(args.ckpt) is not None:
-        params, _ = restore_checkpoint(args.ckpt, model.param_specs(), device=dev)
+        shardings = None if mesh is None else param_shardings(model, mesh, rules)
+        params, _ = restore_checkpoint(args.ckpt, model.param_specs(), device=dev, shardings=shardings)
 
     prompts = [[int(t) for t in p.split(",") if t] for p in args.prompts.split(";")]
     use_continuous = args.engine == "continuous" and model.supports_prefill
     if args.engine == "continuous" and not use_continuous:
-        print(f"{cfg.name}: no one-pass prefill; falling back to fixed-batch")
+        say(f"{cfg.name}: no one-pass prefill; falling back to fixed-batch")
     if args.coded is not None and not use_continuous:
         raise SystemExit("--coded needs the continuous engine")
 
@@ -94,32 +133,32 @@ def main(argv=None):
             kills = tuple(tuple(int(x) for x in k.split(":")) for k in args.kill)
             guard = CodedServeGuard(K=K, R=R, injector=FaultInjector(kills=kills) if kills else None, device=dev)
         eng = ContinuousEngine(model, params, n_slots=args.slots, max_len=args.max_len,
-                               max_new_tokens=args.max_new, rules=rules)
+                               max_new_tokens=args.max_new, rules=rules, mesh=mesh)
         reqs = [Request(id=f"cli-{i}", prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(prompts)]
         rep = eng.serve(reqs, guard=guard)
-        print(
+        say(
             f"{rep.decode_steps} decode steps, {len(rep.results)} reqs, "
             f"{rep.tokens_per_s:.1f} tok/s, ttft p99 {rep.ttft_ms['p99']:.1f} ms, "
             f"{rep.prefill_compiles} prefill graphs, on {dev}"
         )
         if rep.coded is not None:
             c = rep.coded
-            print(
+            say(
                 f"coded K={c['K']} R={c['R']}: {c['injected_faults']} faults "
                 f"injected, {c['recoveries']} hosts recovered from, "
                 f"{c['requests_recovered']} in-flight requests recovered, "
                 f"recovery p99 {c['recovery_us']['p99']:.0f} us"
             )
         for r in rep.results:
-            print(f"{r.id}: {r.tokens}")
+            say(f"{r.id}: {r.tokens}")
         return rep
-    eng = Engine(model, params, max_len=args.max_len, rules=rules)
+    eng = Engine(model, params, max_len=args.max_len, rules=rules, mesh=mesh)
     t0 = time.time()
     res = eng.generate(prompts, max_new_tokens=args.max_new)
     dt = time.time() - t0
-    print(f"{res.steps} decode steps, {len(prompts)} seqs, {dt:.2f}s, on {dev}")
+    say(f"{res.steps} decode steps, {len(prompts)} seqs, {dt:.2f}s, on {dev}")
     for i, row in enumerate(res.tokens):
-        print(f"seq {i}: {row[: res.lengths[i]].tolist()}")
+        say(f"seq {i}: {row[: res.lengths[i]].tolist()}")
     return res
 
 

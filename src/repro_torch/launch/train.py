@@ -15,9 +15,19 @@ from its latest step. The weights are random from seed 0.
 batch and sequence) and the train step runs under them; on one card their
 flags are what the model reads (neither profile sets ``moe_gather``).
 
-Everything runs on the card unless ``--device cpu`` asks for the CPU. Only a
-``1x1`` mesh runs: a larger one waits for the device half of the sharding
-substrate (ROADMAP.md queue A3).
+Everything runs on the card unless ``--device cpu`` asks for the CPU.
+``--layers N`` cuts the depth to N layers (every width kept).
+
+``--mesh DxM`` trains on a (data, model) mesh of D·M ranks started by
+torchrun: each rank draws the full weights and the same global batch from
+the seed and keeps its shard (``train.train_loop``'s ``param_shardings``,
+``opt_state_shardings``, ``batch_shardings``); the checkpoint is written
+whole by rank 0 and restored under the same shardings; only rank 0 prints.
+``--coded-every`` must be 0 there: encoding a sharded state is ROADMAP.md
+queue A3's.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu --coded-every 0
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..configs import get, smoke_config
 from ..configs.base import ShapeSpec
@@ -42,6 +54,8 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.data import to_device
+from ..train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
+from .mesh import launcher_mesh, parse_mesh
 from .profiles import BASELINE, OPT, rules_for
 
 
@@ -55,7 +69,8 @@ def main(argv=None) -> dict:
     optimizer's configuration and the sharding rules the step ran under."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; only 1x1 runs")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL ranks (under torchrun)")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=50)
@@ -69,12 +84,32 @@ def main(argv=None) -> dict:
     ap.add_argument("--coded-k", type=int, default=8)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: only 1x1 runs; a mesh waits for the sharding substrate "
-                 "(ROADMAP.md queue A3)")
+    try:
+        meshed = parse_mesh(args.mesh) != (1, 1)
+    except ValueError as e:
+        ap.error(str(e))
+    if meshed and args.coded_every:
+        ap.error(f"--coded-every {args.coded_every} with --mesh {args.mesh}: encoding a sharded state waits "
+                 "for ROADMAP.md queue A3 (pass --coded-every 0)")
 
     dev = resolve_device(args.device)
+    try:
+        mesh, joined = launcher_mesh(args.mesh, dev)
+    except ValueError as e:
+        ap.error(str(e))
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh) -> dict:
+    """The launcher after its flags (rank 0 alone prints on a mesh)."""
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     cfg = smoke_config(args.arch) if args.smoke else get(args.arch)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     rules = rules_for(cfg, ShapeSpec("cli", "train", args.seq, args.batch), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
@@ -82,25 +117,36 @@ def main(argv=None) -> dict:
     gen.manual_seed(0)
     params = model.init(gen)
     opt_state = init_state(ocfg, params)
+    shardings = None
+    if mesh is not None:
+        shardings = {"params": param_shardings(model, mesh, rules),
+                     "opt": opt_state_shardings(ocfg, model, mesh, rules)}
+        state = place({"params": params, "opt": opt_state}, shardings)
+        params, opt_state = state["params"], state["opt"]
     start = 0
     if args.ckpt and latest_step(args.ckpt) is not None:
-        state, start = restore_checkpoint(args.ckpt, {"params": params, "opt": opt_state}, device=dev)
+        state, start = restore_checkpoint(args.ckpt, {"params": params, "opt": opt_state}, device=dev,
+                                          shardings=shardings)
         params, opt_state = state["params"], state["opt"]
-        print(f"restored checkpoint at step {start}")
+        say(f"restored checkpoint at step {start}")
 
-    step_fn = make_train_step(model, ocfg, rules=rules)
+    step_fn = make_train_step(model, ocfg, rules=rules, mesh=mesh)
+    bshard = None if mesh is None else batch_shardings(model, mesh, rules)
     ds = SyntheticLM(cfg)
     guard = CodedStateGuard(K=args.coded_k, device=dev)
     history = []
     t0 = time.perf_counter()
     for s in range(start, args.steps):
         batch = to_device(ds.batch(s, args.batch, args.seq), dev)
+        if bshard is not None:  # every rank drew the same global batch: each keeps its shard
+            batch = place(batch, {k: bshard[k] for k in batch})
         params, opt_state, metrics = step_fn(params, opt_state, batch)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in metrics.items()}
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         mtp = {"mtp_ce": float(metrics["mtp_ce"])} if "mtp_ce" in metrics else {}
         history.append({"step": s, "loss": loss, "grad_norm": gnorm, **mtp, "s": time.perf_counter() - t0})
         if s % 10 == 0 or s == args.steps - 1:
-            print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f}" + "".join(f" {k} {v:.4f}" for k, v in mtp.items()))
+            say(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f}" + "".join(f" {k} {v:.4f}" for k, v in mtp.items()))
         if args.coded_every and s and s % args.coded_every == 0:
             guard.snapshot({"params": params, "opt": opt_state}, s)
         if args.ckpt and s and s % args.ckpt_every == 0:
@@ -108,7 +154,7 @@ def main(argv=None) -> dict:
     if args.ckpt:
         save_checkpoint(args.ckpt, {"params": params, "opt": opt_state}, args.steps)
     dt = time.perf_counter() - t0
-    print(f"done: {args.steps - start} steps in {dt:.1f}s")
+    say(f"done: {args.steps - start} steps in {dt:.1f}s")
     return {"state": {"params": params, "opt": opt_state}, "history": history, "guard": guard, "start": start,
             "seconds": dt, "model": model, "opt_cfg": ocfg, "rules": rules}
 

@@ -12,10 +12,27 @@ dims (``*_specs``). Conventions follow the reference step by step:
 * attention is chunked (online softmax over KV blocks of 1024) so a long
   prompt never builds an S×S score tensor — the same chunks and the same
   order of combination as the reference, not PyTorch's fused attention;
-* ``Ctx`` is the reference's sharding context. It carries the sharding
-  rules, whose flags steer the model (``moe_gather``); on one device
-  ``cons`` is the identity (placing arrays across devices is ROADMAP.md
-  queue A3).
+* ``Ctx`` is the reference's sharding context: the mesh of ranks and the
+  sharding rules, whose flags steer the model (``moe_gather``). With a mesh,
+  ``cons`` redistributes a DTensor activation to its logical dims
+  (``dist.sharding.constrain``); without one it is the identity.
+
+On a mesh the parameters, the cache and the activations are DTensors and
+DTensor's sharding propagation runs the products, norms, RoPE, SwiGLU and
+the tied head; a constant made on the spot (positions, RoPE frequencies,
+the vocabulary pad) joins them as a replicated DTensor
+(:func:`replicated_like`). Three regions run instead on each rank's blocks
+(``dist._compat.shard_map``), where DTensor has no sharding strategy or
+would gather the cache:
+
+* the attention core of a full sequence (:func:`chunked_causal_attention`),
+  with batch over its axes and heads over theirs, the sequence whole;
+* the decode attention over the cache (:func:`decode_attention`), split
+  over the cache's ``kv_seq`` axes as flash-decoding splits it: each rank
+  scores its own rows, and a max and two sums over those axes combine them;
+* the in-place cache writes: one token's rows at ``pos``
+  (``attention_decode``) and a prompt's rows into one slot
+  (``models.model._write_slot``), each rank writing the rows it holds.
 
 The GELU MLP and the layernorm blocks of the encoder-decoder wait for a
 later slice (ROADMAP.md queue A4).
@@ -26,27 +43,59 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..dist.sharding import ShardingRules
+from ..dist._compat import all_reduce, shard_map
+from ..dist.sharding import ShardingRules, constrain, spec_for, spec_of, whole_grad
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
+    mesh: Any = None
     rules: ShardingRules | None = None
 
     def cons(self, x, dims):
-        """A sharding constraint in the reference; the identity on one device."""
-        return x
+        """A sharding constraint: ``x`` redistributed to ``dims`` on the mesh;
+        the identity without a mesh."""
+        if self.mesh is None:
+            return x
+        return constrain(x, self.mesh, self.rules, dims)
 
     def flag(self, name: str) -> bool:
         return self.rules is not None and self.rules.has(name)
 
 
 NO_CTX = Ctx()
+
+
+def replicated_like(t, ref):
+    """``t``, a plain tensor every rank holds whole, as a replicated DTensor
+    on ``ref``'s mesh when ``ref`` is a DTensor; otherwise ``t`` itself."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim, run_check=False)
+    return t
+
+
+def rows(x):
+    """``x`` ready for a product with a weight: DTensor's product flattens
+    the leading dims, which it refuses (torch 2.11) when a dim between the
+    first and the last is split, so such a dim is gathered whole first (the
+    gather GSPMD inserts around a sequence-split block). Its gradient leaves
+    with no pending partial sum (``dist.sharding.whole_grad``)."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 else p for p in x.placements]
+    return whole_grad(x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl))
+
+
+def _meshed(ctx, *xs) -> bool:
+    return ctx.mesh is not None and any(isinstance(x, DTensor) for x in xs)
 
 
 #: a leaf whose float32 draw would pass this many elements is drawn in slabs
@@ -146,7 +195,8 @@ def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tens
 
 def rope_angles(positions, head_dim, theta):
     """positions: (...,) int → (cos, sin): (..., head_dim/2) float32."""
-    ang = positions.float()[..., None] * _rope_freqs(head_dim, float(theta), positions.device)
+    freqs = replicated_like(_rope_freqs(head_dim, float(theta), positions.device), positions)
+    ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -233,9 +283,12 @@ def chunked_causal_attention(q, k, v, *, chunk_q=1024, chunk_k=1024, causal=True
     return out[:, :, :Sq]
 
 
-def decode_attention(q, k_cache, v_cache, kv_len_mask):
+def decode_attention(q, k_cache, v_cache, kv_len_mask, group=None):
     """q: (B,Hq,1,D); caches: (B,Hkv,Smax,D); kv_len_mask: (B,Smax) bool.
-    Plain softmax over the cache (linear in Smax)."""
+    Plain softmax over the cache (linear in Smax). With ``group``, the cache
+    rows are this rank's block of the sequence, split over ``group``'s ranks
+    (flash-decoding): the row maximum, then the weighted values with the
+    exponentials' sum, are combined over the group before the division."""
     B, Hq, _, D = q.shape
     Hkv = k_cache.shape[1]
     G = Hq // Hkv
@@ -244,9 +297,81 @@ def decode_attention(q, k_cache, v_cache, kv_len_mask):
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
     s = s * scale
     s = s.masked_fill(~kv_len_mask[:, None, None, :], -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    else:
+        m = all_reduce(torch.amax(s, dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
+        p = torch.exp(s - m)
+        ol = torch.cat([torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()), torch.sum(p, dim=-1, keepdim=True)], -1)
+        ol = all_reduce(ol, group)  # the weighted values and the sum, in one call
+        o = ol[..., :-1] / ol[..., -1:]
     return o.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def _attention_core(ctx, q, k, v, causal):
+    """:func:`chunked_causal_attention` of q (B,S,Hq,D), k/v (B,S,Hkv,D) →
+    (B,S,Hq,D); on a mesh on each rank's blocks: batch over the rules' batch
+    axes, heads over the heads' axes where q's and k's agree (else whole),
+    the sequence whole. The region's blocks stay in this layout (DTensor's
+    views need contiguous blocks)."""
+
+    def fn(q, k, v):
+        return chunked_causal_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        causal=causal).transpose(1, 2)
+
+    if not _meshed(ctx, q, k, v):
+        return fn(q, k, v)
+    qs = spec_for(ctx.mesh, ctx.rules, ("batch", None, "heads", None), q.shape)
+    ks = spec_for(ctx.mesh, ctx.rules, ("batch", None, "kv_heads", None), k.shape)
+    if qs[2] != ks[2]:  # GQA groups stay whole on a rank only when both split alike
+        qs, ks = (qs[0], None, None, None), (ks[0], None, None, None)
+    return shard_map(lambda q, k, v: fn(q, k, v).contiguous(), ctx.mesh, (qs, ks, ks), qs)(q, k, v)
+
+
+def _local_offsets(t: DTensor) -> tuple[int, ...]:
+    """The global index of the first element of this rank's block of ``t``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return tuple(compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)[1])
+
+
+def _decode_meshed(ctx, q, k, v, cache, pos):
+    """The decode step's cache write and attention on a mesh, on each rank's
+    blocks of the cache: q (B,1,Hq,D), k/v (B,1,Hkv,D) this token's rows,
+    ``cache`` leaves (B,Smax,Hkv,D) DTensors, pos (B,). Each rank writes the
+    rows at ``pos`` that fall in its block (in place) and attends its block;
+    the blocks are combined over the cache's sequence axes. Returns o
+    (B,1,Hq,D), batch split as the cache's."""
+    mesh = ctx.mesh
+    cs = spec_of(cache["k"], mesh)
+    row = (cs[0], None, None, None)
+    off = _local_offsets(cache["k"])[1]
+    group = None if cs[1] is None else mesh.axis_group(cs[1])
+
+    def region(q, k, v, kc, vc, pos):
+        rows = pos.long() - off
+        _write_rows(kc, k, rows)
+        _write_rows(vc, v, rows)
+        n = kc.shape[1]
+        mask = (torch.arange(n, device=kc.device) + off)[None, :] <= pos[:, None]
+        o = decode_attention(q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), mask, group)
+        return o.transpose(1, 2).contiguous()
+
+    return shard_map(region, mesh, (row, row, row, cs, cs, (cs[0],)), row)(q, k, v, cache["k"], cache["v"],
+                                                                          replicated_like(pos, q))
+
+
+def _write_rows(cache, new, rows):
+    """cache: (B, n, ...) a rank's block, new: (B, 1, ...), rows: (B,) local
+    row indices → ``cache[b, rows[b]] = new[b, 0]`` in place where the row is
+    in [0, n), the row left as it is elsewhere (no host sync)."""
+    B, n = cache.shape[0], cache.shape[1]
+    ok = (rows >= 0) & (rows < n)
+    at = rows.clamp(0, n - 1)
+    b = torch.arange(B, device=cache.device)
+    keep = ok.reshape((B,) + (1,) * (cache.ndim - 2))
+    cache[b, at] = torch.where(keep, new[:, 0].to(cache.dtype), cache[b, at])
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +415,7 @@ def attention_specs(cfg):
 def _qkv(params, x, cfg, positions, rope=True):
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = rows(x)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -315,10 +441,17 @@ def attention_fwd(params, x, cfg, ctx=NO_CTX, positions=None, rope=True, causal=
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _qkv(params, x, cfg, positions, rope)
-    o = chunked_causal_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
-    o = o.transpose(1, 2).reshape(B, S, -1)
-    y = o @ params["wo"]
+    q, k, v = _qkv(params, x, cfg, replicated_like(positions, x), rope)
+    if ctx.flag("attn_heads"):
+        # head-sharded attention internals (Megatron-style): the sequence whole
+        q = ctx.cons(q, ("batch", None, "heads", None))
+        k = ctx.cons(k, ("batch", None, "kv_heads", None))
+        v = ctx.cons(v, ("batch", None, "kv_heads", None))
+    else:
+        q = ctx.cons(q, ("batch", "seq", "heads", None))
+        k = ctx.cons(k, ("batch", "seq", "kv_heads", None))
+    o = _attention_core(ctx, q, k, v, causal).reshape(B, S, -1)
+    y = rows(o) @ params["wo"]
     return ctx.cons(y, ("batch", "seq", "d_model")), (k, v)
 
 
@@ -327,7 +460,10 @@ def attention_decode(params, x, cfg, cache, pos, ctx=NO_CTX, rope=True):
     Writes this step's k and v into ``cache`` at ``pos`` in place and returns
     (y, cache)."""
     B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg, pos[:, None], rope)
+    q, k, v = _qkv(params, x, cfg, replicated_like(pos[:, None], x), rope)
+    if _meshed(ctx, cache["k"]):
+        o = _decode_meshed(ctx, q, k, v, cache, pos)
+        return o.reshape(B, 1, -1) @ params["wo"], cache
     kc = _scatter_time(cache["k"], k, pos)
     vc = _scatter_time(cache["v"], v, pos)
     Smax = kc.shape[1]
@@ -367,9 +503,10 @@ def swiglu_specs():
 
 
 def swiglu(params, x, ctx=NO_CTX):
+    x = rows(x)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     h = ctx.cons(h, ("batch", "seq", "d_ff"))
-    return ctx.cons(h @ params["w_down"], ("batch", "seq", "d_model"))
+    return ctx.cons(rows(h) @ params["w_down"], ("batch", "seq", "d_model"))
 
 
 def gelu_mlp_init(generator, d, d_ff, dtype=torch.bfloat16):

@@ -49,12 +49,17 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import tree
 from ..configs.base import ModelConfig
 from ..core.field import resolve_device
+from ..dist._compat import shard_map
+from ..dist.sharding import is_dims, spec_of, whole_grad
 from . import layers as L
 from . import mla as MLA
 from . import ssm as SSM
@@ -368,22 +373,33 @@ def _cache_dims_for(kind: str):
             "rwkv": SSM.rwkv6_state_dims}[_KINDS[kind]["cache"]]()
 
 
-def _write_slot(cache_tree, content_tree, slot: int):
+def _write_slot(cache_tree, content_tree, slot: int, mesh=None):
     """Write per-layer prefill content (1, L, ...) into row ``slot`` of the
-    batched cache leaves (B, Smax, ...), positions [0, L), in place."""
+    batched cache leaves (B, Smax, ...), positions [0, L), in place. A
+    DTensor leaf is written on each rank's block (``shard_map``): the rank
+    that holds row ``slot`` writes the positions of [0, L) it holds."""
 
     def write(leaf, content):
+        if isinstance(leaf, DTensor):
+            return _write_slot_meshed(leaf, content, slot, mesh)
         leaf[slot, : content.shape[1]] = content[0].to(leaf.dtype)
         return leaf
 
     return tree.map(write, cache_tree, content_tree)
 
 
-def _is_dims(x) -> bool:
-    """A leaf of a logical-dims tree: a tuple of names and ``None``s (the
-    reference's ``is_leaf``); a tuple of such tuples (a Mamba state's dims)
-    is a container."""
-    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+def _write_slot_meshed(leaf, content, slot: int, mesh):
+    spec = spec_of(leaf, mesh)
+    b0, s0 = L._local_offsets(leaf)[:2]
+
+    def region(loc, content):
+        b, n = slot - b0, loc.shape[1]
+        lo, hi = max(s0, 0), min(s0 + n, content.shape[1])
+        if 0 <= b < loc.shape[0] and lo < hi:
+            loc[b, lo - s0:hi - s0] = content[0, lo:hi].to(loc.dtype)
+        return loc
+
+    return shard_map(region, mesh, (spec, (None,) * content.ndim), spec)(leaf, content)
 
 
 def _stacked_dims(dims):
@@ -391,7 +407,7 @@ def _stacked_dims(dims):
     added to every leaf."""
     if isinstance(dims, dict):
         return {k: _stacked_dims(v) for k, v in dims.items()}
-    if not _is_dims(dims):
+    if not is_dims(dims):
         return tuple(_stacked_dims(v) for v in dims)
     return (None, *dims)
 
@@ -521,15 +537,21 @@ class Model(nn.Module):
 
     # -- embedding / head ----------------------------------------------------
     def _embed(self, params, tokens):
+        if isinstance(params["embed"], DTensor):
+            # DTensor's strategy for a vocabulary-split lookup: each rank looks
+            # up its rows, a masked partial sum, reduced here
+            x = F.embedding(L.replicated_like(tokens, params["embed"]).long(), whole_grad(params["embed"]))
+            return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
         return params["embed"][tokens.long()]
 
     def _head(self, params, x):
-        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        logits = (x @ w).float()
+        # the tied table's two gradients are summed: each leaves with no pending partial sum
+        w = whole_grad(params["embed"]).T if self.cfg.tie_embeddings else params["lm_head"]
+        logits = (L.rows(x) @ w).float()
         if self.cfg.vocab_padded > self.cfg.vocab_size:
             pad = torch.zeros((self.cfg.vocab_padded,), dtype=torch.float32, device=logits.device)
             pad[self.cfg.vocab_size:] = 1e30
-            logits = logits - pad
+            logits = logits - L.replicated_like(pad, logits)
         return logits
 
     # -- encoder (Whisper's stub frontend) ------------------------------------
@@ -587,7 +609,7 @@ class Model(nn.Module):
         reference's ``jax.checkpoint`` of each block); the encoder-decoder's
         branch of the reference applies none."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = L.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
         remat = cfg.remat == "block" and torch.is_grad_enabled() and not self.is_encdec
         crosses = self._crosses(params)
         for i, (kind, p, _) in enumerate(self._layers(params)):
@@ -679,7 +701,7 @@ class Model(nn.Module):
         after each body layer; the VLM decodes text only (no patch prefix),
         as the reference does."""
         cfg = self.cfg
-        x = self._embed(params, tokens).to(self.dtype)
+        x = ctx.cons(self._embed(params, tokens).to(self.dtype), ("batch", "seq", "d_model"))
         if self.is_encdec:
             x = x + _sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None, :]
         crosses = self._crosses(params)
@@ -721,10 +743,10 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(params, tokens).to(self.dtype)
         x = ctx.cons(x, ("batch", "seq", "d_model"))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = L.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
         for kind, p, c in self._layers(params, cache):
             x, aux, content = _KINDS[kind]["prefill"](p, x, cfg, ctx, aux)
-            _write_slot(c, content, slot)
+            _write_slot(c, content, slot, ctx.mesh)
         logits = self._head(params, L.rmsnorm(params["ln_f"], x))
         return logits, cache
 
@@ -754,11 +776,19 @@ def _fill(generator, make, repeats: int | None = None) -> dict:
 
 def _xent(logits, labels, mask):
     """Masked mean of float32 ``logsumexp - logit[label]`` (padded vocab
-    columns carry -1e30 and drop out of the sum)."""
+    columns carry -1e30 and drop out of the sum). A DTensor's vocabulary is
+    gathered whole first (its other dims keep their split): DTensor's
+    vocabulary-parallel gather fails on these shapes."""
+    if isinstance(logits, DTensor):
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == logits.ndim - 1 else p for p in logits.placements]
+        logits = logits.redistribute(logits.device_mesh, pl)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = (lse - ll) * mask
-    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    out = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    if isinstance(out, DTensor):  # summed over the mesh here, not as a pending partial sum
+        out = out.redistribute(out.device_mesh, [Replicate()] * out.device_mesh.ndim)
+    return out
 
 
 @functools.lru_cache(maxsize=8)

@@ -31,6 +31,16 @@ never depend on batch composition and a replay after recovery resamples the
 same tokens. The streams differ from ``jax.random``'s: sampled tokens are
 equal within this package, greedy tokens equal the reference's.
 
+On a mesh of ranks (``mesh=``, a ``launch.mesh.RankMesh`` of more than
+one rank) every rank runs the same engine: the host-side scheduler, the
+per-slot state and the sampling stay whole on every rank, the parameters
+and the decode cache are DTensors placed by ``train.train_loop``'s
+``param_shardings`` and ``cache_shardings`` under the engine's rules, and
+the logits a step returns are gathered whole (``full_tensor``) before the
+argmax or the draw, so every rank picks the same tokens. The coded guard
+over a mesh is not ported (ROADMAP A2): ``serve(guard=)`` with a mesh
+raises.
+
 Observability (``repro_torch.obs``): ``serve.steps`` / ``serve.generate_ms``
 / ``serve.tokens_per_s`` (generated tokens only in BOTH engines) /
 ``serve.eos_syncs_saved`` on the fixed path; ``serve.prefill_compiles`` /
@@ -49,10 +59,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import tree
 from ..models.model import Model
-from ..train.train_loop import make_decode_step, make_prefill_step
+from ..train.train_loop import cache_shardings, make_decode_step, make_prefill_step, param_shardings, place
 from .scheduler import (
     DEFAULT_BUCKETS,
     Request,
@@ -133,6 +144,26 @@ def _device_of(params) -> torch.device:
     return tree.leaves(params)[0].device
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full tensor, the same on every rank; a tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _on_mesh(model, params, mesh, rules):
+    """(mesh, params): ``params`` placed on ``mesh`` by ``param_shardings``;
+    a mesh of one rank is no mesh."""
+    if mesh is None or mesh.device_mesh is None or mesh.device_mesh.size() == 1:
+        return None, params
+    return mesh, place(params, param_shardings(model, mesh, rules))
+
+
+def _init_cache(model, batch: int, max_len: int, device, mesh, rules):
+    """The zero decode cache; on a mesh, each leaf placed by
+    ``cache_shardings``."""
+    cache = model.init_cache(batch, max_len, device=device)
+    return cache if mesh is None else place(cache, cache_shardings(model, mesh, rules, cache))
+
+
 @dataclass
 class GenerationResult:
     tokens: np.ndarray  # (B, total)
@@ -147,7 +178,8 @@ class Engine:
     """Fixed-batch engine (the baseline, and the recurrent, encoder-decoder
     and VLM fall-back). Runs on the device that holds
     ``params``; ``rules`` (``dist.sharding.ShardingRules``) reach the model
-    through its decode step."""
+    through its decode step; with ``mesh`` the parameters and the cache are
+    placed on its ranks."""
 
     def __init__(
         self,
@@ -157,12 +189,14 @@ class Engine:
         tracer=None,
         metrics=None,
         rules=None,
+        mesh=None,
     ):
         self.model = model
-        self.params = params
+        self.mesh, self.params = _on_mesh(model, params, mesh, rules)
+        self.rules = rules
         self.max_len = max_len
-        self.device = _device_of(params)
-        self._step = make_decode_step(model, rules)
+        self.device = _device_of(self.params)
+        self._step = make_decode_step(model, rules, mesh=self.mesh)
         self._tracer = tracer
         self._metrics = metrics
 
@@ -191,7 +225,7 @@ class Engine:
         toks = np.zeros((B, total), dtype=np.int32)
         for b, p in enumerate(prompts):
             toks[b, : len(p)] = p
-        cache = self.model.init_cache(B, self.max_len, device=dev)
+        cache = _init_cache(self.model, B, self.max_len, dev, self.mesh, self.rules)
         if self.model.is_encdec:
             # stub frames: zeros (a real system: the audio frontend's output)
             cache["enc_out"].zero_()
@@ -217,7 +251,7 @@ class Engine:
                 logits, cache = self._step(self.params, cache, cur, pos)
             steps += 1
             last_t = t
-            lg = logits[:, 0, : cfg.vocab_size]
+            lg = _whole(logits)[:, 0, : cfg.vocab_size]
             if greedy:
                 nxt = torch.argmax(lg, dim=-1).to(torch.int32)
             else:
@@ -305,7 +339,8 @@ class ContinuousEngine:
     """Continuous-batching engine: one prefill callable per length bucket +
     slot-scheduled decode with mid-stream insertion. Runs on the device that
     holds ``params``; ``rules`` (``dist.sharding.ShardingRules``) reach the
-    model through its prefill and decode steps."""
+    model through its prefill and decode steps; with ``mesh`` the
+    parameters and the cache are placed on its ranks."""
 
     def __init__(
         self,
@@ -318,6 +353,7 @@ class ContinuousEngine:
         tracer=None,
         metrics=None,
         rules=None,
+        mesh=None,
     ):
         if not model.supports_prefill:
             raise NotImplementedError(
@@ -330,8 +366,8 @@ class ContinuousEngine:
         if max(buckets) > max_len:
             raise ValueError(f"bucket {max(buckets)} exceeds max_len {max_len}")
         self.model = model
-        self.params = params
-        self.device = _device_of(params)
+        self.mesh, self.params = _on_mesh(model, params, mesh, rules)
+        self.device = _device_of(self.params)
         self.n_slots = n_slots
         self.max_len = max_len
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -366,7 +402,7 @@ class ContinuousEngine:
         return tick
 
     def _make_tick(self, greedy: bool):
-        decode = make_decode_step(self.model, self.rules)
+        decode = make_decode_step(self.model, self.rules, mesh=self.mesh)
         V = self.model.cfg.vocab_size
         G = self.max_new_tokens
 
@@ -374,7 +410,7 @@ class ContinuousEngine:
             """One decode step of every slot; ``cache`` and ``state`` are
             updated in place."""
             logits, cache = decode(params, cache, state["last_tok"][:, None], state["pos"])
-            lg = logits[:, 0, :V]
+            lg = _whole(logits)[:, 0, :V]
             if greedy:
                 nxt = torch.argmax(lg, dim=-1).to(torch.int32)
             else:
@@ -412,7 +448,7 @@ class ContinuousEngine:
         return pf
 
     def _make_prefill(self, greedy: bool):
-        raw = make_prefill_step(self.model, into_cache=True, rules=self.rules)
+        raw = make_prefill_step(self.model, into_cache=True, rules=self.rules, mesh=self.mesh)
         V = self.model.cfg.vocab_size
 
         def prefill(params, cache, state, tokens, slot: int, plen: int, req_max: int, eos_id: int,
@@ -420,7 +456,7 @@ class ContinuousEngine:
             """Prefill one request into ``slot`` and set its state row, in
             place."""
             last, cache = raw(params, cache, tokens, slot, plen)
-            lg = last[:, :V]
+            lg = _whole(last)[:, :V]
             if greedy:
                 t0 = torch.argmax(lg, dim=-1).to(torch.int32)
             else:
@@ -499,6 +535,9 @@ class ContinuousEngine:
         """
         if not greedy and temperature <= 0:
             raise ValueError(f"sampling needs temperature > 0, got {temperature}")
+        if guard is not None and self.mesh is not None:
+            raise ValueError("the coded serving guard over a mesh of ranks is not ported: it waits for "
+                             "ROADMAP.md queue A2 (CodedServeGuard(mesh=) and NCCL)")
         if guard is not None and guard.device.type != self.device.type:
             raise ValueError(f"the guard runs on {guard.device}, the engine on {self.device}")
         reg = self._registry()
@@ -510,7 +549,7 @@ class ContinuousEngine:
             self._validate(r)
             sched.submit(r)
         S = self.n_slots
-        cache = self.model.init_cache(S, self.max_len, device=dev)
+        cache = _init_cache(self.model, S, self.max_len, dev, self.mesh, self.rules)
         state = self.init_state()
         eos = -1 if eos_id is None else int(eos_id)
         temp = float(temperature)

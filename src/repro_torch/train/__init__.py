@@ -4,6 +4,6 @@
 # sharding functions wait for ROADMAP.md queue A3.
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
 from .data import DataConfig, Prefetcher, SyntheticLM  # noqa: F401
-from .elastic import CodedStateGuard  # noqa: F401
+from .elastic import CodedStateGuard, reshard_state  # noqa: F401
 from .optimizer import OptConfig, apply_updates, global_norm, init_state, schedule, state_specs  # noqa: F401
 from .train_loop import make_ctx, make_decode_step, make_prefill_step, make_train_step  # noqa: F401

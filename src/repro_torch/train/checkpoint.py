@@ -12,9 +12,13 @@ the reference's own file takes, which the reference reads back by view. A
 restore reads a ``|V2`` (or a 16-bit integer) array into a bfloat16 leaf
 bit for bit through ``Tensor.view(torch.bfloat16)``.
 
-Re-placing the restored state under a sharding (the reference's
-``shardings=``, its elastic-scaling path) waits for the port's sharding
-substrate; restore puts every leaf on one ``device``.
+A state on a mesh of ranks (DTensor leaves) is saved whole: every rank
+gathers each leaf's full tensor and rank 0 alone writes the file, whose
+arrays are those a one-process save of the same values writes. A restore
+with ``shardings=`` (one ``dist.sharding.NamedSharding`` a leaf, as
+``train.train_loop.param_shardings`` builds them) places each leaf under
+its sharding, possibly on another mesh than the one that saved it (the
+reference's elastic-scaling path).
 
 The coded fast path (coded/rs_checkpoint.py) complements this: disk
 checkpoints every N steps, in-memory Cauchy parity every n << N steps.
@@ -28,6 +32,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import tree
 from ..core.field import resolve_device
@@ -61,12 +67,19 @@ def _to_torch(arr: np.ndarray, want: torch.dtype) -> torch.Tensor:
 
 
 def save_checkpoint(path: str, state: Any, step: int, extra: dict | None = None):
-    os.makedirs(path, exist_ok=True)
+    """Write ``state`` at ``step``. With DTensor leaves this is a collective
+    call: every rank gathers the full tensors, rank 0 writes, and every rank
+    returns the manifest after the file is written."""
     named = tree.flatten_with_names(state)
+    meshed = any(isinstance(v, DTensor) for v in named.values())
+    named = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in named.items()}
     arrays, dtypes = {}, {}
     for k, v in named.items():
         arrays[k], dtypes[k] = _to_numpy(v)
-    np.savez(os.path.join(path, f"state_{step:08d}.npz"), **arrays)
+    writer = not meshed or dist.get_rank() == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+        np.savez(os.path.join(path, f"state_{step:08d}.npz"), **arrays)
     manifest = {
         "step": step,
         "keys": sorted(arrays),
@@ -78,8 +91,11 @@ def save_checkpoint(path: str, state: Any, step: int, extra: dict | None = None)
         "n_shards": 1,
         "extra": extra or {},
     }
-    with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=2)
+    if writer:
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+    if meshed:
+        dist.barrier()
     return manifest
 
 
@@ -94,18 +110,25 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, like: Any, step: int | None = None, device=None):
+def restore_checkpoint(path: str, like: Any, step: int | None = None, device=None, shardings=None):
     """Restore into the structure and dtypes of ``like`` (a pytree of
     tensors; tensors on the ``meta`` device do, only shape and dtype are
-    read), on ``device`` (``None``: the card). Returns ``(state, step)``."""
-    dev = resolve_device(device)
+    read), on ``device`` (``None``: the card). ``shardings``: a matching
+    pytree of ``NamedSharding``s; each leaf is then placed under its own on
+    its mesh's ranks (every rank reads the file and keeps its block).
+    Returns ``(state, step)``."""
+    dev = resolve_device(device) if shardings is None else None
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
     leaves, treedef = tree.flatten(like)
     names = list(tree.flatten_with_names(like))
+    places = [None] * len(leaves) if shardings is None else tree.leaves(shardings)
+    if len(places) != len(leaves):
+        raise ValueError(f"{len(places)} shardings for {len(leaves)} leaves")
     out = []
     with np.load(os.path.join(path, f"state_{step:08d}.npz")) as data:
-        for name, leaf in zip(names, leaves):
-            out.append(_to_torch(data[name], leaf.dtype).to(dev))
+        for name, leaf, sh in zip(names, leaves, places):
+            t = _to_torch(data[name], leaf.dtype)
+            out.append(t.to(dev) if sh is None else sh.place(t))
     return tree.unflatten(treedef, out), step

@@ -7,9 +7,9 @@ Two recovery tiers (DESIGN §8):
    C2 = Θ(√K/p)); any ≤ K−1 simultaneously lost replicas are rebuilt
    bit-exactly from survivors without touching disk.
 2. **Disk slow path** — ``checkpoint.save_checkpoint`` /
-   ``restore_checkpoint``. Restoring under other shardings (elastic scaling,
-   the reference's ``reshard_state``) waits for the port's sharding
-   substrate.
+   ``restore_checkpoint``, which restores under other shardings too, and
+   :func:`reshard_state`, which re-places a live state under new shardings
+   (elastic scaling, possibly onto another mesh of the same group).
 
 Here the "replicas" are logical: the state is sharded into K limb shards on
 one device and the parity is encoded there
@@ -33,6 +33,7 @@ from ..coded.rs_checkpoint import (
     unshard_state_limbs,
 )
 from ..core.field import resolve_device, to_numpy, to_tensor
+from .train_loop import place
 
 
 @dataclass
@@ -82,3 +83,12 @@ class CodedStateGuard:
     def overhead_elements(self) -> int:
         """Parity memory overhead per replica, in limbs (= 1/K of state)."""
         return 0 if self._parity is None else int(self._parity.shape[1])
+
+
+def reshard_state(state, shardings):
+    """Elastic re-placement of a state pytree under new shardings (one
+    ``dist.sharding.NamedSharding`` a leaf): a DTensor leaf on the same mesh
+    is redistributed, one on another mesh of the same group goes through its
+    full tensor, a plain tensor is the full tensor. The values are
+    unchanged, bit for bit. A collective call when a leaf moves."""
+    return place(state, shardings)

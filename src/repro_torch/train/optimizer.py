@@ -11,6 +11,12 @@ differently and decays every leaf), with:
 State is a pytree mirroring params: ``{"m": ..., "v": ..., "step": ()}``
 with ``step`` an ``int32`` scalar tensor. Leaves are read and written in the
 reference's pytree order (``repro_torch.tree``).
+
+On a mesh the leaves are DTensors: each gradient is first laid out as its
+parameter (a pending partial sum is reduced), the global norm is the norm of
+the whole gradient (each leaf's sum of squares is a partial sum over the
+mesh, reduced before the square root), and the new parameter and moments
+keep the parameter's placements.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import tree
 
@@ -82,6 +89,11 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _like(t, p: DTensor):
+    """``t`` laid out as the DTensor ``p``."""
+    return t if tuple(t.placements) == tuple(p.placements) else t.redistribute(p.device_mesh, p.placements)
+
+
 def apply_updates(cfg: OptConfig, params, grads, state):
     """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
     inputs are left as they are."""
@@ -94,6 +106,11 @@ def apply_updates(cfg: OptConfig, params, grads, state):
     mdt = _moment_dtype(cfg)
 
     def upd(p, g, m, v):
+        if isinstance(p, DTensor):
+            return tuple(_like(t, p) for t in adamw(p, _like(g, p), _like(m, p), _like(v, p)))
+        return adamw(p, g, m, v)
+
+    def adamw(p, g, m, v):
         g = g.float() * scale
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)

@@ -51,6 +51,7 @@ def test_the_slice_is_all_there():
         "launch", "launch.serve", "train.optimizer", "train.data", "launch.train", "dist.ranks", "launch.mesh",
         "dist.sharding", "launch.roofline", "launch.rules", "launch.profiles",
         "launch.op_cost", "launch.costpass", "launch.dryrun", "launch.hillclimb", "launch.perf_report",
+        "dist._compat", "dist.pipeline", "dist.staging",
     ]:
         assert "repro_torch." + mod in names, mod
     for src in ("gf_matmul.cu", "butterfly_mac.cu"):
@@ -77,7 +78,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first",
-              "models-first", "configs-first", "launch-first", "train-first", "sharding-first", "profiles-first"]
+              "models-first", "configs-first", "launch-first", "train-first", "sharding-first", "profiles-first",
+              "pipeline-first", "staging-first"]
 )
 def test_import_order_does_not_matter(order):
     first = {
@@ -94,6 +96,8 @@ def test_import_order_does_not_matter(order):
         "train-first": "repro_torch.launch.train",
         "sharding-first": "repro_torch.dist.sharding",
         "profiles-first": "repro_torch.launch.profiles",
+        "pipeline-first": "repro_torch.dist.pipeline",
+        "staging-first": "repro_torch.dist.staging",
     }[order]
     r = run_fresh(f"""
         import importlib

@@ -2,7 +2,8 @@
 the reference launcher's flags and cadence — the step lines, a coded-parity
 snapshot every ``--coded-every`` steps, a checkpoint every ``--ckpt-every``
 steps and at the end, and a resume from the latest one — with states held bit
-for bit. A mesh is refused, naming the ROADMAP item it waits for."""
+for bit. A mesh runs under torchrun (tests/test_torch_mesh.py): here, one
+whose size is not the world's, or with ``--coded-every``, is refused."""
 
 import json
 import os
@@ -10,6 +11,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.launch.train import main as train_main
@@ -65,7 +67,22 @@ def test_launcher_is_deterministic():
 
 
 @pytest.mark.parametrize("mesh", ["2x1", "1x4"])
-def test_launcher_refuses_a_mesh(mesh, capsys):
+def test_launcher_refuses_a_mesh(mesh, capsys, tmp_path):
+    """A mesh with ``--coded-every`` set is refused naming the ROADMAP item
+    where encoding a sharded state is queued; without it, a mesh whose size
+    is not the world's is refused naming both sizes (here a world of one
+    rank; tests/test_torch_mesh.py runs meshes of four)."""
+    n = int(np.prod([int(x) for x in mesh.split("x")]))
     with pytest.raises(SystemExit):
         train_main(SMOKE + ["--mesh", mesh])
     assert "ROADMAP.md queue A3" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        train_main(SMOKE + ["--mesh", mesh, "--coded-every", "0"])
+    assert f"needs {n} ranks: run it under torchrun --nproc-per-node {n}" in capsys.readouterr().err
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        with pytest.raises(SystemExit):
+            train_main(SMOKE + ["--mesh", mesh, "--coded-every", "0"])
+    finally:
+        dist.destroy_process_group()
+    assert f"--mesh {mesh} holds {n} ranks; the world has 1" in capsys.readouterr().err

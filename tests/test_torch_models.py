@@ -396,4 +396,4 @@ def test_cache_dims_and_ctx():
                                                "v": (None, "batch", "kv_seq", "kv_heads", "head_dim")}}}
     x = torch.ones(2)
     assert NO_CTX.cons(x, ("batch",)) is x
-    assert make_ctx() is NO_CTX  # one device: nothing to carry until ROADMAP.md queue A3
+    assert make_ctx() is NO_CTX  # no mesh and no rules: nothing to carry

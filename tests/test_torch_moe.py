@@ -443,7 +443,7 @@ def test_arctic_full_width_two_layers_bytes():
 
 
 def test_rules_reach_the_model_through_every_step():
-    assert make_ctx(GATHER).flag("moe_gather") and not make_ctx().flag("moe_gather")
+    assert make_ctx(rules=GATHER).flag("moe_gather") and not make_ctx().flag("moe_gather")
     assert L.Ctx(rules=GATHER) == L.Ctx(rules=ShardingRules(flags=["moe_gather"]))
     _, _, m, p = arctic_pair()
     eng = ContinuousEngine(m, p, metrics=MetricsRegistry(), rules=GATHER, **ENGINE_KW)

@@ -21,6 +21,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 import jax
 
@@ -156,10 +157,19 @@ def test_spec_for_on_a_mapping_mesh_and_its_edges():
 
 @pytest.mark.parametrize("fn", [named_sharding, lambda *a: constrain(torch.ones(2), *a[:2], ("batch",))])
 def test_placing_across_devices_waits_for_a3(fn):
+    """The device half is ported (ROADMAP A3's first part): neither raises.
+    ``named_sharding`` gives ``spec_for``'s spec and its DTensor placements;
+    ``constrain`` leaves a plain tensor as it is (tests/test_torch_mesh.py
+    holds both on DTensors over four ranks)."""
     mesh = rank_mesh((1, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A3"):
-        fn(mesh, ShardingRules(), ("batch",))
-    assert sharding.__all__ == ["ShardingRules", "spec_for", "named_sharding", "constrain", "DEFAULT_RULES"]
+    out = fn(mesh, ShardingRules(), ("batch",))
+    if isinstance(out, torch.Tensor):
+        assert torch.equal(out, torch.ones(2))
+    else:
+        assert out.spec == spec_for(mesh, ShardingRules(), ("batch",)) == ("data",)
+        assert out.placements == (Shard(0), Replicate()) and out.mesh is mesh
+    assert sharding.__all__ == ["ShardingRules", "NamedSharding", "spec_for", "spec_of", "placements_for",
+                                "named_sharding", "constrain", "DEFAULT_RULES"]
 
 
 # ---------------------------------------------------------------------------

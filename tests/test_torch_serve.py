@@ -373,10 +373,14 @@ def test_engine_refuses_bad_requests_and_a_mesh(capsys):
         eng.serve([Request(id="long", prompt=[1] * 17, max_new_tokens=2)])
     with pytest.raises(ValueError, match="max_new_tokens"):
         eng.serve([Request(id="big", prompt=[1], max_new_tokens=9)])
-    # a mesh is refused where a user can ask for one: the launcher
+    # the launcher: a mesh runs only under torchrun with as many ranks, and
+    # the coded guard over a mesh waits for ROADMAP A2
     with pytest.raises(SystemExit):
         serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--mesh", "2x4"])
-    assert "ROADMAP.md queue A3" in capsys.readouterr().err
+    assert "--mesh 2x4 needs 8 ranks: run it under torchrun --nproc-per-node 8" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--mesh", "2x2", "--coded", "3,2"])
+    assert "ROADMAP.md queue A2" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
@@ -528,7 +532,19 @@ def test_launcher_smoke_on_the_cpu(extra, capsys):
         assert "2 hosts recovered from" in text
 
 
-def test_launcher_refuses_a_mesh_kill_without_coded_and_coded_fixed():
-    for argv in (["--mesh", "2x4"], ["--kill", "2:0"], ["--engine", "fixed", "--coded", "3,2"]):
+def test_launcher_refuses_a_mesh_kill_without_coded_and_coded_fixed(capsys, tmp_path):
+    """A mesh whose size is not the world's is refused naming both sizes
+    (a world of one rank here); --kill without --coded, and --coded with the
+    fixed engine, are refused."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        with pytest.raises(SystemExit):
+            serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--mesh", "2x4"])
+    finally:
+        dist.destroy_process_group()
+    assert "--mesh 2x4 holds 8 ranks; the world has 1" in capsys.readouterr().err
+    for argv in (["--kill", "2:0"], ["--engine", "fixed", "--coded", "3,2"]):
         with pytest.raises(SystemExit):
             serve_main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", *argv])

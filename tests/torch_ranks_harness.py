@@ -133,7 +133,13 @@ def _rank_main(rank: int, world: int, init: str, target: str, args: tuple, out):
         dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         try:
-            result = globals()[target](rank, world, *args)
+            if ":" in target:  # a function of another module: "module:function"
+                import importlib
+
+                mod, fn = target.split(":")
+                result = getattr(importlib.import_module(mod), fn)(rank, world, *args)
+            else:
+                result = globals()[target](rank, world, *args)
         finally:
             dist.destroy_process_group()
         out.put(("ok", rank, result))
@@ -142,7 +148,8 @@ def _rank_main(rank: int, world: int, init: str, target: str, args: tuple, out):
 
 
 def run_ranks(world: int, target: str, *args, deadline: float = 120.0) -> list:
-    """``target(rank, world, *args)`` (a function of this module) on
+    """``target(rank, world, *args)`` (a function of this module, or
+    ``"module:function"`` of an importable module) on
     ``world`` spawned gloo ranks; returns the results in rank order. Raises
     AssertionError when a rank raises, dies or the deadline passes, after
     terminating every rank."""
