@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4 and 6-14 hand it, as they hand it, with its
+                that phases 4, 6-14 and 16 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -77,7 +77,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 recover bit for bit, with ``collective=False`` and ``True``
                 giving bit-equal coded shards), ``lcc_square``
                 (``lcc_encode(build_lcc(48), X)``, the draw-and-loose Lagrange
-                encode of the same cache limbs in 48 shards, equal to a plain
+                encode of the same cache cut to 4 layers (its host decode
+                took 91 s at 28) in 48 shards, equal to a plain
                 ``X @ G mod q``, and ``lcc_decode`` from all 48 back to X) and
                 ``grad_coding`` (``worker_combine``/``aggregate``, K = 8,
                 s = 2, over one layer's float32 gradients on the card against
@@ -191,9 +192,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``mtp`` read once.
 12. ``ssm``     the SSM families, each on the emptied card with bf16 weights
                 from the seed, counted on their own, every width kept and
-                the depth cut: RWKV6-3B at 16 of its 32 layers
+                the depth cut: RWKV6-3B at 8 of its 32 layers
                 (``rwkv6-3b``: d_model 2560, 40 heads x 64, d_ff 8960, vocab
-                65,536; 3.2 GB) and Jamba at 8 of its 32 layers, one whole
+                65,536; 1.9 GB) and Jamba at 8 of its 32 layers, one whole
                 period of 8 (``jamba-v0.1-52b``: d_model 4096, d_inner 8192,
                 d_state 16, dt_rank 256, one attention layer a period, 16
                 experts top-2 of expert_ff 14,336 on alternate layers, vocab
@@ -213,7 +214,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``gf_matmul`` shape among phase 3's; (c) one real Mamba and
                 one real RWKV layer in float32, the full-sequence scan over 64
                 tokens against 64 decode calls, and RWKV6-3B's bf16
-                ``forward`` (16 layers) against its refeed at rtol = atol = 0.15; (d) both
+                ``forward`` (8 layers) against its refeed at rtol = atol = 0.15; (d) both
                 float32 smoke configs on the card against the CPU: logits of
                 ``forward`` and 8 ``decode_step``s within 1e-4, router choices
                 equal, ``loss`` within 1e-5. Prints tokens/s, the tick's ms
@@ -225,9 +226,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 counted on their own: Whisper-base (``whisper-base``: 6
                 encoder and 6 decoder layers, d_model 512, 8 heads, d_ff 2048,
                 1,500 stub frames, vocab 51,865 padded to 51,968; 207 MB) and
-                InternVL2-26B (``internvl2-26b``: 24 of its 48 layers since
-                PR 24, d_model 6144, 48/8 heads, d_ff 16,384, 256 stub
-                patches, vocab 92,553 padded to 92,672; 21.0 GB; 39.7 GB
+                InternVL2-26B (``internvl2-26b``: 12 of its 48 layers,
+                d_model 6144, 48/8 heads, d_ff 16,384, 256 stub
+                patches, vocab 92,553 padded to 92,672; 11.6 GB; 39.7 GB
                 whole). Neither has a one-pass prefill:
                 (a) ``launch/serve.py`` with its default engine falls back to
                 the fixed ``Engine`` (it must say so) and serves the serve
@@ -289,17 +290,41 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 opt`` on the two prompts: (a)'s tokens; (c) three float32
                 smoke train steps of ``make_train_step(mesh=)`` against the
                 CPU's at phase 8's tolerances, then ``launch/train.py --mesh
-                2x2`` at full width cut to 4 of 28 layers, 2 steps of 8 x
+                2x2`` at full width cut to 2 of 28 layers, 2 steps of 8 x
                 256, its checkpoint restored under its shardings and the
                 parameters resharded onto a 4 x 1 mesh, bit for bit against
                 the file; (d) ``pipeline_apply`` over four Qwen3-1.7B blocks
                 (one a rank, axis ``pipe``), 6 microbatches of (2, 256,
                 2048), against the blocks in sequence on one rank. The phase
                 holds itself within 150 s; no hand kernel runs in it.
-16. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+16. ``coded_mesh`` the coded guards on the mesh: one spawned world of four
+                ranks on ``cuda:0`` (the staging backend; the guard's host
+                axis over a gloo group of the same ranks), checks made by the
+                parent: (a) phase ``mesh``'s engine (Qwen3-1.7B whole, bf16,
+                2x2, ``opt`` profile, 4 slots, max_len 1,024) over the serve
+                trace's first 4 requests (426, 75, 239, 110 tokens), 12 new
+                tokens, greedy, unguarded; (b) the same under
+                ``CodedServeGuard(K=2, R=2, mesh=<the four ranks as axis
+                "hosts">, axis="hosts")``, host 3 killed after tick 8: tokens
+                equal (a)'s on every rank, the first snapshot's four coded
+                rows equal rank 0's one-program ``lcc_encode`` of the same
+                limbs, each rank's launches one snapshot's calls a snapshot;
+                (b') one snapshot by the rank form at p = 3 (one round:
+                ``butterfly_mac`` on every rank) of the state (b) leaves, its
+                rows equal to the one-program encode;
+                (c) ``launch/serve.py --mesh 2x2 --profile opt --coded 3,2
+                --kill 2:0 --kill 6:4`` on phase ``mesh``'s two prompts, 8 new
+                tokens: the tokens of the same command without ``--coded``;
+                (d) ``launch/train.py --mesh 2x2 --smoke --coded-every 1``, 3
+                steps: rank 0's shards and parity equal a one-process guard's
+                over the gathered state, ``fail_and_recover([1, 4, 6])`` and
+                ``reshard_state`` give every rank its blocks bit for bit.
+                Each snapshot's and recovery's ms, each rank's held and peak
+                bytes; the phase holds itself within 240 s.
+17. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
-   MoE, MLA, SSM, encoder-decoder and VLM serve paths and the analysis
-   phase, error, time, bound and plain time;
+   MoE, MLA, SSM, encoder-decoder and VLM serve paths, the analysis phase
+   and the coded guards on the mesh, error, time, bound and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -353,6 +378,7 @@ from repro_torch.coded.rs_checkpoint import (  # noqa: E402
     encode_parity,
     encode_parity_collective,
     encode_parity_ranks,
+    gather_state,
     shard_state_limbs,
 )
 from repro_torch.core.draw_loose import decode_dft, decode_draw_loose  # noqa: E402
@@ -432,6 +458,7 @@ from repro_torch.train.data import to_device  # noqa: E402
 from repro_torch.train.elastic import CodedStateGuard  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
     batch_shardings,
+    cache_shardings,
     make_decode_step,
     make_prefill_step,
     opt_state_shardings,
@@ -1493,6 +1520,9 @@ SERVE_SLOTS, SERVE_POSITIONS = 4, 1024  # the KV cache the serving guard protect
 CKPT_K, CKPT_LOST = 16, [1, 4, 6]  # K of benchmarks/bench_coded_ckpt.py
 SERVE_K, SERVE_R, SERVE_KILLS = 6, 2, ((1, 3), (2, 0))  # tests/test_coded_serve.py:278, (tick, host) kills
 SQUARE_K = 48  # 3 x 16: draw-and-loose with both a draw and a loose phase
+# lcc_square's cache is cut to this many layers, for time: its host numpy lcc_decode from 48 took
+# 76-97 s over all 28
+SQUARE_LAYERS = 4
 GC_K, GC_S, GC_DROP = 8, 2, (1, 5)  # gradient coding: workers, stragglers, the two dropped
 
 
@@ -1523,11 +1553,11 @@ def checkpoint_spec() -> dict:
     }
 
 
-def serve_spec() -> tuple:
-    """(cache, state) of the serving guard: the bf16 KV cache of every layer,
-    a token buffer and per-slot positions."""
+def serve_spec(layers: int = N_LAYERS) -> tuple:
+    """(cache, state) of the serving guard: the bf16 KV cache of ``layers``
+    layers, a token buffer and per-slot positions."""
     slab = (SERVE_SLOTS, SERVE_POSITIONS, N_KV_HEADS, HEAD_DIM)
-    cache = [{"k": meta(slab, torch.bfloat16), "v": meta(slab, torch.bfloat16)} for _ in range(N_LAYERS)]
+    cache = [{"k": meta(slab, torch.bfloat16), "v": meta(slab, torch.bfloat16)} for _ in range(layers)]
     state = {"tokens": meta((SERVE_SLOTS, SERVE_POSITIONS), torch.int32), "pos": meta((SERVE_SLOTS,), torch.int32)}
     return cache, state
 
@@ -1582,7 +1612,8 @@ def coded_configs() -> list[dict]:
     lps = plan_prepare_shoot(lplan.N, lplan.p)
     S6 = -(-limb_count(sv_spec) // SERVE_K)
     qplan = build_lcc(SQUARE_K)
-    S48 = -(-limb_count(sv_spec) // SQUARE_K)
+    sq_spec = serve_spec(SQUARE_LAYERS)
+    S48 = -(-limb_count(sq_spec) // SQUARE_K)
     return [
         {"name": "coded_checkpoint", "q": M31, "K": CKPT_K, "S": S, "spec": ck_spec, "plan": plan,
          "seed": SEED + 700, "runs": {
@@ -1597,7 +1628,7 @@ def coded_configs() -> list[dict]:
              "CodedServeGuard.snapshot(collective=True)": ir_kernel_calls(
                  lps.to_ir(lcc_generator(lplan), q=NTT), S6),
          }},
-        {"name": "lcc_square", "q": NTT, "K": SQUARE_K, "S": S48, "spec": sv_spec, "plan": qplan,
+        {"name": "lcc_square", "q": NTT, "K": SQUARE_K, "S": S48, "spec": sq_spec, "plan": qplan,
          "seed": SEED + 800, "runs": {
              "lcc_encode": draw_loose_calls(qplan.plan_omega, S48) + draw_loose_calls(qplan.plan_alpha, S48),
          }},
@@ -3146,11 +3177,11 @@ def mla_phase(mcfg: dict, dev) -> tuple[dict, dict]:
 RWKV_ARCH, JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
 # Every width kept, the depth cut to keep the script's time (each refeed tick
 # is launch-bound, so a tick's time goes with the layer count): RWKV6-3B to
-# 16 of its 32 layers (3.2 GB of bf16 weights), Jamba to one of its four
-# periods of 8 (the reference asserts whole periods; 26.6 GB). Phase 13
-# serves whole models through the launcher.
-RWKV_LAYERS, JAMBA_LAYERS = 16, 8
-SSM_PARAM_BYTES = {RWKV_ARCH: 3_225_687_040, JAMBA_ARCH: 26_593_062_848}
+# 8 of its 32 layers (1.9 GB of bf16 weights; cut from 16 when phase
+# coded_mesh was added), Jamba to one of its four periods of 8 (the reference
+# asserts whole periods; 26.6 GB).
+RWKV_LAYERS, JAMBA_LAYERS = 8, 8
+SSM_PARAM_BYTES = {RWKV_ARCH: 1_948_390_400, JAMBA_ARCH: 26_593_062_848}
 SSM_MAX_LEN = 512  # the fixed Engine's max_len: the longest prompt + SERVE_MAX_NEW fits
 SSM_SNAPSHOT_TICK = 40  # the guard's snapshot, mid-prompt (every prompt is longer)
 SSM_LOST_TICKS = 4  # ticks refed after the snapshot, lost with host 3
@@ -3516,16 +3547,16 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 # ---------------------------------------------------------------------------
-# phase 13: the encoder-decoder and VLM families, Whisper-base whole, InternVL2-26B at 24 of 48 layers
+# phase 13: the encoder-decoder and VLM families, Whisper-base whole, InternVL2-26B at 12 of 48 layers
 # ---------------------------------------------------------------------------
 
 WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
 # both at full width, bf16: the frontends are stubs (precomputed frame and
 # patch embeddings), so InternVL2's weights are InternLM2-20B's. Whisper is
-# whole; InternVL2 runs 24 of its 48 layers (PR 24, for time: phase mesh was
-# added; 39.7 GB whole, PR 22-23)
-VLM_LAYERS = 24
-ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 21_001_482_240}
+# whole; InternVL2 runs 12 of its 48 layers (for time: 24 once phase mesh was
+# added, 12 once phase coded_mesh was; 39.7 GB whole)
+VLM_LAYERS = 12
+ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 11_639_500_800}
 ORACLE_TOL = 0.2  # (c): tests/test_attention_oracle.py:57-85, decode against forward, rtol = atol
 ORACLE_ROWS, ORACLE_TOKENS = 2, 64
 VLM_FORWARD_TEXT = 256  # (c): one forward of n_patches (256) patches and this many text tokens
@@ -3942,7 +3973,7 @@ MESH_REQUESTS, MESH_MAX_NEW = 6, 16  # the serve trace's first requests, each wi
 MESH_PROMPTS = ((3, 14, 15, 92, 65, 35), (89, 79, 32, 38, 46, 26, 43, 38, 32, 79))
 MESH_LAUNCHER_NEW = 4  # (b)'s budget: its tokens are the first of (a)'s for the same prompts
 MESH_BUCKETS = (32, 64, 128, 256, 512)  # the launcher's buckets (scheduler.DEFAULT_BUCKETS) and 512
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2  # (c): launch/train.py at full width, 4 of 28 layers
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2  # (c): launch/train.py at full width, 2 of 28 layers
 PIPE_MICRO, PIPE_MB = 6, (2, 256, 2048)  # (d): microbatches of one Qwen3-1.7B block's input
 # (d): the pipeline applies the same kernels to the same microbatches as the
 # blocks in sequence on one rank; held within one bf16 ulp of the largest output
@@ -4446,6 +4477,490 @@ def first_divergence(a: dict, b: dict):
     return None
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the coded guards on the (data=2, model=2) mesh of four ranks
+# ---------------------------------------------------------------------------
+
+# (a), (b): the serve trace's first 4 requests (426, 75, 239, 110 tokens), 12 new tokens each (16 cut to 12
+# for time: three chunks, the kill after tick 8 found at the third)
+CM_REQUESTS, CM_MAX_NEW = 4, 12
+CM_K, CM_R, CM_KILLS = 2, 2, ((8, 3),)  # (b): the rank form, N = 4 hosts = the four ranks; host 3 dies after tick 8
+# (b'): the rank form over all three ports (one round, radix 4: butterfly_mac on every rank), one
+# snapshot of the state (b) leaves; its recovery is (b)'s host numpy decode, which p does not change
+CM_WIDE_P = 3
+CM_LAUNCH_NEW = 8  # (c): two chunks of 4 ticks: the kills after ticks 2 and 6 are found at their ends
+CM_LAUNCH_K, CM_LAUNCH_R = 3, 2
+CM_LAUNCH_CODED = ["--coded", f"{CM_LAUNCH_K},{CM_LAUNCH_R}", "--kill", "2:0", "--kill", "6:4"]
+CM_TRAIN_STEPS, CM_TRAIN_K, CM_TRAIN_LOST = 3, 8, [1, 4, 6]  # (d): the launcher's --coded-k default
+CM_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
+# what the phase may take: 158 and 226 s on two hosts before (b') lost its recovery (14 s); most of the
+# rest is host numpy (four Lagrange decodes of 11-14 s each), which moves with the host
+CM_PHASE_S = 240
+CM_ENTRIES = {"ranks": "CodedServeGuard(mesh=hosts).snapshot",
+              "wide": "CodedServeGuard(mesh=hosts, p=3).snapshot", "launch": "launch/serve.py --mesh 2x2 --coded 3,2",
+              "train": "launch/train.py --mesh 2x2 --smoke --coded-every 1"}
+
+
+def cm_state_spec(model, max_new: int) -> tuple:
+    """(cache, state) a continuous engine of SERVE_SLOTS slots, max_len
+    SERVE_POSITIONS and this budget hands the guard, as meta tensors."""
+    eng = ContinuousEngine(model, model.param_specs(), n_slots=SERVE_SLOTS, max_len=SERVE_POSITIONS,
+                           buckets=MESH_BUCKETS, max_new_tokens=max_new)
+    return model.init_cache(SERVE_SLOTS, SERVE_POSITIONS, device="meta"), eng.init_state()
+
+
+def coded_mesh_config() -> dict:
+    """Phase ``coded_mesh``'s configuration, handed to every rank: the
+    served model (Qwen3-1.7B whole), max_len, buckets and the trace's mix,
+    the launchers' extra flags, each guard's shard width ``S`` and the
+    kernel calls of one snapshot of each guard (``paths``, for phase 3: the
+    rank form's on each rank, batch 1; the launcher's single-program guard
+    and the train guard on rank 0)."""
+    cfg = get(SERVE_ARCH)
+    model = build_model(cfg)
+    rplan, lplan = build_lcc(CM_K, R=CM_R), build_lcc(CM_LAUNCH_K, R=CM_LAUNCH_R)
+    wplan = build_lcc(CM_K, p=CM_WIDE_P, R=CM_R)
+    lps = plan_prepare_shoot(lplan.N, lplan.p)
+    small = build_model(smoke_config(TRAIN_ARCH))
+    ocfg = OptConfig(total_steps=CM_TRAIN_STEPS)
+    tplan = build_parity_plan(CM_TRAIN_K)
+    S = {"ranks": -(-limb_count(cm_state_spec(model, CM_MAX_NEW)) // CM_K),
+         "launch": -(-limb_count(cm_state_spec(model, CM_LAUNCH_NEW)) // CM_LAUNCH_K),
+         "train": -(-limb_count({"params": small.param_specs(), "opt": state_specs(ocfg, small.param_specs())})
+                    // CM_TRAIN_K)}
+
+    def rank_calls(plan):
+        return ir_kernel_calls(plan_prepare_shoot(plan.N, plan.p).to_ir(lcc_generator(plan), q=NTT), S["ranks"],
+                               batch=1)
+
+    runs = {"ranks": rank_calls(rplan), "wide": rank_calls(wplan),
+            "launch": [("gf_matmul", (lplan.N, lps.n, lps.m, S["launch"]))],
+            "train": [("gf_matmul", (CM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m, S["train"]))]}
+    return {"serve": cfg, "max_len": SERVE_POSITIONS, "buckets": MESH_BUCKETS, "mix": SERVE_MIX, "S": S,
+            "launcher_extra": [], "train_extra": [], "runs": runs,
+            "paths": [{"name": "coded_mesh", "q": NTT, "runs": {CM_ENTRIES[k]: runs[k] for k in ("ranks", "wide", "launch")}},
+                      {"name": "coded_mesh", "q": M31, "runs": {CM_ENTRIES["train"]: runs["train"]}}]}
+
+
+def cm_requests(mcfg: dict) -> list:
+    """The serve trace's first CM_REQUESTS requests, budget CM_MAX_NEW, all
+    arrived: they fill the four slots at once, on every rank alike."""
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=mcfg["mix"], max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=mcfg["serve"].vocab_size, seed=SEED + 1001)[:CM_REQUESTS]
+    return [dataclasses.replace(r, max_new_tokens=CM_MAX_NEW, arrival_s=0.0) for r in trace]
+
+
+def zero_launches():
+    gf_matmul_cuda.launches = 0
+    butterfly_mac_rows_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
+
+
+@contextlib.contextmanager
+def guard_calls(cls, sink: dict):
+    """Time every ``snapshot`` and ``recover`` of guards of ``cls`` while the
+    block runs (wall ms into ``sink["snapshot_ms"]``, ``sink["recover_ms"]``),
+    and keep the width of the coded shards a snapshot leaves on this rank."""
+    snap, rec = cls.snapshot, getattr(cls, "recover", None)
+
+    def snapshot(self, *a, **kw):
+        t0 = time.perf_counter()
+        snap(self, *a, **kw)
+        sink.setdefault("snapshot_ms", []).append((time.perf_counter() - t0) * 1e3)
+        held = getattr(self, "group", None)
+        if held is not None and held._mem:
+            sink["width"] = len(next(iter(held._mem.values())))
+
+    def recover(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = rec(self, *a, **kw)
+        sink.setdefault("recover_ms", []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    cls.snapshot = snapshot
+    if rec is not None:
+        cls.recover = recover
+    try:
+        yield sink
+    finally:
+        cls.snapshot = snap
+        if rec is not None:
+            cls.recover = rec
+
+
+def one_program_rows(whole, plan, dev) -> np.ndarray:
+    """The coded rows of a whole (cache, state) through the one-program
+    ``lcc_encode`` on ``dev``: what a rank-form snapshot is held against."""
+    shards, _ = shard_state_limbs(tree.map(lambda t: t.to(dev), whole), plan.K, dev)
+    rows = to_numpy(lcc_encode(plan, shards))
+    del shards
+    return rows
+
+
+def cm_serve(rank: int, dev, mcfg: dict) -> dict:
+    """(a), (b) and (b') on a rank: Qwen3-1.7B whole on the 2x2 mesh, the
+    trace unguarded, then under ``CodedServeGuard(K=2, R=2, mesh=hosts,
+    axis="hosts")`` over the four ranks (a gloo group), host 3 killed after
+    tick 8; then one snapshot of the state (b) leaves by the rank form at p
+    = 3. Rank 0 keeps the state and the coded rows of (b)'s first snapshot
+    and of (b')'s, and encodes each state with the one-program ``lcc_encode``
+    once the counted run is over (those launches and bytes are not the
+    guard's)."""
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    hosts = make_mesh((math.prod(MESH_SHAPE),), ("hosts",), group=dist.new_group(backend="gloo"), device=dev)
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    eng = ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=max_len, buckets=mcfg["buckets"],
+                           max_new_tokens=CM_MAX_NEW, mesh=mesh, rules=mesh_rules(cfg, max_len),
+                           metrics=MetricsRegistry())
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"held_bytes": local_bytes(eng.params), "init_s": time.perf_counter() - t0}
+    sync(dev)
+    rep = eng.serve(cm_requests(mcfg), greedy=True, sync_every=SERVE_SYNC)
+    out["plain"] = {"tokens": tokens_of(rep), "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_s,
+                    "decode_steps": rep.decode_steps}
+    plan = build_lcc(CM_K, R=CM_R)
+    guard = CodedServeGuard(K=CM_K, R=CM_R, injector=FaultInjector(kills=CM_KILLS), mesh=hosts, axis="hosts")
+    first: dict = {}
+    calls: dict = {}
+    host_ms: list = []
+    sync(dev)
+    reset_peak(dev)
+    zero_launches()
+    with guard_calls(CodedServeGuard, calls), timed(serve_coded, "lcc_decode", host_ms):
+        snap = guard.snapshot
+
+        def snapshot(cache, state, tick):
+            first["last"] = (cache, state)
+            if "rows" in first:
+                return snap(cache, state, tick)
+            whole = gather_state((cache, state), keep=rank == 0)  # every rank: the gathers are collective
+            # a copy: on the CPU ``.cpu()`` is the same tensor, which the engine updates in place
+            first["whole"] = None if whole is None else tree.map(lambda t: t.to("cpu", copy=True), whole)
+            del whole
+            snap(cache, state, tick)
+            first["rows"] = [guard.group._mem[j] for j in range(plan.N)] if rank == 0 else None
+
+        guard.snapshot = snapshot
+        rep = eng.serve(cm_requests(mcfg), greedy=True, sync_every=SERVE_SYNC, guard=guard)
+    sync(dev)
+    out["guarded"] = {"tokens": tokens_of(rep), "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_s,
+                      "stats": rep.coded, "alive": sorted(guard.alive), "launches": launch_counts(),
+                      "snapshot_ms": calls["snapshot_ms"], "recover_ms": calls.get("recover_ms", []),
+                      "lcc_decode_host_ms": host_ms, "width": calls.get("width"), "peak_bytes": peak(dev),
+                      "host": guard._host, "kernels": guard._ranks.kernels, "transport": guard._ranks.transport,
+                      "calls": ir_kernel_calls(guard._ranks.ir, mcfg["S"]["ranks"], batch=1)}
+
+    # (b'): the rank form at p = 3 on the (cache, state) (b)'s last snapshot was handed, as (b) left them
+    cache, state = first.pop("last")
+    wide = CodedServeGuard(K=CM_K, R=CM_R, p=CM_WIDE_P, mesh=hosts, axis="hosts")
+    sync(dev)
+    reset_peak(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    wide.snapshot(cache, state, tick=0)
+    sync(dev)
+    out["wide"] = {"launches": launch_counts(), "snapshot_ms": (time.perf_counter() - t0) * 1e3,
+                   "peak_bytes": peak(dev), "kernels": wide._ranks.kernels,
+                   "calls": ir_kernel_calls(wide._ranks.ir, mcfg["S"]["ranks"], batch=1),
+                   "width": len(next(iter(wide.group._mem.values()))) if wide.group._mem else None}
+    last = gather_state((cache, state), keep=rank == 0)
+    del cache, state
+    if rank == 0:  # both states through the one-program encode, after the counted runs
+        t0 = time.perf_counter()
+        want = one_program_rows(first.pop("whole"), plan, dev)
+        out["guarded"]["rows_equal_one_program"] = all(np.array_equal(want[j], first["rows"][j]) for j in range(plan.N))
+        out["guarded"]["row_hashes"] = [row_hash(r) for r in first["rows"]]
+        want = one_program_rows(last, wide.plan, dev)  # its own plan: the ω points are drawn for its p
+        out["wide"]["rows_equal_one_program"] = all(np.array_equal(want[j], wide.group._mem[j]) for j in range(plan.N))
+        out["compare_s"] = time.perf_counter() - t0
+    return out
+
+
+def cm_launcher(rank: int, dev, mcfg: dict) -> dict:
+    """(c) on a rank: ``launch/serve.py --mesh 2x2 --profile opt`` on phase
+    ``mesh``'s two prompts, without and with ``--coded 3,2 --kill 2:0
+    --kill 6:4`` (rank 0 prints)."""
+    argv = ["--arch", SERVE_ARCH, "--mesh", "2x2", "--max-new", str(CM_LAUNCH_NEW), "--max-len",
+            str(mcfg["max_len"]), "--profile", "opt", "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS),
+            *mcfg["launcher_extra"]]
+    res = {}
+    for name, extra in (("plain", []), ("coded", CM_LAUNCH_CODED)):
+        calls: dict = {}
+        buf = io.StringIO()
+        sync(dev)
+        reset_peak(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        with guard_calls(CodedServeGuard, calls), contextlib.redirect_stdout(buf):
+            rep = serve_main(argv + extra)
+        sync(dev)
+        res[name] = {"tokens": tokens_of(rep), "printed": buf.getvalue().splitlines(), "stats": rep.coded,
+                     "launches": launch_counts(), "seconds": time.perf_counter() - t0, "peak_bytes": peak(dev),
+                     "snapshot_ms": calls.get("snapshot_ms", []), "recover_ms": calls.get("recover_ms", []),
+                     "width": calls.get("width")}
+        del rep
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+    return res
+
+
+def cm_train(rank: int, dev, mcfg: dict) -> dict:
+    """(d) on a rank: ``launch/train.py --mesh 2x2 --smoke --coded-every 1``
+    for CM_TRAIN_STEPS steps; rank 0's shards and parity against a
+    one-process guard's over the gathered state (on the CPU: no launch); then
+    ``fail_and_recover(CM_TRAIN_LOST)`` and ``reshard_state`` onto the run's
+    shardings, each rank's blocks against those it held."""
+    from repro_torch.coded.rs_checkpoint import gather_state
+
+    argv = ["--arch", TRAIN_ARCH, "--mesh", "2x2", "--smoke", "--coded-every", "1", "--steps", str(CM_TRAIN_STEPS),
+            "--batch", str(SMALL_TRAIN_BATCH), "--seq", str(SMALL_TRAIN_SEQ), *mcfg["train_extra"]]
+    calls: dict = {}
+    sync(dev)
+    reset_peak(dev)
+    zero_launches()
+    with guard_calls(CodedStateGuard, calls), contextlib.redirect_stdout(io.StringIO()):
+        run = train_main(argv)
+    sync(dev)
+    rec = {"launches": launch_counts(), "losses": [h["loss"] for h in run["history"]],
+           "snapshot_ms": calls.get("snapshot_ms", []), "peak_bytes": peak(dev), "held_bytes": local_bytes(run["state"])}
+    g, final = run["guard"], run["state"]
+    rec.update(step=g.step, holds=g._shards is not None,
+               width=None if g._shards is None else int(g._shards.shape[1]))
+    one = gather_state(final, keep=rank == 0)
+    if rank == 0:
+        og = CodedStateGuard(K=CM_TRAIN_K, device="cpu")
+        og.snapshot(tree.map(lambda t: t.cpu(), one), g.step)
+        rec["one_process_equal"] = bool(np.array_equal(og._shards, g._shards) and np.array_equal(og._parity, g._parity))
+    del one
+    t0 = time.perf_counter()
+    back, step = g.fail_and_recover(CM_TRAIN_LOST)
+    sync(dev)
+    rec["recover_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    model, rules, ocfg = run["model"], run["rules"], run["opt_cfg"]
+    placed = elastic.reshard_state(back, {"params": param_shardings(model, mesh, rules),
+                                          "opt": opt_state_shardings(ocfg, model, mesh, rules)})
+    rec["recovered_step"] = step
+    rec["blocks_equal"] = all(
+        isinstance(a, DTensor) and isinstance(b, DTensor) and tuple(a.placements) == tuple(b.placements)
+        and a.to_local().shape == b.to_local().shape
+        and same(a.to_local().reshape(-1).view(torch.uint8), b.to_local().reshape(-1).view(torch.uint8))
+        for a, b in zip(tree.leaves(placed), tree.leaves(final)))
+    return rec
+
+
+def untokened(value):
+    """A part's result without its tokens, printed lines and hashes."""
+    if isinstance(value, dict):
+        return {k: untokened(v) for k, v in value.items() if k not in ("tokens", "printed", "row_hashes", "calls")}
+    return value
+
+
+def coded_mesh_worker(rank: int, world: int, init: str, mcfg: dict, go, out, device_type: str):
+    """A rank of phase ``coded_mesh``: joins the world (the port's staging
+    backend on the card, gloo on the CPU), says it is ready, waits for the
+    parent's go and runs (a)-(d), sending each part's result. Any error is
+    sent to the parent, which fails the run."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank lives on this host
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+        dev = torch.device("cpu")
+        backend = "gloo"
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+            staging.register()
+            backend = staging.BACKEND
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        torch.zeros(1, device=dev)
+        out.put(("ready", rank, None, None))
+        if not go.wait(CM_DEADLINE_S):
+            raise TimeoutError("the parent never said go")
+        for part, fn in (("serve", cm_serve), ("launcher", cm_launcher), ("train", cm_train)):
+            t0 = time.perf_counter()
+            res = fn(rank, dev, mcfg)
+            res["seconds"] = time.perf_counter() - t0
+            out.put(("ok", rank, part, res))
+            if dev.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out.put(("done", rank, None, None))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("error", rank, None, traceback.format_exc()))
+
+
+def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
+    """Phase ``coded_mesh``: one spawned world of four ranks on the card
+    runs (a)-(d); every check is the parent's. Returns (the launches of the
+    guards' kernels, summed over the ranks, the phase's record)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = math.prod(MESH_SHAPE)
+    ctx = mp.get_context("spawn")  # the parent has initialised CUDA: no fork
+    tmp = tempfile.TemporaryDirectory()
+    go, out = ctx.Event(), ctx.Queue()
+    init = "file://" + os.path.join(tmp.name, "store")
+    procs = [ctx.Process(target=coded_mesh_worker, args=(r, world, init, mcfg, go, out, dev.type), daemon=True)
+             for r in range(world)]
+    results: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        go.set()
+        want, got, deadline = world * 5, 0, time.monotonic() + CM_DEADLINE_S  # ready, 3 parts, done
+        while got < want:
+            try:
+                status, rank, part, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                check(not dead, f"coded_mesh: rank(s) {dead} died (exit codes {[procs[r].exitcode for r in dead]})")
+                check(time.monotonic() < deadline, f"coded_mesh: the ranks did not finish within {CM_DEADLINE_S} s")
+                continue
+            check(status != "error", f"coded_mesh: rank {rank} raised:\n{value}")
+            got += 1
+            if status == "ok":
+                results.setdefault(part, {})[rank] = value
+                if rank == 0:  # progress, on the error stream
+                    print(f"chip_smoke: coded_mesh/{part} done on rank 0 in {value['seconds']:.1f} s, "
+                          f"{time.perf_counter() - t0:.1f} s into the phase: "
+                          f"{json.dumps(untokened(value), default=str)[:3000]}", file=sys.stderr, flush=True)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t0
+    ranks = range(world)
+    on_card = dev.type == "cuda"
+    counted = {"gf_matmul": 0, "butterfly_mac": 0}
+
+    def add(launches: dict):
+        for k in counted:
+            counted[k] += launches[k]
+
+    # (a) and (b): the rank form's tokens equal the unguarded run's on every rank
+    sv = results["serve"]
+    base = sv[0]["plain"]["tokens"]
+    check(all(sv[r]["plain"]["tokens"] == base for r in ranks), "coded_mesh/serve: the ranks' unguarded tokens differ")
+    check(all(sv[r]["guarded"]["tokens"] == base for r in ranks),
+          "coded_mesh/serve: the guarded tokens differ from the unguarded run's")
+    g0 = sv[0]["guarded"]
+    check(g0["rows_equal_one_program"],
+          "coded_mesh/serve: the rank form's first coded rows differ from the one-program lcc_encode of the same limbs")
+    check(all(sv[r]["guarded"]["stats"]["recoveries"] == 1 and sv[r]["guarded"]["alive"] == [0, 1, 2]
+              and sv[r]["guarded"]["host"] == r for r in ranks),
+          f"coded_mesh/serve: guard stats {[sv[r]['guarded']['stats'] for r in ranks]}")
+    check(g0["width"] == mcfg["S"]["ranks"],
+          f"coded_mesh/serve: the coded rows are {g0['width']} limbs wide, not the {mcfg['S']['ranks']} phase 3 held")
+    snaps = g0["stats"]["snapshots"]
+    for r in ranks:
+        gr = sv[r]["guarded"]
+        check(gr["calls"] == mcfg["runs"]["ranks"], f"coded_mesh/serve: rank {r} runs other kernels than phase 3 held")
+        want = count_calls(mcfg["runs"]["ranks"])
+        check(not on_card or (gr["kernels"] == "cuda"
+                              and (gr["launches"]["gf_matmul"], gr["launches"]["butterfly_mac"])
+                              == (want[0] * snaps, want[1] * snaps)),
+              f"coded_mesh/serve: rank {r} launched {gr['launches']}, expected {want} a snapshot x {snaps}")
+        add(gr["launches"])
+    want = count_calls(mcfg["runs"]["wide"])
+    check(sv[0]["wide"]["rows_equal_one_program"],
+          f"coded_mesh/serve: the p={CM_WIDE_P} rank form's rows differ from the one-program lcc_encode")
+    for r in ranks:
+        w = sv[r]["wide"]
+        check(w["calls"] == mcfg["runs"]["wide"], f"coded_mesh/serve: rank {r} runs other kernels at p={CM_WIDE_P}")
+        check(not on_card or (w["kernels"] == "cuda" and (w["launches"]["gf_matmul"], w["launches"]["butterfly_mac"])
+                              == want), f"coded_mesh/serve: rank {r} launched {w['launches']} at p={CM_WIDE_P}")
+        add(w["launches"])
+    check(sv[0]["wide"]["width"] == mcfg["S"]["ranks"], "coded_mesh/serve: the p=3 rows are not the width phase 3 held")
+    serve_rec = {
+        "arch": SERVE_ARCH, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "slots": SERVE_SLOTS, "max_len": mcfg["max_len"],
+        "requests": [len(r.prompt) for r in cm_requests(mcfg)], "max_new": CM_MAX_NEW, "K": CM_K, "R": CM_R,
+        "kills": CM_KILLS, "tokens_equal_unguarded_every_rank": True, "rows_equal_one_program": True,
+        "row_limbs": g0["width"], "row_hashes": g0["row_hashes"],
+        "unguarded": {k: sv[0]["plain"][k] for k in ("tokens_per_s", "wall_s", "decode_steps")},
+        "guarded": {"tokens_per_s": g0["tokens_per_s"], "wall_s": g0["wall_s"], "stats": g0["stats"]},
+        "launches": {r: sv[r]["guarded"]["launches"] for r in ranks},
+        "snapshot_ms": {r: sv[r]["guarded"]["snapshot_ms"] for r in ranks},
+        "recover_ms": {r: sv[r]["guarded"]["recover_ms"] for r in ranks},
+        "lcc_decode_host_ms": g0["lcc_decode_host_ms"],
+        "held_bytes": [sv[r]["held_bytes"] for r in ranks], "peak_bytes": [sv[r]["guarded"]["peak_bytes"] for r in ranks],
+        "transport": g0["transport"], "seconds": [sv[r]["seconds"] for r in ranks],
+        "init_s": [sv[r]["init_s"] for r in ranks], "compare_s": sv[0]["compare_s"],
+        "p3": {"p": CM_WIDE_P, "rows_equal_one_program": True,
+               "launches": {r: sv[r]["wide"]["launches"] for r in ranks},
+               "snapshot_ms": [sv[r]["wide"]["snapshot_ms"] for r in ranks],
+               "peak_bytes": [sv[r]["wide"]["peak_bytes"] for r in ranks]}}
+
+    # (c) the launcher: --coded gives the tokens of the same command without it
+    ln = results["launcher"]
+    check(all(ln[r]["coded"]["tokens"] == ln[r]["plain"]["tokens"] == ln[0]["plain"]["tokens"] for r in ranks),
+          f"coded_mesh/launcher: --coded gives other tokens: {ln[0]['coded']['tokens']} {ln[0]['plain']['tokens']}")
+    lc = ln[0]["coded"]
+    check(lc["stats"]["recoveries"] == 2 and lc["stats"]["injected_faults"] == 2,
+          f"coded_mesh/launcher: stats {lc['stats']}")
+    check(lc["width"] == mcfg["S"]["launch"],
+          f"coded_mesh/launcher: the coded shards are {lc['width']} limbs wide, not {mcfg['S']['launch']}")
+    check(any("cli-0" in s for s in lc["printed"]) and not any(ln[r]["coded"]["printed"] for r in ranks if r),
+          "coded_mesh/launcher: rank 0 alone must print the sequences")
+    lsnaps = lc["stats"]["snapshots"]
+    want = count_calls(mcfg["runs"]["launch"])
+    for r in ranks:
+        got = ln[r]["coded"]["launches"]
+        exp = (want[0] * lsnaps, want[1] * lsnaps) if r == 0 else (0, 0)
+        check(not on_card or (got["gf_matmul"], got["butterfly_mac"]) == exp,
+              f"coded_mesh/launcher: rank {r} launched {got}, expected {exp}")
+        add(got)
+    launcher_rec = {"argv_coded": CM_LAUNCH_CODED, "max_new": CM_LAUNCH_NEW, "tokens_equal_uncoded": True,
+                    "printed": lc["printed"], "stats": lc["stats"], "shard_limbs": lc["width"],
+                    "snapshot_ms": lc["snapshot_ms"], "recover_ms": lc["recover_ms"],
+                    "seconds": {"plain": ln[0]["plain"]["seconds"], "coded": lc["seconds"]},
+                    "peak_bytes": [ln[r]["coded"]["peak_bytes"] for r in ranks],
+                    "launches": {r: ln[r]["coded"]["launches"] for r in ranks}}
+
+    # (d) the train guard over the meshed smoke state
+    tr = results["train"]
+    check(all(tr[r]["losses"] == tr[0]["losses"] and all(math.isfinite(v) for v in tr[r]["losses"]) for r in ranks),
+          f"coded_mesh/train: losses {[tr[r]['losses'] for r in ranks]}")
+    check(tr[0]["one_process_equal"], "coded_mesh/train: the shards or parity differ from a one-process guard's")
+    check(all(tr[r]["blocks_equal"] and tr[r]["recovered_step"] == tr[r]["step"] == CM_TRAIN_STEPS - 1 for r in ranks),
+          "coded_mesh/train: fail_and_recover + reshard_state is not bit-exact on every rank")
+    check(tr[0]["holds"] and not any(tr[r]["holds"] for r in ranks if r),
+          "coded_mesh/train: rank 0 alone must hold the shards")
+    check(tr[0]["width"] == mcfg["S"]["train"],
+          f"coded_mesh/train: shards {tr[0]['width']} limbs wide, not {mcfg['S']['train']}")
+    want = count_calls(mcfg["runs"]["train"])
+    tsnaps = len(tr[0]["snapshot_ms"])
+    for r in ranks:
+        got = tr[r]["launches"]
+        exp = (want[0] * tsnaps, want[1] * tsnaps) if r == 0 else (0, 0)
+        check(not on_card or (got["gf_matmul"], got["butterfly_mac"]) == exp,
+              f"coded_mesh/train: rank {r} launched {got}, expected {exp}")
+        add(got)
+    train_rec = {"argv": ["--smoke", "--coded-every", "1", "--steps", CM_TRAIN_STEPS, "--batch", SMALL_TRAIN_BATCH,
+                          "--seq", SMALL_TRAIN_SEQ], "K": CM_TRAIN_K, "lost": CM_TRAIN_LOST, "losses": tr[0]["losses"],
+                 "shard_limbs": tr[0]["width"], "one_process_equal": True, "reshard_bit_equal": True,
+                 "snapshot_ms": {r: tr[r]["snapshot_ms"] for r in ranks}, "recover_ms": [tr[r]["recover_ms"] for r in ranks],
+                 "held_bytes": [tr[r]["held_bytes"] for r in ranks], "peak_bytes": [tr[r]["peak_bytes"] for r in ranks],
+                 "seconds": tr[0]["seconds"]}
+    check(phase_s <= CM_PHASE_S, f"coded_mesh: the phase took {phase_s:.1f} s, over {CM_PHASE_S} s")
+    return counted, {"serve": serve_rec, "launcher": launcher_rec, "train": train_rec, "launches": counted,
+                     "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -4479,8 +4994,9 @@ def main() -> int:
     ssm_cfg = ssm_config()
     encvlm_cfg = encvlm_config()
     analysis_cfgs = analysis_configs()
+    cm_cfg = coded_mesh_config()
     shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs
-                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs, P)
+                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs + cm_cfg["paths"], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -4574,7 +5090,7 @@ def main() -> int:
     ssm_launches, ssmd = ssm_phase(ssm_cfg, dev)
     say("ssm", card=smi, **ssmd)
 
-    # phase 13: the encoder-decoder and VLM families, Whisper-base whole and InternVL2-26B at 24 layers, each on an emptied card
+    # phase 13: the encoder-decoder and VLM families, Whisper-base whole and InternVL2-26B at 12 layers, each on an emptied card
     encvlm_launches, encvlmd = encvlm_phase(encvlm_cfg, dev)
     say("encdec_vlm", card=smi, **encvlmd)
 
@@ -4587,6 +5103,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     say("mesh", card=smi, **mesh_phase(mesh_config(), dev))
 
+    # phase 16: the coded guards on the 2x2 mesh, counted on the ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    coded_mesh_launches, coded_meshed = coded_mesh_phase(cm_cfg, dev)
+    say("coded_mesh", card=smi, **coded_meshed)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
@@ -4594,7 +5116,7 @@ def main() -> int:
                            + serve_launches[row["name"]] + train_launches[row["name"]]
                            + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
                            + ssm_launches[row["name"]] + encvlm_launches[row["name"]]
-                           + analysis_launches[row["name"]])
+                           + analysis_launches[row["name"]] + coded_mesh_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -28,6 +28,14 @@ JAX's pytree order (``repro_torch.tree``), so they equal the reference's
 ``uint32`` limbs value for value. The encodes run on the device where the
 limbs lie; :func:`state_to_limbs` puts them on ``device`` (``None``: the
 card). Recovery runs on the host in numpy, as in the reference.
+
+A state on a mesh of ranks (``DTensor`` leaves) is read by its global value:
+its limbs and :class:`LimbMeta` are those of the same state whole. Reading a
+DTensor leaf gathers it (``full_tensor()``), a collective call that every
+rank of its mesh makes in the same order. The guards gather the leaves one at
+a time to one rank, which alone builds the limbs (:func:`gather_state`), or
+let each rank build one shard row (:func:`state_limb_row`); a rebuilt state
+goes back to every rank whole (:func:`broadcast_state`).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import tree
 from ..core.field import M31, Field, resolve_device, to_tensor
@@ -66,11 +76,14 @@ _TO_32_BITS = {np.dtype(a): np.dtype(b) for a, b in (
 
 def leaf_tensor(leaf) -> torch.Tensor:
     """A state leaf as the tensor the coded layer reads. A tensor stays as
-    it is. Anything else (a Python scalar, a numpy array, an object with
+    it is; a ``DTensor`` is its full tensor (a collective call over its
+    mesh). Anything else (a Python scalar, a numpy array, an object with
     ``__array__``) is read as the reference's ``jnp.asarray`` reads it: a
     64-bit type becomes its 32-bit one (a Python ``int`` an ``int32``, out
     of range raising ``OverflowError``; a ``float`` a ``float32``), and a
     bfloat16 array, which numpy cannot name, moves by its bits."""
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor().detach()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     if isinstance(leaf, int) and not isinstance(leaf, (bool, np.generic)):
@@ -92,6 +105,37 @@ class LimbMeta:
     total: int
 
 
+def _leaf_limbs(arr: torch.Tensor, start: int = 0, stop: int | None = None) -> torch.Tensor:
+    """Limbs ``start:stop`` of one leaf as an ``int32`` tensor where ``arr``
+    lies: its bytes in little-endian pairs, a ``bool`` read as ``uint8``, an
+    odd byte count padded with one zero byte."""
+    if arr.dtype == torch.bool:  # a bool's byte is 0 or 1: read it as uint8
+        arr = arr.to(torch.uint8)
+    u8 = arr.contiguous().reshape(-1).view(torch.uint8)
+    u8 = u8[2 * start : None if stop is None else 2 * stop]
+    if u8.numel() % 2:
+        u8 = torch.cat([u8, u8.new_zeros(1)])
+    return u8[0::2].to(torch.int32) | (u8[1::2].to(torch.int32) << 8)
+
+
+def _limb_size(shape, dtype: torch.dtype) -> int:
+    return -(-math.prod(shape) * dtype.itemsize // 2)
+
+
+def state_meta(state) -> LimbMeta:
+    """The :class:`LimbMeta` of ``state``'s limbs, read from each leaf's
+    shape and type alone (a ``DTensor``'s global ones): nothing is gathered
+    or computed, so every rank of a mesh can read it on its own."""
+    leaves, treedef = tree.flatten(state)
+    shapes, dtypes = [], []
+    for leaf in leaves:
+        arr = leaf if isinstance(leaf, torch.Tensor) else leaf_tensor(leaf)
+        shapes.append(tuple(arr.shape))
+        dtypes.append(arr.dtype)
+    sizes = [_limb_size(s, d) for s, d in zip(shapes, dtypes)]
+    return LimbMeta(treedef, shapes, dtypes, sizes, sum(sizes))
+
+
 def state_to_limbs(state, device=None) -> tuple[torch.Tensor, LimbMeta]:
     """Pytree → (S,) ``int32`` tensor of 16-bit limbs (canonical mod-q
     elements) on ``device`` (``None``: the card). A leaf that is not a tensor
@@ -106,12 +150,7 @@ def state_to_limbs(state, device=None) -> tuple[torch.Tensor, LimbMeta]:
         arr = leaf_tensor(leaf).to(dev)
         shapes.append(tuple(arr.shape))
         dtypes.append(arr.dtype)
-        if arr.dtype == torch.bool:  # a bool's byte is 0 or 1: read it as uint8
-            arr = arr.to(torch.uint8)
-        u8 = arr.contiguous().reshape(-1).view(torch.uint8)
-        if u8.numel() % 2:
-            u8 = torch.cat([u8, u8.new_zeros(1)])
-        u16 = u8[0::2].to(torch.int32) | (u8[1::2].to(torch.int32) << 8)
+        u16 = _leaf_limbs(arr)
         sizes.append(int(u16.numel()))
         parts.append(u16)
     limbs = torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -267,3 +306,100 @@ def shard_state_limbs(state, K: int, device=None) -> tuple[torch.Tensor, LimbMet
 
 def unshard_state_limbs(shards, meta: LimbMeta):
     return limbs_to_state(as_residues(shards).reshape(-1)[: meta.total], meta)
+
+
+# ---------------------------------------------------------------------------
+# a state on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+def mesh_group(state):
+    """``(group, root)`` of a state on a mesh of ranks: the process group
+    over every rank of its ``DTensor`` leaves' mesh and the global rank that
+    gathers and encodes (the mesh's first); ``None`` for a state with no
+    ``DTensor`` leaf. A mesh of more than one axis must span the whole
+    world."""
+    dm = next((leaf.device_mesh for leaf in tree.leaves(state) if isinstance(leaf, DTensor)), None)
+    if dm is None:
+        return None
+    ranks = sorted(int(r) for r in dm.mesh.flatten().tolist())
+    if dm.ndim == 1:
+        return dm.get_group(0), ranks[0]
+    if ranks != list(range(dist.get_world_size())):
+        raise ValueError(f"a state on a mesh of ranks {ranks} that is not the whole world "
+                         f"of {dist.get_world_size()} ranks")
+    return dist.group.WORLD, ranks[0]
+
+
+def gather_state(state, keep: bool):
+    """``state`` whole, every ``DTensor`` leaf by its full tensor, gathered
+    one leaf at a time: a collective call that every rank of the mesh makes.
+    A rank with ``keep`` false drops each gathered leaf at once and gets
+    ``None``."""
+    leaves, treedef = tree.flatten(state)
+    out = []
+    for leaf in leaves:
+        t = leaf_tensor(leaf)
+        if keep:
+            out.append(t)
+    return tree.unflatten(treedef, out) if keep else None
+
+
+def state_limb_row(state, K: int, j: int, device=None) -> torch.Tensor:
+    """Row ``j`` of ``shard_state_limbs(state, K)[0]`` ((S,) ``int32`` on
+    ``device``), built from the leaves that overlap it; a row past the K-th
+    is zeros (the LCC padding). Every ``DTensor`` leaf is gathered, so every
+    rank of the mesh calls it, each for its own row."""
+    dev = resolve_device(device)
+    meta = state_meta(state)
+    S = -(-meta.total // K)
+    lo, hi = j * S, (j + 1) * S
+    row = torch.zeros((S,), dtype=torch.int32, device=dev)
+    off = 0
+    for leaf, size in zip(tree.leaves(state), meta.sizes_u16):
+        t = leaf_tensor(leaf)
+        a, b = max(off, lo), min(off + size, hi)
+        if a < b:
+            row[a - lo : b - lo] = _leaf_limbs(t.to(dev), a - off, b - off)
+        off += size
+    return row
+
+
+def on_root(fn, group, root: int):
+    """``fn()`` on the rank ``root`` of ``group`` alone, its outcome told to
+    every rank (a collective call): root gets what ``fn`` returned and
+    every other rank ``None``; when ``fn`` raises, root raises its error and
+    every other rank a ``RuntimeError`` naming root."""
+    out, err = None, None
+    if dist.get_rank() == root:
+        try:
+            out = fn()
+        except Exception as e:  # told to every rank, then raised
+            err = e
+    failed = torch.tensor([int(err is not None)], dtype=torch.int64)
+    dist.broadcast(failed, src=root, group=group)
+    if err is not None:
+        raise err
+    if int(failed[0]):
+        raise RuntimeError(f"the coded state's recovery failed on rank {root}")
+    return out
+
+
+def broadcast_state(state, meta: LimbMeta, group, root: int, device=None):
+    """The whole plain state on every rank of ``group``: ``root`` sends its
+    ``state`` leaf by leaf (by its bytes, from host memory: a gloo group
+    takes no CUDA tensor), every other rank passes ``None`` and receives
+    into tensors of ``meta``'s shapes and types on ``device`` (``None``: the
+    card)."""
+    dev = resolve_device(device)
+    mine = tree.leaves(state) if state is not None else None
+    out = []
+    for i, (shape, dtype) in enumerate(zip(meta.shapes, meta.dtypes)):
+        t = mine[i].to(dev).contiguous() if mine is not None else torch.empty(shape, dtype=dtype, device=dev)
+        raw = t.reshape(-1).view(torch.uint8)
+        host = raw.cpu() if raw.is_cuda else raw
+        dist.broadcast(host, src=root, group=group)
+        if raw.is_cuda:
+            raw.copy_(host)
+        out.append(t)
+    return tree.unflatten(meta.treedef, out)

@@ -33,8 +33,13 @@ torchrun, each drawing the full weights from the seed and keeping its shard
         --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu
 
 On the card the ranks share it over the port's staging backend
-(``dist.staging``); on the CPU over gloo. ``--coded`` with a mesh is
-refused: the coded guard over a mesh waits for ROADMAP.md queue A2.
+(``dist.staging``); on the CPU over gloo. ``--coded`` works on a mesh as on
+one card: every rank runs the guard, the mesh's first rank gathers the
+meshed decode state, encodes it and holds the coded shards, and a recovery
+gives every rank the same rebuilt state:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu --coded 3,2 --kill 2:0 --kill 6:4
 """
 
 from __future__ import annotations
@@ -84,13 +89,9 @@ def main(argv=None):
     if args.kill and args.coded is None:
         ap.error("--kill requires --coded K,R")
     try:
-        meshed = parse_mesh(args.mesh) != (1, 1)
+        parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
-    if meshed and args.coded is not None:
-        ap.error(f"--coded with --mesh {args.mesh}: the coded guard over a mesh of ranks waits for "
-                 "ROADMAP.md queue A2")
-
     dev = resolve_device(args.device)
     try:
         mesh, joined = launcher_mesh(args.mesh, dev)

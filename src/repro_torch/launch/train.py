@@ -23,11 +23,14 @@ torchrun: each rank draws the full weights and the same global batch from
 the seed and keeps its shard (``train.train_loop``'s ``param_shardings``,
 ``opt_state_shardings``, ``batch_shardings``); the checkpoint is written
 whole by rank 0 and restored under the same shardings; only rank 0 prints.
-``--coded-every`` must be 0 there: encoding a sharded state is ROADMAP.md
-queue A3's.
+``--coded-every`` snapshots the sharded state on every rank together: rank 0
+gathers it and alone holds the parity (``train.elastic.CodedStateGuard``),
+so the returned guard recovers on rank 0's word, and
+``guard.fail_and_recover`` (called on every rank) then ``reshard_state``
+put the rebuilt state back on the mesh.
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu --coded-every 0
+        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu --coded-every 1 --steps 3 --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -85,13 +88,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     try:
-        meshed = parse_mesh(args.mesh) != (1, 1)
+        parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
-    if meshed and args.coded_every:
-        ap.error(f"--coded-every {args.coded_every} with --mesh {args.mesh}: encoding a sharded state waits "
-                 "for ROADMAP.md queue A3 (pass --coded-every 0)")
-
     dev = resolve_device(args.device)
     try:
         mesh, joined = launcher_mesh(args.mesh, dev)

@@ -11,7 +11,17 @@ coded replicas** with the padded Lagrange/Vandermonde generator
 (``repro_torch.coded.lcc_encode`` — one universal prepare-and-shoot
 all-to-all encode; with ``collective=True`` the same generator runs as the
 compiled round schedule of ``dist.collectives.ps_encode``, the N hosts being
-the tensor's first axis). Each coded shard is owned by one simulated "host".
+the tensor's first axis; with ``mesh=``/``axis=`` as the rank executor
+``coded.lcc_encode_ranks``, one host a rank of an N-wide mesh axis). Each
+coded shard is owned by one simulated "host".
+
+On a mesh of ranks every rank runs the engine and calls the guard. A state
+whose leaves are ``DTensor`` s is read by its global value; the mesh's first
+rank (the host axis's first, with ``mesh=``) alone holds the coded shards and
+the :class:`CodedDecodeGroup`, decides which hosts died and rebuilds the
+state, and every rank gets the same answer from it: the same dead hosts from
+:meth:`CodedServeGuard.poll`, the same whole state from
+:meth:`CodedServeGuard.recover`.
 
 A :class:`FaultInjector` kills hosts at scheduled decode ticks (or a
 :class:`ProcessHostPool` host — a real OS process holding its shard — is
@@ -41,15 +51,26 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..coded.lagrange_compute import (
     build_lcc,
     lcc_decode,
     lcc_encode,
     lcc_encode_collective,
+    lcc_encode_ranks,
     lcc_pad,
 )
-from ..coded.rs_checkpoint import shard_state_limbs, unshard_state_limbs
+from ..coded.rs_checkpoint import (
+    broadcast_state,
+    gather_state,
+    mesh_group,
+    on_root,
+    shard_state_limbs,
+    state_limb_row,
+    state_meta,
+    unshard_state_limbs,
+)
 from ..core.field import NTT, resolve_device, to_numpy, to_tensor
 
 #: seconds a host process is given to end once asked to
@@ -300,7 +321,17 @@ class CodedServeGuard:
     too. ``collective=True`` runs the encode through the compiled round
     schedule (``coded.lcc_encode_collective``) instead of the single-program
     encode; ``kernels=`` picks that executor's LocalOp lowering, as in
-    ``dist.collectives``."""
+    ``dist.collectives``.
+
+    ``mesh=``/``axis=`` (a ``launch.mesh.RankMesh`` whose axis ``axis``
+    holds N ranks over gloo) runs the encode on the ranks
+    (``coded.lcc_encode_ranks``; ``kernels=`` its lowering): the rank at
+    index j of ``axis`` builds row j of the padded limb shards (zeros for
+    j ≥ K) and encodes it, and the N coded rows are gathered to the axis's
+    first rank, whose :class:`CodedDecodeGroup` (and ``hosts=`` pool: give
+    it on that rank alone) stores them. Every rank of the mesh constructs
+    the guard and calls its methods. The guard computes on the mesh's
+    device unless ``device`` says otherwise."""
 
     def __init__(
         self,
@@ -313,12 +344,18 @@ class CodedServeGuard:
         collective: bool = False,
         kernels: str | None = None,
         device=None,
+        mesh=None,
+        axis: str | None = None,
     ):
         if R < 1:
             raise ValueError("coded serving needs R ≥ 1 parity shards")
-        if kernels is not None and not collective:
+        if mesh is not None and axis is None:
+            raise ValueError("mesh= requires axis=")
+        if mesh is not None and collective:
+            raise ValueError("mesh= runs the encode on the ranks: collective=True is the one-card schedule")
+        if kernels is not None and not collective and mesh is None:
             raise ValueError("kernels= selects the collective executor's lowering: pass collective=True")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or mesh is None else mesh.device)
         self.plan = build_lcc(K, p=p, q=q, R=R)
         self.K, self.R, self.N = K, R, K + R
         self.injector = injector
@@ -327,6 +364,12 @@ class CodedServeGuard:
         self._collective = (
             lcc_encode_collective(self.plan, device=self.device, kernels=kernels) if collective else None
         )
+        #: the rank executor's callable, this rank's host index and the
+        #: (group, first rank) of the host axis, with ``mesh=``
+        self._ranks = lcc_encode_ranks(mesh, axis, self.plan, kernels=kernels) if mesh is not None else None
+        self._host = mesh.index(axis) if mesh is not None else None
+        self._mesh = (mesh.axis_group(axis), mesh.peer(axis, 0)) if mesh is not None else None
+        self._peers = [mesh.peer(axis, j) for j in range(self.N)] if mesh is not None else None
         self._meta = None
         self._tick = -1
         self._metrics = None
@@ -352,32 +395,75 @@ class CodedServeGuard:
         """Scheduled kills fired (injector) or external deaths detected."""
         return self.injector.injected if self.injector is not None else len(self.faults)
 
+    def _is_root(self) -> bool:
+        return self._mesh is None or dist.get_rank() == self._mesh[1]
+
     def snapshot(self, cache, state, tick: int) -> None:
         """Encode the decode-path state ((cache, state) pytree → limbs →
         K shards → N coded shards) and hand shard j to host j. Every leaf
         is read by its bytes: bf16 slabs, int32 counters and seeds, the
-        bool mask as one byte a flag."""
-        shards, meta = shard_state_limbs((cache, state), self.K, self.device)
-        if self._collective is None:
-            coded = lcc_encode(self.plan, shards)
-        else:  # the round schedule runs over all N hosts: pad to N rows
-            coded = self._collective(lcc_pad(self.plan, shards))
-        coded = to_numpy(coded)
-        self._meta, self._tick = meta, tick
-        self.group.store(coded)
+        bool mask as one byte a flag; a ``DTensor`` leaf by its global
+        value."""
+        whole = (cache, state)
+        if self._ranks is not None:
+            coded = self._encode_on_ranks(whole)
+        else:
+            self._mesh = mesh_group(whole)
+            if self._mesh is not None:
+                self._meta = state_meta(whole)
+                whole = gather_state(whole, keep=self._is_root())
+            coded = None
+            if whole is not None:
+                shards, meta = shard_state_limbs(whole, self.K, self.device)
+                if self._collective is None:
+                    coded = lcc_encode(self.plan, shards)
+                else:  # the round schedule runs over all N hosts: pad to N rows
+                    coded = self._collective(lcc_pad(self.plan, shards))
+                coded = to_numpy(coded)
+                self._meta = meta
+        self._tick = tick
+        if coded is not None:
+            self.group.store(coded)
         self.snapshots += 1
         if self._metrics is not None:
             self._metrics.counter("serve.snapshots").inc()
 
+    def _encode_on_ranks(self, whole):
+        """This rank's row encoded on the ranks; the N coded rows gathered
+        (on the host) to the axis's first rank, which gets them as an
+        (N, S) numpy array; ``None`` on every other rank."""
+        group, root = self._mesh
+        self._meta = state_meta(whole)
+        row = state_limb_row(whole, self.K, self._host, self.device)
+        out = self._ranks(row[None])[0]
+        host = out.cpu() if out.is_cuda else out.contiguous()
+        rows = [torch.empty_like(host) for _ in range(dist.get_world_size(group))] if self._is_root() else None
+        dist.gather(host, rows, dst=root, group=group)
+        if rows is None:
+            return None
+        # the gather lands in the group's rank order: host j's row at its peer's group rank
+        members = [dist.get_global_rank(group, i) for i in range(dist.get_world_size(group))]
+        return np.stack([to_numpy(rows[members.index(r)]) for r in self._peers])
+
     def poll(self, now_tick: int) -> list[int]:
         """Fire due injector kills (SIGKILL when hosts are processes) and
-        detect externally dead hosts; returns hosts lost this chunk."""
+        detect externally dead hosts; returns hosts lost this chunk. On a
+        mesh the first rank decides and every rank gets its answer."""
         dead = []
         if self.injector is not None:
             for _t, h in self.injector.due(now_tick):
-                if self.group.kill(h):
+                if self._is_root() and self.group.kill(h):
                     dead.append(h)
-        dead.extend(self.group.scan())
+        if self._is_root():
+            dead.extend(self.group.scan())
+        if self._mesh is not None:
+            group, root = self._mesh
+            told = torch.full((self.N + 1,), -1, dtype=torch.int64)
+            told[0] = len(dead)
+            told[1 : 1 + len(dead)] = torch.tensor(dead, dtype=torch.int64)
+            dist.broadcast(told, src=root, group=group)
+            dead = told[1 : 1 + int(told[0])].tolist()
+            self.group.alive.difference_update(dead)
         for h in dead:
             self.faults.append((h, now_tick))
         return dead
@@ -386,7 +472,8 @@ class CodedServeGuard:
         """Rebuild the chunk-start (cache, state) bit-exactly from any K
         surviving coded shards (Lagrange interpolation), on the guard's
         device. Raises RuntimeError once fewer than K shards survive —
-        beyond the code's tolerance."""
+        beyond the code's tolerance. On a mesh every rank calls it and gets
+        the whole state, rebuilt on the first rank."""
         if self._meta is None:
             raise RuntimeError("no snapshot taken before recovery")
         span = (
@@ -398,8 +485,12 @@ class CodedServeGuard:
         )
         with span:
             t0 = time.perf_counter()
-            X = self.group.reconstruct()
-            cache, state = unshard_state_limbs(to_tensor(X, self.device), self._meta)
+            if self._mesh is None:
+                cache, state = self._rebuild()
+            else:
+                group, root = self._mesh
+                cache, state = broadcast_state(on_root(self._rebuild, group, root), self._meta, group, root,
+                                               self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dur_us = (time.perf_counter() - t0) * 1e6
@@ -410,6 +501,10 @@ class CodedServeGuard:
             self._metrics.counter("serve.recoveries").inc(len(dead))
             self._metrics.histogram("serve.recovery_us").observe(dur_us)
         return cache, state
+
+    def _rebuild(self):
+        X = self.group.reconstruct()
+        return unshard_state_limbs(to_tensor(X, self.device), self._meta)
 
     def stats(self) -> dict:
         """JSON-ready recovery block for the benchmark record."""

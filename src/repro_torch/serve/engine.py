@@ -37,9 +37,10 @@ per-slot state and the sampling stay whole on every rank, the parameters
 and the decode cache are DTensors placed by ``train.train_loop``'s
 ``param_shardings`` and ``cache_shardings`` under the engine's rules, and
 the logits a step returns are gathered whole (``full_tensor``) before the
-argmax or the draw, so every rank picks the same tokens. The coded guard
-over a mesh is not ported (ROADMAP A2): ``serve(guard=)`` with a mesh
-raises.
+argmax or the draw, so every rank picks the same tokens. A coded guard
+(``serve(guard=)``) runs on every rank too: it reads the meshed cache by its
+global value, and after a recovery the engine places the rebuilt cache back
+on the mesh under ``cache_shardings`` before the replay.
 
 Observability (``repro_torch.obs``): ``serve.steps`` / ``serve.generate_ms``
 / ``serve.tokens_per_s`` (generated tokens only in BOTH engines) /
@@ -535,9 +536,6 @@ class ContinuousEngine:
         """
         if not greedy and temperature <= 0:
             raise ValueError(f"sampling needs temperature > 0, got {temperature}")
-        if guard is not None and self.mesh is not None:
-            raise ValueError("the coded serving guard over a mesh of ranks is not ported: it waits for "
-                             "ROADMAP.md queue A2 (CodedServeGuard(mesh=) and NCCL)")
         if guard is not None and guard.device.type != self.device.type:
             raise ValueError(f"the guard runs on {guard.device}, the engine on {self.device}")
         reg = self._registry()
@@ -625,6 +623,8 @@ class ContinuousEngine:
                     # deterministic replay (the sampling seeds live in the
                     # state) — the replayed tokens are bit-identical
                     cache, state = guard.recover(dead, requests_in_flight=len(occ))
+                    if self.mesh is not None:  # the whole cache, back on the mesh
+                        cache = place(cache, cache_shardings(self.model, self.mesh, self.rules, cache))
                     cache, state, active_now = run_chunk(cache, state)
             # 3. harvest + retire finished slots (they refill next iteration)
             finished = [s for s in occ if not active_now[s]]

@@ -16,6 +16,15 @@ one device and the parity is encoded there
 (``coded.rs_checkpoint.encode_parity``); on a cluster the same arrays live on
 distinct hosts and the encode runs across them
 (``encode_parity_collective``).
+
+A state on a mesh of ranks (``DTensor`` leaves, as ``launch/train.py
+--mesh`` holds it) is snapshotted by every rank of the mesh together: the
+leaves are gathered one at a time to the mesh's first rank, which alone
+builds the limbs and encodes the parity; every other rank keeps only the
+snapshot's step and the limbs' layout. :meth:`CodedStateGuard.fail_and_recover`
+is then a collective call too: the first rank rebuilds the whole state and
+sends it to every rank, which places it back on the mesh with
+:func:`reshard_state`.
 """
 
 from __future__ import annotations
@@ -24,12 +33,19 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch.distributed as dist
+
 from ..coded.rs_checkpoint import (
     ParityPlan,
+    broadcast_state,
     build_parity_plan,
     encode_parity,
+    gather_state,
+    mesh_group,
+    on_root,
     recover_lost,
     shard_state_limbs,
+    state_meta,
     unshard_state_limbs,
 )
 from ..core.field import resolve_device, to_numpy, to_tensor
@@ -40,7 +56,9 @@ from .train_loop import place
 class CodedStateGuard:
     """Parity of a state pytree across K replicas. The limbs and the parity
     are computed on ``device`` (``None``: the card; ``"cpu"`` runs the plain
-    path) and copied to the host, where recovery runs in numpy."""
+    path) and copied to the host, where recovery runs in numpy. On a state
+    on a mesh of ranks, ``_shards`` and ``_parity`` are held by the mesh's
+    first rank alone (see the module's docstring)."""
 
     K: int
     p: int = 1
@@ -50,6 +68,8 @@ class CodedStateGuard:
     _parity: np.ndarray | None = None
     _meta: object = None
     step: int = -1
+    #: (process group, encoding rank) of the last snapshot's mesh, or None
+    _mesh: tuple | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -57,7 +77,17 @@ class CodedStateGuard:
             self.plan = build_parity_plan(self.K, self.p)
 
     def snapshot(self, state, step: int):
-        """Encode parity of the current state (call every coded_every steps)."""
+        """Encode parity of the current state (call every coded_every steps).
+        On a state on a mesh of ranks every rank of the mesh calls it."""
+        self._mesh = mesh_group(state)
+        if self._mesh is not None:
+            root = self._mesh[1]
+            self._meta = state_meta(state)
+            state = gather_state(state, keep=dist.get_rank() == root)
+            self.step = step
+            if state is None:
+                self._shards = self._parity = None
+                return
         shards, meta = shard_state_limbs(state, self.K, self.device)
         parity = encode_parity(shards, self.plan)
         self._shards = to_numpy(shards)
@@ -68,7 +98,17 @@ class CodedStateGuard:
     def fail_and_recover(self, lost: list[int]):
         """Simulate losing `lost` replicas (their x AND parity shards) and
         rebuild the full state bit-exactly from the survivors, on the
-        guard's device. Returns ``(state, step of the snapshot)``."""
+        guard's device. Returns ``(state, step of the snapshot)``, the state
+        whole: after a snapshot of a state on a mesh of ranks every rank
+        calls it and gets the whole state (:func:`reshard_state` puts it
+        back on the mesh)."""
+        if self._mesh is not None:
+            group, root = self._mesh
+            whole = on_root(lambda: self._recover(lost), group, root)
+            return broadcast_state(whole, self._meta, group, root, self.device), self.step
+        return self._recover(lost), self.step
+
+    def _recover(self, lost: list[int]):
         if self._shards is None:
             raise RuntimeError("no snapshot taken")
         surv_x = {k: self._shards[k] for k in range(self.K) if k not in lost}
@@ -77,7 +117,7 @@ class CodedStateGuard:
         full = self._shards.copy()
         for k in lost:
             full[k] = rec[k]
-        return unshard_state_limbs(to_tensor(full, self.device), self._meta), self.step
+        return unshard_state_limbs(to_tensor(full, self.device), self._meta)
 
     @property
     def overhead_elements(self) -> int:
