@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4, 6-14 and 16 hand it, as they hand it, with its
+                that phases 4, 6-14, 16 and 17 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -86,9 +86,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 bytes each entry point holds as it starts and at its peak
                 (read as it returns, before any check), busy time and idle
                 share, and host numpy ms of the recovery.
-7. ``serve``    the serving path at the full width of Qwen3-1.7B (28 layers,
-                d_model 2048, 16 heads x 128, 8 KV heads, d_ff 6144, vocab
-                151,936, bf16 weights drawn on the card from the seed):
+7. ``serve``    the serving path at the full width of Qwen3-1.7B (14 of its 28
+                layers, cut for the script's time; d_model 2048, 16 heads x
+                128, 8 KV heads, d_ff 6144, vocab 151,936, bf16 weights drawn
+                on the card from the seed):
                 ``ContinuousEngine`` with 4 slots, max_len 1024, buckets (128,
                 256, 512), 32 new tokens at most, over a seeded Poisson trace
                 of 12 requests with prompts of 16-512 tokens: (a) greedy; (b)
@@ -192,9 +193,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``mtp`` read once.
 12. ``ssm``     the SSM families, each on the emptied card with bf16 weights
                 from the seed, counted on their own, every width kept and
-                the depth cut: RWKV6-3B at 8 of its 32 layers
+                the depth cut: RWKV6-3B at 4 of its 32 layers
                 (``rwkv6-3b``: d_model 2560, 40 heads x 64, d_ff 8960, vocab
-                65,536; 1.9 GB) and Jamba at 8 of its 32 layers, one whole
+                65,536; 1.3 GB) and Jamba at 8 of its 32 layers, one whole
                 period of 8 (``jamba-v0.1-52b``: d_model 4096, d_inner 8192,
                 d_state 16, dt_rank 256, one attention layer a period, 16
                 experts top-2 of expert_ff 14,336 on alternate layers, vocab
@@ -226,9 +227,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 counted on their own: Whisper-base (``whisper-base``: 6
                 encoder and 6 decoder layers, d_model 512, 8 heads, d_ff 2048,
                 1,500 stub frames, vocab 51,865 padded to 51,968; 207 MB) and
-                InternVL2-26B (``internvl2-26b``: 12 of its 48 layers,
+                InternVL2-26B (``internvl2-26b``: 6 of its 48 layers,
                 d_model 6144, 48/8 heads, d_ff 16,384, 256 stub
-                patches, vocab 92,553 padded to 92,672; 11.6 GB; 39.7 GB
+                patches, vocab 92,553 padded to 92,672; 7.0 GB; 39.7 GB
                 whole). Neither has a one-pass prefill:
                 (a) ``launch/serve.py`` with its default engine falls back to
                 the fixed ``Engine`` (it must say so) and serves the serve
@@ -275,8 +276,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 spawned world of four ranks on ``cuda:0`` over the port's
                 staging backend (``dist.staging``: gloo on pinned host
                 copies) runs (a)-(d) while the parent computes the
-                one-process references: (a) Qwen3-1.7B whole (28 layers, bf16
-                weights from the seed, each rank keeping its shard) served by
+                one-process references: (a) Qwen3-1.7B at every width, 7 of
+                its 28 layers (cut for the script's time; bf16 weights from the seed,
+                each rank keeping its shard) served by
                 ``ContinuousEngine(mesh=(data 2, model 2))`` under the
                 reference's decode preset with its ``opt`` profile, 4 slots,
                 max_len 1,024, over the serve trace's first 6 requests and
@@ -290,7 +292,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 opt`` on the two prompts: (a)'s tokens; (c) three float32
                 smoke train steps of ``make_train_step(mesh=)`` against the
                 CPU's at phase 8's tolerances, then ``launch/train.py --mesh
-                2x2`` at full width cut to 2 of 28 layers, 2 steps of 8 x
+                2x2`` at full width cut to 1 of 28 layers, 2 steps of 8 x
                 256, its checkpoint restored under its shardings and the
                 parameters resharded onto a 4 x 1 mesh, bit for bit against
                 the file; (d) ``pipeline_apply`` over four Qwen3-1.7B blocks
@@ -300,7 +302,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 16. ``coded_mesh`` the coded guards on the mesh: one spawned world of four
                 ranks on ``cuda:0`` (the staging backend; the guard's host
                 axis over a gloo group of the same ranks), checks made by the
-                parent: (a) phase ``mesh``'s engine (Qwen3-1.7B whole, bf16,
+                parent: (a) phase ``mesh``'s engine (Qwen3-1.7B, 7 layers, bf16,
                 2x2, ``opt`` profile, 4 slots, max_len 1,024) over the serve
                 trace's first 4 requests (426, 75, 239, 110 tokens), 12 new
                 tokens, greedy, unguarded; (b) the same under
@@ -321,10 +323,41 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 ``reshard_state`` give every rank its blocks bit for bit.
                 Each snapshot's and recovery's ms, each rank's held and peak
                 bytes; the phase holds itself within 240 s.
-17. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+17. ``moe_mesh`` the MoE and MLA families on the mesh: the parent serves
+                one prefill and one tick of DeepSeek-V3 at full width (bf16, 4
+                of 61 layers: the 3 dense MLA prefix layers, one MLA-MoE
+                layer, MTP; 53.4 GB) in one process and frees the card; then
+                one spawned world of four ranks on ``cuda:0`` (the staging
+                backend) under the decode preset's ``opt`` rules, each rank
+                drawing only its own blocks of the same seed's weights
+                (``Model.init(shardings=)``; ~15 GB a rank, its held bytes
+                equal to the specs' reckoning, its draw peak within 1 GiB
+                of them, the ranks' peaks together within 76 GB): (a)
+                ``ContinuousEngine`` with 4 slots, max_len 1,024, over the
+                serve trace's first 4 requests (426, 75, 239, 110 tokens), 16
+                new tokens, greedy: tokens equal on every rank, the logits
+                of one prefill and one tick (both sides ticking on the
+                prompt's last token: a bf16 argmax may part on a near-tie)
+                within phase 7's bf16 tolerances of one process's; a tick
+                counted whole and the
+                MoE layer's part (``CommDebugMode``, staged calls, ms); (b)
+                the same under ``CodedServeGuard(K=2, R=2, mesh=<the four
+                ranks as "hosts">)``, host 3 killed after tick 8: tokens
+                equal (a)'s on every rank, each rank's ``gf_matmul``
+                launches one snapshot's calls a snapshot; (c) the float32
+                smoke configs of DeepSeek-V3 and Arctic on the mesh on the
+                card: the engine's tokens equal the CPU's, one train step
+                within phase 8's tolerances of the CPU's; (d)
+                ``launch/serve.py --mesh 2x2 --arch deepseek-v3-671b --layers
+                4 --profile opt`` on two of (a)'s prompts, 4 new tokens, its
+                own sharded draw: (a)'s first tokens. Each rank's held and
+                peak bytes and draw seconds, prefill and tick ms, tokens/s,
+                snapshot and recovery ms; the phase holds itself within 240 s.
+18. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
    MoE, MLA, SSM, encoder-decoder and VLM serve paths, the analysis phase
-   and the coded guards on the mesh, error, time, bound and plain time;
+   and the coded guards and the MoE and MLA families on the mesh, error,
+   time, bound and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -436,7 +469,7 @@ from repro_torch.serve.scheduler import Request, bucket_for  # noqa: E402
 from repro_torch.serve.traffic import LengthBand, poisson_trace  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.dist import pipeline_apply, stack_stage_params, staging  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import RankMesh, make_mesh  # noqa: E402
 from repro_torch.launch.op_cost import count_fn  # noqa: E402
 from repro_torch.launch.profiles import BASELINE, OPT, profile_with, rules_for  # noqa: E402
 from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS, model_flops, render_table  # noqa: E402
@@ -1883,6 +1916,10 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "qwen3-1.7b"
+# phase 7 serves Qwen3-1.7B at every width, cut from 28 to 14 layers
+# to keep the script's time (1,212 s on one host before the cut): its three
+# guarded runs' host decodes and its ticks go with the layer count
+SERVE_LAYERS = 14
 SERVE_BUCKETS = (128, 256, 512)  # prefill length buckets; SERVE_POSITIONS is max_len
 SERVE_MAX_NEW = 32  # the engine's token budget; requests draw theirs from [16, 32]
 SERVE_REQUESTS, SERVE_RATE = 12, 8.0  # a seeded Poisson trace, requests a second
@@ -1914,10 +1951,11 @@ def serve_state_spec(model) -> tuple:
 
 
 def serve_config() -> dict:
-    """The serve phase's configuration, host-side: the model, the engine
-    state's spec and shard width, the guard's plan and the kernel calls of
-    one snapshot of each form (``runs``)."""
-    cfg = get(SERVE_ARCH)
+    """The serve phase's configuration, host-side: the model (Qwen3-1.7B
+    cut to SERVE_LAYERS layers), the engine state's spec and shard width,
+    the guard's plan and the kernel calls of one snapshot of each form
+    (``runs``)."""
+    cfg = get(SERVE_ARCH).replace(n_layers=SERVE_LAYERS)
     model = build_model(cfg)
     spec = serve_state_spec(model)
     plan = build_lcc(SERVE_K, R=SERVE_R)
@@ -2117,8 +2155,9 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
     init_peak = torch.cuda.max_memory_allocated()
     leaves = tree.leaves(params)
     check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in leaves), "serve: the weights are not bf16 on the card")
-    check(cfg.n_layers == 28 and cfg.d_model == 2048 and cfg.vocab_padded == 152064
-          and tuple(params["body"]["b0"]["mlp"]["w_up"].shape) == (28, 2048, 6144), "serve: not Qwen3-1.7B's width")
+    check(cfg.n_layers == SERVE_LAYERS and cfg.d_model == 2048 and cfg.vocab_padded == 152064
+          and tuple(params["body"]["b0"]["mlp"]["w_up"].shape) == (SERVE_LAYERS, 2048, 6144),
+          "serve: not Qwen3-1.7B's width")
     trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=SERVE_MIX, max_new_tokens=SERVE_MAX_NEW,
                           vocab_size=cfg.vocab_size, seed=SEED + 1001)
     eng = serve_engine(model, params)
@@ -3177,11 +3216,11 @@ def mla_phase(mcfg: dict, dev) -> tuple[dict, dict]:
 RWKV_ARCH, JAMBA_ARCH = "rwkv6-3b", "jamba-v0.1-52b"
 # Every width kept, the depth cut to keep the script's time (each refeed tick
 # is launch-bound, so a tick's time goes with the layer count): RWKV6-3B to
-# 8 of its 32 layers (1.9 GB of bf16 weights; cut from 16 when phase
-# coded_mesh was added), Jamba to one of its four periods of 8 (the reference
+# 4 of its 32 layers (1.3 GB of bf16 weights; cut from 16 when phase
+# coded_mesh was added, from 8 when phase moe_mesh was), Jamba to one of its four periods of 8 (the reference
 # asserts whole periods; 26.6 GB).
-RWKV_LAYERS, JAMBA_LAYERS = 8, 8
-SSM_PARAM_BYTES = {RWKV_ARCH: 1_948_390_400, JAMBA_ARCH: 26_593_062_848}
+RWKV_LAYERS, JAMBA_LAYERS = 4, 8
+SSM_PARAM_BYTES = {RWKV_ARCH: 1_309_742_080, JAMBA_ARCH: 26_593_062_848}
 SSM_MAX_LEN = 512  # the fixed Engine's max_len: the longest prompt + SERVE_MAX_NEW fits
 SSM_SNAPSHOT_TICK = 40  # the guard's snapshot, mid-prompt (every prompt is longer)
 SSM_LOST_TICKS = 4  # ticks refed after the snapshot, lost with host 3
@@ -3547,16 +3586,16 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 # ---------------------------------------------------------------------------
-# phase 13: the encoder-decoder and VLM families, Whisper-base whole, InternVL2-26B at 12 of 48 layers
+# phase 13: the encoder-decoder and VLM families, Whisper-base whole, InternVL2-26B at 6 of 48 layers
 # ---------------------------------------------------------------------------
 
 WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-26b"
 # both at full width, bf16: the frontends are stubs (precomputed frame and
 # patch embeddings), so InternVL2's weights are InternLM2-20B's. Whisper is
-# whole; InternVL2 runs 12 of its 48 layers (for time: 24 once phase mesh was
-# added, 12 once phase coded_mesh was; 39.7 GB whole)
-VLM_LAYERS = 12
-ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 11_639_500_800}
+# whole; InternVL2 runs 6 of its 48 layers (for time: 24 once phase mesh was
+# added, 12 once phase coded_mesh was, 6 once phase moe_mesh was; 39.7 GB whole)
+VLM_LAYERS = 6
+ENCVLM_PARAM_BYTES = {WHISPER_ARCH: 207_176_704, VLM_ARCH: 6_958_510_080}
 ORACLE_TOL = 0.2  # (c): tests/test_attention_oracle.py:57-85, decode against forward, rtol = atol
 ORACLE_ROWS, ORACLE_TOKENS = 2, 64
 VLM_FORWARD_TEXT = 256  # (c): one forward of n_patches (256) patches and this many text tokens
@@ -3973,7 +4012,13 @@ MESH_REQUESTS, MESH_MAX_NEW = 6, 16  # the serve trace's first requests, each wi
 MESH_PROMPTS = ((3, 14, 15, 92, 65, 35), (89, 79, 32, 38, 46, 26, 43, 38, 32, 79))
 MESH_LAUNCHER_NEW = 4  # (b)'s budget: its tokens are the first of (a)'s for the same prompts
 MESH_BUCKETS = (32, 64, 128, 256, 512)  # the launcher's buckets (scheduler.DEFAULT_BUCKETS) and 512
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2  # (c): launch/train.py at full width, 2 of 28 layers
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 1, 2  # (c): launch/train.py at full width, 1 of 28 layers
+# Phases 15 and 16 serve Qwen3-1.7B at every width, cut from 28 to 7 layers
+# (whole before phase 17) to keep the script's time with phase 17: the whole
+# script took 1,088 s on one host with the 28 layers and 1,212 s on a slower
+# one with 14, and a tick, a snapshot and a host decode of the mesh phases
+# go with the layer count
+MESH_LAYERS = 7
 PIPE_MICRO, PIPE_MB = 6, (2, 256, 2048)  # (d): microbatches of one Qwen3-1.7B block's input
 # (d): the pipeline applies the same kernels to the same microbatches as the
 # blocks in sequence on one rank; held within one bf16 ulp of the largest output
@@ -3990,10 +4035,11 @@ MESH_PHASE_S = 150  # what the phase may take
 
 def mesh_config() -> dict:
     """Phase ``mesh``'s configuration, handed to every rank: the served
-    model (Qwen3-1.7B whole), the pipeline's block config, max_len and the
+    model (Qwen3-1.7B, MESH_LAYERS layers), the pipeline's block config, max_len and the
     prefill buckets of (a), the serve trace's prompt mix, the pipeline's microbatch and the launchers'
     extra flags."""
-    return {"serve": get(SERVE_ARCH), "pipe": get(TRAIN_ARCH), "max_len": SERVE_POSITIONS, "buckets": MESH_BUCKETS,
+    return {"serve": get(SERVE_ARCH).replace(n_layers=MESH_LAYERS), "pipe": get(TRAIN_ARCH), "max_len": SERVE_POSITIONS,
+            "buckets": MESH_BUCKETS,
             "mix": SERVE_MIX, "pipe_mb": PIPE_MB, "launcher_extra": []}
 
 
@@ -4029,9 +4075,11 @@ def mesh_engine(model, params, mcfg: dict, mesh=None, rules=None):
                             tracer=Tracer())
 
 
-def logits_probe(model, params, req, max_len: int, buckets, mesh, rules) -> dict:
+def logits_probe(model, params, req, max_len: int, buckets, mesh, rules, step_token: int | None = None) -> dict:
     """One prefill of ``req`` into slot 0 and one tick of all slots: both
-    logits, whole (float32 numpy)."""
+    logits, whole (float32 numpy). The tick feeds slot 0 the prefill's
+    argmax, or ``step_token`` where it is given (two runs whose argmax may
+    part on a near-tie then tick on the same input)."""
     from repro_torch.serve.engine import _init_cache
 
     cache = _init_cache(model, SERVE_SLOTS, max_len, tree.leaves(params)[0].device, mesh, rules)
@@ -4045,7 +4093,7 @@ def logits_probe(model, params, req, max_len: int, buckets, mesh, rules) -> dict
     last = whole(last)
     tok = torch.argmax(last[:, :model.cfg.vocab_size], dim=-1).to(torch.int32)
     step_toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
-    step_toks[0, 0] = tok[0]
+    step_toks[0, 0] = tok[0] if step_token is None else step_token
     pos = torch.zeros((SERVE_SLOTS,), dtype=torch.int32, device=dev)
     pos[0] = len(req.prompt)
     lg, cache = dec(params, cache, step_toks, pos)
@@ -4064,7 +4112,7 @@ def local_bytes(params) -> int:
 
 
 def mesh_serve(rank: int, dev, mcfg: dict) -> dict:
-    """(a) on a rank: Qwen3-1.7B whole, the full weights drawn from the seed
+    """(a) on a rank: Qwen3-1.7B at MESH_LAYERS layers, the full weights drawn from the seed
     and each rank's shard kept; the engine over the trace and (b)'s prompts,
     its decode chunks timed; one prefill's and one tick's logits, and the
     collectives and staged bytes of a tick; the float32 smoke config over
@@ -4124,9 +4172,9 @@ def mesh_serve(rank: int, dev, mcfg: dict) -> dict:
 def mesh_launcher(dev, mcfg: dict) -> dict:
     """(b) on a rank: ``launch/serve.py --mesh 2x2`` over MESH_PROMPTS in
     this world (rank 0 prints)."""
-    argv = ["--arch", SERVE_ARCH, "--mesh", "2x2", "--max-new", str(MESH_LAUNCHER_NEW), "--max-len",
-            str(mcfg["max_len"]), "--profile", "opt", "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS),
-            *mcfg["launcher_extra"]]
+    argv = ["--arch", SERVE_ARCH, "--layers", str(MESH_LAYERS), "--mesh", "2x2", "--max-new", str(MESH_LAUNCHER_NEW),
+            "--max-len", str(mcfg["max_len"]), "--profile", "opt",
+            "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS), *mcfg["launcher_extra"]]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rep = serve_main(argv)
@@ -4403,7 +4451,8 @@ def mesh_phase(mcfg: dict, dev) -> dict:
           f"mesh/serve: the full-width logits differ from one process's: {lerr}")
     n_same = sum(x == y for k in toks[0] for x, y in zip(toks[0][k], ref["tokens"][k]))
     serve_rec = {
-        "arch": SERVE_ARCH, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "slots": SERVE_SLOTS,
+        "arch": SERVE_ARCH, "layers": mcfg["serve"].n_layers, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+        "slots": SERVE_SLOTS,
         "max_len": mcfg["max_len"], "buckets": mcfg["buckets"], "requests": MESH_REQUESTS + len(MESH_PROMPTS),
         "max_new": MESH_MAX_NEW,
         "tokens_equal_across_ranks": True, "tokens_equal_one_process": equal_one,
@@ -4511,12 +4560,12 @@ def cm_state_spec(model, max_new: int) -> tuple:
 
 def coded_mesh_config() -> dict:
     """Phase ``coded_mesh``'s configuration, handed to every rank: the
-    served model (Qwen3-1.7B whole), max_len, buckets and the trace's mix,
+    served model (Qwen3-1.7B, MESH_LAYERS layers), max_len, buckets and the trace's mix,
     the launchers' extra flags, each guard's shard width ``S`` and the
     kernel calls of one snapshot of each guard (``paths``, for phase 3: the
     rank form's on each rank, batch 1; the launcher's single-program guard
     and the train guard on rank 0)."""
-    cfg = get(SERVE_ARCH)
+    cfg = get(SERVE_ARCH).replace(n_layers=MESH_LAYERS)
     model = build_model(cfg)
     rplan, lplan = build_lcc(CM_K, R=CM_R), build_lcc(CM_LAUNCH_K, R=CM_LAUNCH_R)
     wplan = build_lcc(CM_K, p=CM_WIDE_P, R=CM_R)
@@ -4601,7 +4650,7 @@ def one_program_rows(whole, plan, dev) -> np.ndarray:
 
 
 def cm_serve(rank: int, dev, mcfg: dict) -> dict:
-    """(a), (b) and (b') on a rank: Qwen3-1.7B whole on the 2x2 mesh, the
+    """(a), (b) and (b') on a rank: Qwen3-1.7B at MESH_LAYERS layers on the 2x2 mesh, the
     trace unguarded, then under ``CodedServeGuard(K=2, R=2, mesh=hosts,
     axis="hosts")`` over the four ranks (a gloo group), host 3 killed after
     tick 8; then one snapshot of the state (b) leaves by the rank form at p
@@ -4688,9 +4737,9 @@ def cm_launcher(rank: int, dev, mcfg: dict) -> dict:
     """(c) on a rank: ``launch/serve.py --mesh 2x2 --profile opt`` on phase
     ``mesh``'s two prompts, without and with ``--coded 3,2 --kill 2:0
     --kill 6:4`` (rank 0 prints)."""
-    argv = ["--arch", SERVE_ARCH, "--mesh", "2x2", "--max-new", str(CM_LAUNCH_NEW), "--max-len",
-            str(mcfg["max_len"]), "--profile", "opt", "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS),
-            *mcfg["launcher_extra"]]
+    argv = ["--arch", SERVE_ARCH, "--layers", str(MESH_LAYERS), "--mesh", "2x2", "--max-new", str(CM_LAUNCH_NEW),
+            "--max-len", str(mcfg["max_len"]), "--profile", "opt",
+            "--prompts", ";".join(",".join(map(str, p)) for p in MESH_PROMPTS), *mcfg["launcher_extra"]]
     res = {}
     for name, extra in (("plain", []), ("coded", CM_LAUNCH_CODED)):
         calls: dict = {}
@@ -4761,7 +4810,8 @@ def cm_train(rank: int, dev, mcfg: dict) -> dict:
 def untokened(value):
     """A part's result without its tokens, printed lines and hashes."""
     if isinstance(value, dict):
-        return {k: untokened(v) for k, v in value.items() if k not in ("tokens", "printed", "row_hashes", "calls")}
+        return {k: untokened(v) for k, v in value.items()
+                if k not in ("tokens", "printed", "row_hashes", "calls", "probe", "state")}
     return value
 
 
@@ -4887,7 +4937,8 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
         add(w["launches"])
     check(sv[0]["wide"]["width"] == mcfg["S"]["ranks"], "coded_mesh/serve: the p=3 rows are not the width phase 3 held")
     serve_rec = {
-        "arch": SERVE_ARCH, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "slots": SERVE_SLOTS, "max_len": mcfg["max_len"],
+        "arch": SERVE_ARCH, "layers": mcfg["serve"].n_layers, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+        "slots": SERVE_SLOTS, "max_len": mcfg["max_len"],
         "requests": [len(r.prompt) for r in cm_requests(mcfg)], "max_new": CM_MAX_NEW, "K": CM_K, "R": CM_R,
         "kills": CM_KILLS, "tokens_equal_unguarded_every_rank": True, "rows_equal_one_program": True,
         "row_limbs": g0["width"], "row_hashes": g0["row_hashes"],
@@ -4961,6 +5012,443 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
                      "seconds": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE and MLA families on the 2x2 mesh, DeepSeek-V3 at full width
+# ---------------------------------------------------------------------------
+
+# phase mla's cut, from 61 to 4 layers, no width cut: the 3 dense prefix
+# layers, one MoE layer and MTP, 53.4 GB of bf16 weights whole; on the mesh
+# under the decode preset's opt rules the expert leaves split four ways and
+# the rest two ways, ~15 GB a rank
+MM_ARCH, MM_LAYERS = MLA_ARCH, MLA_LAYERS
+MM_MAX_NEW = 16
+MM_LAUNCH_NEW = 4  # (d): its tokens are the first of (a)'s for the same prompts
+MM_LAUNCH_REQS = (1, 3)  # (d): the trace's requests of 75 and 110 tokens (the launcher's buckets stop at 256)
+MM_SMALL = (MLA_ARCH, MOE_ARCH)  # (c): the float32 smoke configs on the mesh against the CPU
+MM_SMALL_BATCH = (4, 16)  # (c): one train step's batch and sequence
+MM_NORM_RTOL = 1e-5  # (c): the step's global gradient norm against the CPU's (tests/test_torch_train.py's)
+MM_PEAK_SUM_MAX = 76 * 10**9  # the ranks' peaks together, at most (the card holds 80 GB)
+MM_DRAW_SLACK = 1 << 30  # a rank's draw peaks at most this over its blocks: one float32 slab and its cast
+MM_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
+MM_PHASE_S = 240  # what the phase may take
+MM_ENTRY = "CodedServeGuard(mesh=hosts).snapshot, DeepSeek-V3"
+
+
+def mm_rules(cfg):
+    """The rules of (a), (b) and (d): the reference's decode preset under its
+    ``opt`` profile (experts over ``data``, ``moe_ff`` and the heads over
+    ``model``; DeepSeek-V3 keeps FSDP's ``d_model`` over ``data``), as
+    ``launch/serve.py --profile opt`` picks them."""
+    return rules_for(cfg, ShapeSpec("cli", "decode", SERVE_POSITIONS, 1), OPT)
+
+
+def mm_held(model, rules) -> int:
+    """Bytes of weights a rank holds under ``rules`` on the 2x2 mesh, from
+    the leaves' specs on a mesh made by hand (every split divides)."""
+    hand = RankMesh(None, MESH_SHAPE, MESH_AXES, 0, (0, 0), tuple(range(math.prod(MESH_SHAPE))), torch.device("cpu"))
+    sizes = dict(zip(MESH_AXES, MESH_SHAPE))
+    total = 0
+    for t, s in zip(tree.leaves(model.param_specs()), tree.leaves(param_shardings(model, hand, rules))):
+        split = math.prod(sizes[a] for e in s.spec if e for a in ((e,) if isinstance(e, str) else e))
+        total += t.numel() * t.element_size() // split
+    return total
+
+
+def moe_mesh_config() -> dict:
+    """Phase 17's configuration, handed to every rank: DeepSeek-V3 cut to
+    MM_LAYERS layers, max_len, buckets and the trace's mix, the rules and
+    the bytes a rank holds under them, the guard's shard width ``S`` and the
+    kernel calls of one rank-form snapshot (``paths``, for phase 3)."""
+    cfg = get(MM_ARCH).replace(n_layers=MM_LAYERS)
+    model = build_model(cfg)
+    plan = build_lcc(CM_K, R=CM_R)
+    S = -(-limb_count(cm_state_spec(model, MM_MAX_NEW)) // CM_K)
+    runs = ir_kernel_calls(plan_prepare_shoot(plan.N, plan.p).to_ir(lcc_generator(plan), q=NTT), S, batch=1)
+    rules = mm_rules(cfg)
+    return {"serve": cfg, "max_len": SERVE_POSITIONS, "buckets": MESH_BUCKETS, "mix": SERVE_MIX, "S": S, "runs": runs,
+            "held": mm_held(model, rules), "whole": spec_bytes(model.param_specs()), "launcher_extra": [],
+            "small": [smoke_config(a).replace(dtype="float32") for a in MM_SMALL],
+            "paths": [{"name": "moe_mesh", "q": NTT, "runs": {MM_ENTRY: runs}}]}
+
+
+def mm_requests(mcfg: dict) -> list:
+    """The serve trace's first CM_REQUESTS requests (426, 75, 239, 110
+    tokens), budget MM_MAX_NEW, all arrived."""
+    trace = poisson_trace(SERVE_REQUESTS, SERVE_RATE, mix=mcfg["mix"], max_new_tokens=SERVE_MAX_NEW,
+                          vocab_size=mcfg["serve"].vocab_size, seed=SEED + 1001)[:CM_REQUESTS]
+    return [dataclasses.replace(r, max_new_tokens=MM_MAX_NEW, arrival_s=0.0) for r in trace]
+
+
+@contextlib.contextmanager
+def moe_layer_calls(sink: list):
+    """Each ``moe_block`` call while the block runs: its wall ms (the device
+    synchronised on both sides) and the collectives it staged."""
+    fn = model_layers.moe_block
+
+    def counted(*a, **kw):
+        dev = a[1].device
+        sync(dev)
+        before = sum(staging.staged_calls().values())
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync(dev)
+        sink.append({"ms": (time.perf_counter() - t0) * 1e3, "staged_calls": sum(staging.staged_calls().values())
+                     - before})
+        return out
+
+    model_layers.moe_block = counted
+    try:
+        yield sink
+    finally:
+        model_layers.moe_block = fn
+
+
+def mm_serve(rank: int, dev, mcfg: dict) -> dict:
+    """(a) and (b) on a rank: DeepSeek-V3 at full width, MM_LAYERS layers,
+    each rank drawing only its own blocks from the seed
+    (``Model.init(shardings=)``); the engine over the four requests; one
+    prefill's and one tick's logits; a tick counted whole and the MoE
+    layer's part of it (``CommDebugMode``, staged calls, ms); then the same
+    requests under ``CodedServeGuard(K=2, R=2, mesh=hosts)``, host 3 killed
+    after tick 8."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    hosts = make_mesh((math.prod(MESH_SHAPE),), ("hosts",), group=dist.new_group(backend="gloo"), device=dev)
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    rules = mm_rules(cfg)
+    ps = param_shardings(model, mesh, rules)
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), shardings=ps)
+    sync(dev)
+    out = {"draw_s": time.perf_counter() - t0, "draw_peak_bytes": peak(dev), "held_bytes": local_bytes(params),
+           "placed": all(isinstance(t, DTensor) for t in tree.leaves(params))}
+    eng = ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=max_len, buckets=mcfg["buckets"],
+                           max_new_tokens=MM_MAX_NEW, mesh=mesh, rules=rules, metrics=MetricsRegistry(),
+                           tracer=Tracer())
+    out["engine_kept_blocks"] = all(a is b for a, b in zip(tree.leaves(eng.params), tree.leaves(params)))
+    del params
+    reqs = mm_requests(mcfg)
+    sync(dev)
+    rep = eng.serve(reqs, greedy=True, sync_every=SERVE_SYNC)
+    hist = eng._registry().snapshot()
+    out["plain"] = {"tokens": tokens_of(rep), "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_s,
+                    "decode_steps": rep.decode_steps, "ttft_ms": rep.ttft_ms,
+                    "tick_ms": hist["serve.decode_chunk_us"]["p50"] / SERVE_SYNC / 1e3,
+                    "prefill_ms": {"p50": hist["serve.prefill_us"]["p50"] / 1e3,
+                                   "max": hist["serve.prefill_us"]["max"] / 1e3}}
+    probe = logits_probe(model, eng.params, reqs[0], max_len, mcfg["buckets"], mesh, rules, reqs[0].prompt[-1])
+    dec, step_toks, pos = probe.pop("step")
+    cache = probe.pop("cache")
+    staging.reset_counts()
+    layer_calls: list = []
+    sync(dev)
+    t = time.perf_counter()
+    with CommDebugMode() as cdm, moe_layer_calls(layer_calls):
+        dec(eng.params, cache, step_toks, pos)
+    sync(dev)
+    out["counted_tick"] = {"ms": (time.perf_counter() - t) * 1e3,
+                           "collectives": {str(k): int(v) for k, v in cdm.get_comm_counts().items()},
+                           "staged_calls": staging.staged_calls(), "staged_bytes": staging.staged_bytes(),
+                           "moe_layer": layer_calls}
+    del cache
+    if rank == 0:
+        out["probe"] = probe
+    plan = build_lcc(CM_K, R=CM_R)
+    guard = CodedServeGuard(K=CM_K, R=CM_R, injector=FaultInjector(kills=CM_KILLS), mesh=hosts, axis="hosts")
+    calls: dict = {}
+    host_ms: list = []
+    sync(dev)
+    zero_launches()
+    with guard_calls(CodedServeGuard, calls), timed(serve_coded, "lcc_decode", host_ms):
+        rep = eng.serve(reqs, greedy=True, sync_every=SERVE_SYNC, guard=guard)
+    sync(dev)
+    out["guarded"] = {"tokens": tokens_of(rep), "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_s,
+                      "stats": rep.coded, "alive": sorted(guard.alive), "launches": launch_counts(),
+                      "snapshot_ms": calls["snapshot_ms"], "recover_ms": calls.get("recover_ms", []),
+                      "lcc_decode_host_ms": host_ms, "width": calls.get("width"), "host": guard._host,
+                      "kernels": guard._ranks.kernels, "transport": guard._ranks.transport,
+                      "calls": ir_kernel_calls(guard._ranks.ir, mcfg["S"], batch=1), "N": plan.N}
+    out["peak_bytes"] = peak(dev)
+    del eng
+    return out
+
+
+def mm_small(rank: int, dev, mcfg: dict) -> dict:
+    """(c) on a rank: each float32 smoke config on the mesh on the card, its
+    weights drawn on the CPU from a seed: the continuous engine over the
+    reference's staggered trace, and one train step of ``make_train_step(
+    mesh=)`` (rank 0 returns the whole parameters and moments)."""
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    out = {}
+    for i, cfg in enumerate(mcfg["small"]):
+        model = build_model(cfg)
+        p = tree.map(lambda t: t.to(dev), model.init(torch.Generator().manual_seed(SEED + 1700 + i)))
+        srules = rules_for(cfg, ShapeSpec("serve-test", "decode", 32, 4), BASELINE)
+        eng = ContinuousEngine(model, p, n_slots=4, max_len=32, buckets=(8, 16), max_new_tokens=8, mesh=mesh,
+                               rules=srules, metrics=MetricsRegistry())
+        rec = {"tokens": tokens_of(eng.serve(mesh_small_requests(), greedy=True, sync_every=2))}
+        B, S = MM_SMALL_BATCH
+        trules = rules_for(cfg, ShapeSpec("t", "train", S, B), BASELINE)
+        st = init_state(RESUME_OPT, p)
+        p0, s0 = place((p, st), (param_shardings(model, mesh, trules), opt_state_shardings(RESUME_OPT, model, mesh,
+                                                                                           trules)))
+        bsh = batch_shardings(model, mesh, trules)
+        b = make_batch(cfg, B, S, seed=SEED + 1710 + i, device=dev)
+        np_, ns, met = make_train_step(model, RESUME_OPT, rules=trules, mesh=mesh)(p0, s0,
+                                                                                   place(b, {k: bsh[k] for k in b}))
+        rec["metrics"] = {k: float(whole(v)) for k, v in met.items()}
+        state = tree.map(lambda t: whole(t).cpu(), (np_, ns))  # every rank: the gathers are collective
+        if rank == 0:
+            rec["state"] = state
+        out[cfg.name] = rec
+        del eng, p, p0, s0, np_, ns, state
+    return out
+
+
+def mm_launcher(rank: int, dev, mcfg: dict) -> dict:
+    """(d) on a rank: ``launch/serve.py --mesh 2x2 --arch deepseek-v3-671b
+    --layers 4 --profile opt`` on two of (a)'s prompts, MM_LAUNCH_NEW new
+    tokens: the launcher's own sharded draw at full width (rank 0 prints)."""
+    reqs = mm_requests(mcfg)
+    argv = ["--arch", MM_ARCH, "--mesh", "2x2", "--layers", str(MM_LAYERS), "--max-new", str(MM_LAUNCH_NEW),
+            "--max-len", str(mcfg["max_len"]), "--profile", "opt",
+            "--prompts", ";".join(",".join(map(str, reqs[i].prompt)) for i in MM_LAUNCH_REQS), *mcfg["launcher_extra"]]
+    buf = io.StringIO()
+    sync(dev)
+    reset_peak(dev)
+    with contextlib.redirect_stdout(buf):
+        rep = serve_main(argv)
+    sync(dev)
+    return {"tokens": tokens_of(rep), "printed": buf.getvalue().splitlines(), "peak_bytes": peak(dev)}
+
+
+def moe_mesh_worker(rank: int, world: int, init: str, mcfg: dict, go, out, device_type: str):
+    """A rank of phase ``moe_mesh``: joins the world (the port's staging
+    backend on the card, gloo on the CPU), says it is ready, waits for the
+    parent's go and runs (a)-(d), sending each part's result. Any error is
+    sent to the parent, which fails the run."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank lives on this host
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+        dev = torch.device("cpu")
+        backend = "gloo"
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+            staging.register()
+            backend = staging.BACKEND
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        torch.zeros(1, device=dev)
+        out.put(("ready", rank, None, None))
+        if not go.wait(MM_DEADLINE_S):
+            raise TimeoutError("the parent never said go")
+        for part, fn in (("serve", mm_serve), ("small", mm_small), ("launcher", mm_launcher)):
+            t0 = time.perf_counter()
+            res = fn(rank, dev, mcfg)
+            res["seconds"] = time.perf_counter() - t0
+            out.put(("ok", rank, part, res))
+            if dev.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out.put(("done", rank, None, None))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("error", rank, None, traceback.format_exc()))
+
+
+def mm_reference(dev, mcfg: dict) -> dict:
+    """The parent's side: the same seed's model in one process on the card
+    (the whole 53.4 GB), the logits of one prefill and one tick, then the
+    card freed; and each float32 smoke config's engine tokens and one train
+    step on the CPU."""
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    req = mm_requests(mcfg)[0]
+    probe = logits_probe(model, params, req, max_len, mcfg["buckets"], None, None, req.prompt[-1])
+    ref = {"probe": {k: probe[k] for k in ("prefill", "tick")}}
+    del params, probe
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    cpu = torch.device("cpu")
+    for i, scfg in enumerate(mcfg["small"]):
+        small = build_model(scfg)
+        p = small.init(torch.Generator().manual_seed(SEED + 1700 + i))
+        eng = ContinuousEngine(small, p, n_slots=4, max_len=32, buckets=(8, 16), max_new_tokens=8,
+                               metrics=MetricsRegistry())
+        rec = {"tokens": tokens_of(eng.serve(mesh_small_requests(), greedy=True, sync_every=2))}
+        B, S = MM_SMALL_BATCH
+        trules = rules_for(scfg, ShapeSpec("t", "train", S, B), BASELINE)
+        b = make_batch(scfg, B, S, seed=SEED + 1710 + i, device=cpu)
+        np_, ns, met = make_train_step(small, RESUME_OPT, rules=trules)(p, init_state(RESUME_OPT, p), b)
+        rec["metrics"] = {k: float(v) for k, v in met.items()}
+        rec["state"] = (np_, ns)
+        ref[scfg.name] = rec
+    return ref
+
+
+def moe_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
+    """Phase ``moe_mesh``: the parent computes the one-process logits on
+    the card and frees it, then one spawned world of four ranks runs
+    (a)-(d); every check is the parent's. Returns (the launches of the
+    guard's kernels, summed over the ranks, the phase's record)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = math.prod(MESH_SHAPE)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < MOE_HELD_MAX, f"moe_mesh: earlier phases still hold {held} bytes of the card")
+    ctx = mp.get_context("spawn")  # the parent has initialised CUDA: no fork
+    tmp = tempfile.TemporaryDirectory()
+    go, out = ctx.Event(), ctx.Queue()
+    init = "file://" + os.path.join(tmp.name, "store")
+    procs = [ctx.Process(target=moe_mesh_worker, args=(r, world, init, mcfg, go, out, dev.type), daemon=True)
+             for r in range(world)]
+    results: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        t_ref = time.perf_counter()
+        ref = mm_reference(dev, mcfg)
+        ref_s = time.perf_counter() - t_ref
+        go.set()
+        want, got, deadline = world * 5, 0, time.monotonic() + MM_DEADLINE_S  # ready, 3 parts, done
+        while got < want:
+            try:
+                status, rank, part, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                check(not dead, f"moe_mesh: rank(s) {dead} died (exit codes {[procs[r].exitcode for r in dead]})")
+                check(time.monotonic() < deadline, f"moe_mesh: the ranks did not finish within {MM_DEADLINE_S} s")
+                continue
+            check(status != "error", f"moe_mesh: rank {rank} raised:\n{value}")
+            got += 1
+            if status == "ok":
+                results.setdefault(part, {})[rank] = value
+                if rank == 0:  # progress, on the error stream
+                    print(f"chip_smoke: moe_mesh/{part} done on rank 0 in {value['seconds']:.1f} s, "
+                          f"{time.perf_counter() - t0:.1f} s into the phase: "
+                          f"{json.dumps(untokened(value), default=str)[:3000]}",
+                          file=sys.stderr, flush=True)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t0
+    ranks = range(world)
+    on_card = dev.type == "cuda"
+
+    # (a) serving at full width: every rank alike, the logits near one process's, each rank its own blocks
+    sv = results["serve"]
+    toks = sv[0]["plain"]["tokens"]
+    check(all(sv[r]["plain"]["tokens"] == toks for r in ranks), "moe_mesh/serve: the ranks' tokens differ")
+    check(all(sv[r]["placed"] and sv[r]["engine_kept_blocks"] for r in ranks),
+          "moe_mesh/serve: the sharded draw did not give the engine DTensors it kept")
+    check(all(sv[r]["held_bytes"] == mcfg["held"] for r in ranks),
+          f"moe_mesh/serve: ranks hold {[sv[r]['held_bytes'] for r in ranks]} bytes, the specs say {mcfg['held']}")
+    check(all(sv[r]["draw_peak_bytes"] <= mcfg["held"] + MM_DRAW_SLACK for r in ranks),
+          f"moe_mesh/serve: a rank's draw peaked at {[sv[r]['draw_peak_bytes'] for r in ranks]} bytes")
+    peaks = [sv[r]["peak_bytes"] for r in ranks]
+    check(not on_card or sum(peaks) <= MM_PEAK_SUM_MAX, f"moe_mesh/serve: the ranks' peaks {peaks} pass "
+                                                        f"{MM_PEAK_SUM_MAX} bytes together")
+    pr, rp = sv[0]["probe"], ref["probe"]
+    lerr = {k: {"rms_of_rms": float(np.sqrt(np.mean((pr[k] - rp[k]) ** 2)) / np.sqrt(np.mean(rp[k] ** 2))),
+                "max_of_max": float(np.abs(pr[k] - rp[k]).max() / np.abs(rp[k]).max()),
+                "argmax_equal": bool(pr[k].argmax() == rp[k].argmax()),
+                "finite": bool(np.isfinite(pr[k]).all())} for k in ("prefill", "tick")}
+    check(all(v["finite"] and v["rms_of_rms"] <= REFEED_RMS_TOL and v["max_of_max"] <= REFEED_MAX_TOL
+              for v in lerr.values()), f"moe_mesh/serve: the full-width logits differ from one process's: {lerr}")
+    reqs = mm_requests(mcfg)
+    check(all(len(toks[r.id]) == len(r.prompt) + MM_MAX_NEW and all(0 <= t < mcfg["serve"].vocab_size
+                                                                    for t in toks[r.id]) for r in reqs),
+          "moe_mesh/serve: a request's tokens are not its prompt and its budget in the vocabulary")
+    ct = sv[0]["counted_tick"]
+
+    # (b) the guard on the meshed latent cache: the tokens of (a) on every rank
+    g0 = sv[0]["guarded"]
+    check(all(sv[r]["guarded"]["tokens"] == toks for r in ranks),
+          "moe_mesh/serve: the guarded tokens differ from the unguarded run's")
+    check(all(sv[r]["guarded"]["stats"]["recoveries"] == 1 and sv[r]["guarded"]["alive"] == [0, 1, 2]
+              and sv[r]["guarded"]["host"] == r for r in ranks),
+          f"moe_mesh/serve: guard stats {[sv[r]['guarded']['stats'] for r in ranks]}")
+    check(g0["width"] == mcfg["S"], f"moe_mesh/serve: rows {g0['width']} limbs wide, not phase 3's {mcfg['S']}")
+    counted = {"gf_matmul": 0, "butterfly_mac": 0}
+    snaps = g0["stats"]["snapshots"]
+    want = count_calls(mcfg["runs"])
+    for r in ranks:
+        gr = sv[r]["guarded"]
+        check(gr["calls"] == mcfg["runs"], f"moe_mesh/serve: rank {r} runs other kernels than phase 3 held")
+        check(not on_card or (gr["kernels"] == "cuda" and (gr["launches"]["gf_matmul"], gr["launches"]["butterfly_mac"])
+                              == (want[0] * snaps, want[1] * snaps)),
+              f"moe_mesh/serve: rank {r} launched {gr['launches']}, expected {want} a snapshot x {snaps}")
+        for k in counted:
+            counted[k] += gr["launches"][k]
+    check(not on_card or counted["gf_matmul"] > 0, "moe_mesh: the guard never launched gf_matmul")
+
+    # (c) the float32 smoke configs on the mesh on the card against the CPU
+    sm = results["small"]
+    small_rec = {}
+    for scfg in mcfg["small"]:
+        name = scfg.name
+        check(all(sm[r][name]["tokens"] == ref[name]["tokens"] for r in ranks),
+              f"moe_mesh/small: {name}'s tokens on the mesh differ from the CPU's")
+        (gp, gs), (cp, cs) = sm[0][name]["state"], ref[name]["state"]
+        worst, tol = small_errors(gp, gs, [sm[0][name]["metrics"]["loss"]], cp, cs, [ref[name]["metrics"]["loss"]],
+                                  [ref[name]["metrics"]["lr"]])
+        norm_mesh, norm_cpu = sm[0][name]["metrics"]["grad_norm"], ref[name]["metrics"]["grad_norm"]
+        gn = abs(norm_mesh - norm_cpu) / norm_cpu
+        check(all(worst[k] <= tol[k] for k in worst) and gn <= MM_NORM_RTOL,
+              f"moe_mesh/small: {name}'s train step on the mesh and the CPU's differ: {worst}, norm {gn}")
+        small_rec[name] = {"tokens_equal_cpu": True, "max_err": worst, "tolerance": tol, "grad_norm_rel_err": gn,
+                           "metrics": sm[0][name]["metrics"]}
+
+    # (d) the launcher's own sharded draw: the first tokens of (a) for its prompts
+    ln = results["launcher"]
+    cut = {f"cli-{j}": toks[reqs[i].id][:len(reqs[i].prompt) + MM_LAUNCH_NEW] for j, i in enumerate(MM_LAUNCH_REQS)}
+    check(all(ln[r]["tokens"] == cut for r in ranks),
+          f"moe_mesh/launcher: launch/serve.py --mesh 2x2 gives other tokens than (a)'s engine")
+    check(any("cli-0" in line for line in ln[0]["printed"]) and not any(ln[r]["printed"] for r in ranks if r),
+          "moe_mesh/launcher: rank 0 alone must print the sequences")
+    check(phase_s <= MM_PHASE_S, f"moe_mesh: the phase took {phase_s:.1f} s, over {MM_PHASE_S} s")
+    p0 = sv[0]["plain"]
+    record = {
+        "arch": MM_ARCH, "layers": f"{MM_LAYERS} of {get(MM_ARCH).n_layers} (3 dense prefix, 1 MoE) + MTP",
+        "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "rules": "decode preset, opt profile",
+        "whole_bytes": mcfg["whole"], "held_bytes_by_specs": mcfg["held"],
+        "held_bytes": [sv[r]["held_bytes"] for r in ranks], "draw_s": [sv[r]["draw_s"] for r in ranks],
+        "draw_peak_bytes": [sv[r]["draw_peak_bytes"] for r in ranks], "peak_bytes": peaks,
+        "requests": [len(r.prompt) for r in reqs], "max_new": MM_MAX_NEW, "slots": SERVE_SLOTS,
+        "max_len": mcfg["max_len"], "tokens_equal_across_ranks": True, "logits_err": lerr,
+        "logits_tolerance": {"rms_of_rms": REFEED_RMS_TOL, "max_of_max": REFEED_MAX_TOL},
+        "tokens_per_s": p0["tokens_per_s"], "wall_s": p0["wall_s"], "decode_steps": p0["decode_steps"],
+        "ttft_ms": p0["ttft_ms"], "tick_ms": [sv[r]["plain"]["tick_ms"] for r in ranks], "prefill_ms": p0["prefill_ms"],
+        "counted_tick": ct,
+        "guarded": {"K": CM_K, "R": CM_R, "kills": CM_KILLS, "tokens_equal_unguarded_every_rank": True,
+                    "tokens_per_s": g0["tokens_per_s"], "stats": g0["stats"], "row_limbs": g0["width"],
+                    "snapshot_ms": {r: sv[r]["guarded"]["snapshot_ms"] for r in ranks},
+                    "recover_ms": {r: sv[r]["guarded"]["recover_ms"] for r in ranks},
+                    "lcc_decode_host_ms": g0["lcc_decode_host_ms"], "transport": g0["transport"],
+                    "launches": {r: sv[r]["guarded"]["launches"] for r in ranks}},
+        "small": small_rec,
+        "launcher": {"tokens_equal_engine": True, "max_new": MM_LAUNCH_NEW, "printed": ln[0]["printed"],
+                     "peak_bytes": [ln[r]["peak_bytes"] for r in ranks], "seconds": [ln[r]["seconds"] for r in ranks]},
+        "seconds_by_part": {part: [results[part][r]["seconds"] for r in ranks] for part in results},
+        "launches": counted, "reference_s": ref_s, "seconds": phase_s}
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -4995,8 +5483,10 @@ def main() -> int:
     encvlm_cfg = encvlm_config()
     analysis_cfgs = analysis_configs()
     cm_cfg = coded_mesh_config()
+    mm_cfg = moe_mesh_config()
     shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs
-                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs + cm_cfg["paths"], P)
+                         + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs + cm_cfg["paths"]
+                         + mm_cfg["paths"], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -5086,11 +5576,11 @@ def main() -> int:
     mla_launches, mlad = mla_phase(mla_cfg, dev)
     say("mla", card=smi, **mlad)
 
-    # phase 12: the SSM families, RWKV6-3B at 16 and Jamba at 8 of 32 layers, each on an emptied card
+    # phase 12: the SSM families, RWKV6-3B at 4 and Jamba at 8 of 32 layers, each on an emptied card
     ssm_launches, ssmd = ssm_phase(ssm_cfg, dev)
     say("ssm", card=smi, **ssmd)
 
-    # phase 13: the encoder-decoder and VLM families, Whisper-base whole and InternVL2-26B at 12 layers, each on an emptied card
+    # phase 13: the encoder-decoder and VLM families, Whisper-base whole and InternVL2-26B at 6 layers, each on an emptied card
     encvlm_launches, encvlmd = encvlm_phase(encvlm_cfg, dev)
     say("encdec_vlm", card=smi, **encvlmd)
 
@@ -5109,6 +5599,12 @@ def main() -> int:
     coded_mesh_launches, coded_meshed = coded_mesh_phase(cm_cfg, dev)
     say("coded_mesh", card=smi, **coded_meshed)
 
+    # phase 17: DeepSeek-V3 at full width on the 2x2 mesh, each rank drawing its own blocks, counted on the ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mesh_launches, moe_meshed = moe_mesh_phase(mm_cfg, dev)
+    say("moe_mesh", card=smi, **moe_meshed)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
@@ -5116,7 +5612,8 @@ def main() -> int:
                            + serve_launches[row["name"]] + train_launches[row["name"]]
                            + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
                            + ssm_launches[row["name"]] + encvlm_launches[row["name"]]
-                           + analysis_launches[row["name"]] + coded_mesh_launches[row["name"]])
+                           + analysis_launches[row["name"]] + coded_mesh_launches[row["name"]]
+                           + moe_mesh_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -26,8 +26,11 @@ keeps a model that fits off FSDP), whose flags the model reads.
 ``--layers N`` cuts the depth to N layers (every width kept).
 
 ``--mesh DxM`` serves on a (data, model) mesh of D·M ranks started by
-torchrun, each drawing the full weights from the seed and keeping its shard
-(``train.train_loop.param_shardings``); only rank 0 prints:
+torchrun, each drawing only its own block of the weights from the seed
+(``Model.init(generator, shardings=)`` on ``train.train_loop.param_shardings``),
+which holds a full-width MoE model (DeepSeek-V3, Arctic) cut in depth on
+one card; only rank 0 prints. The recurrent, encoder-decoder and VLM
+families are refused on a mesh (``NotImplementedError``, ROADMAP.md A3.1):
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu
@@ -56,7 +59,7 @@ from ..core.field import resolve_device
 from ..models import build_model
 from ..serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
 from ..train import latest_step, restore_checkpoint
-from ..train.train_loop import param_shardings
+from ..train.train_loop import param_shardings, refuse_unheld
 from .mesh import launcher_mesh, parse_mesh
 from .profiles import BASELINE, OPT, rules_for
 
@@ -113,11 +116,12 @@ def _serve(args, dev, mesh):
         cfg = cfg.replace(n_layers=args.layers)
     rules = rules_for(cfg, ShapeSpec("cli", "decode", args.max_len, 1), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
+    refuse_unheld(cfg, mesh)
+    shardings = None if mesh is None else param_shardings(model, mesh, rules)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = model.init(gen)
+    params = model.init(gen, shardings=shardings)
     if args.ckpt and latest_step(args.ckpt) is not None:
-        shardings = None if mesh is None else param_shardings(model, mesh, rules)
         params, _ = restore_checkpoint(args.ckpt, model.param_specs(), device=dev, shardings=shardings)
 
     prompts = [[int(t) for t in p.split(",") if t] for p in args.prompts.split(";")]

@@ -19,9 +19,12 @@ Everything runs on the card unless ``--device cpu`` asks for the CPU.
 ``--layers N`` cuts the depth to N layers (every width kept).
 
 ``--mesh DxM`` trains on a (data, model) mesh of D·M ranks started by
-torchrun: each rank draws the full weights and the same global batch from
-the seed and keeps its shard (``train.train_loop``'s ``param_shardings``,
-``opt_state_shardings``, ``batch_shardings``); the checkpoint is written
+torchrun: each rank draws only its own block of the weights from the seed
+(``Model.init(generator, shardings=)``), makes its moments beside them, and
+draws the same global batch and keeps its shard (``train.train_loop``'s
+``param_shardings``, ``opt_state_shardings``, ``batch_shardings``); the
+recurrent, encoder-decoder and VLM families are refused on a mesh
+(``NotImplementedError``, ROADMAP.md A3.1); the checkpoint is written
 whole by rank 0 and restored under the same shardings; only rank 0 prints.
 ``--coded-every`` snapshots the sharded state on every rank together: rank 0
 gathers it and alone holds the parity (``train.elastic.CodedStateGuard``),
@@ -57,7 +60,7 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.data import to_device
-from ..train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
+from ..train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place, refuse_unheld
 from .mesh import launcher_mesh, parse_mesh
 from .profiles import BASELINE, OPT, rules_for
 
@@ -112,16 +115,17 @@ def _train(args, dev, mesh) -> dict:
     rules = rules_for(cfg, ShapeSpec("cli", "train", args.seq, args.batch), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = model.init(gen)
-    opt_state = init_state(ocfg, params)
+    refuse_unheld(cfg, mesh)
     shardings = None
     if mesh is not None:
         shardings = {"params": param_shardings(model, mesh, rules),
                      "opt": opt_state_shardings(ocfg, model, mesh, rules)}
-        state = place({"params": params, "opt": opt_state}, shardings)
-        params, opt_state = state["params"], state["opt"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, shardings=None if shardings is None else shardings["params"])
+    opt_state = init_state(ocfg, params)
+    if shardings is not None:  # the moments are already on the parameters' shardings; the step is placed
+        opt_state = place(opt_state, shardings["opt"])
     start = 0
     if args.ckpt and latest_step(args.ckpt) is not None:
         state, start = restore_checkpoint(args.ckpt, {"params": params, "opt": opt_state}, device=dev,

@@ -21,9 +21,10 @@ On a mesh the parameters, the cache and the activations are DTensors and
 DTensor's sharding propagation runs the products, norms, RoPE, SwiGLU and
 the tied head; a constant made on the spot (positions, RoPE frequencies,
 the vocabulary pad) joins them as a replicated DTensor
-(:func:`replicated_like`). Three regions run instead on each rank's blocks
-(``dist._compat.shard_map``), where DTensor has no sharding strategy or
-would gather the cache:
+(:func:`replicated_like`). Regions run instead on each rank's blocks
+(``dist._compat.shard_map``, or by hand), where DTensor has no sharding
+strategy, would gather the cache or would sum the expert products one op at
+a time:
 
 * the attention core of a full sequence (:func:`chunked_causal_attention`),
   with batch over its axes and heads over theirs, the sequence whole;
@@ -32,7 +33,13 @@ would gather the cache:
   scores its own rows, and a max and two sums over those axes combine them;
 * the in-place cache writes: one token's rows at ``pos``
   (``attention_decode``) and a prompt's rows into one slot
-  (``models.model._write_slot``), each rank writing the rows it holds.
+  (``models.model._write_slot``), each rank writing the rows it holds;
+* the MoE block's expert products (:func:`_experts_meshed`): the router,
+  the dispatch and the combine run on the global tokens whole on every rank
+  (the reference's capacity and drops), the products on each rank's blocks
+  of the expert weights, summed over the axes that split them in one call;
+* the MLA family's attention core and its decode over the latent cache
+  (``models.mla``), in the same forms as the attention's.
 
 The GELU MLP and the layernorm blocks of the encoder-decoder wait for a
 later slice (ROADMAP.md queue A4).
@@ -52,7 +59,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..dist._compat import all_reduce, shard_map
-from ..dist.sharding import ShardingRules, constrain, spec_for, spec_of, whole_grad
+from ..dist.sharding import ShardingRules, constrain, placements_for, spec_for, spec_of, whole_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +110,43 @@ def _meshed(ctx, *xs) -> bool:
 SLAB_ELEMENTS = 1 << 27
 
 
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """The part of a drawn leaf of global ``shape`` that one rank keeps:
+    ``local`` holds the elements from ``offsets`` on (a rank's block of a
+    DTensor; the whole leaf, at offsets 0, in one process)."""
+
+    local: torch.Tensor
+    offsets: tuple[int, ...]
+    shape: tuple[int, ...]
+
+    @classmethod
+    def whole(cls, t: torch.Tensor) -> "Block":
+        return cls(t, (0,) * t.ndim, tuple(t.shape))
+
+    def take(self, full: torch.Tensor, row0: int = 0) -> None:
+        """Copy the part of ``full`` (rows ``row0`` on of the leaf) that
+        falls in this block into ``local``."""
+        n, o = self.local.shape, self.offsets
+        lo, hi = max(row0, o[0]), min(row0 + len(full), o[0] + n[0])
+        if lo >= hi:
+            return
+        src = full[lo - row0:hi - row0]
+        for k in range(1, self.local.ndim):
+            src = src.narrow(k, o[k], n[k])
+        self.local[lo - o[0]:hi - o[0]].copy_(src)
+
+
 class DrawInto:
     """Stands in for the generator of an ``*_init`` so that its drawn leaves
-    land in tensors that already exist (a layer's views of stacked leaves):
-    the i-th :func:`truncnorm_init` call draws from ``generator`` into
-    ``dests[i]`` and returns it. With ``dests=None`` the draws are ``meta``
+    land in tensors that already exist (a layer's views of stacked leaves,
+    or a rank's blocks of them): the i-th :func:`truncnorm_init` call draws
+    from ``generator`` into ``dests[i]`` (a tensor, or a :class:`Block`) and
+    returns the tensor it filled. A leaf is drawn in slabs along its leading
+    axis where it passes ``SLAB_ELEMENTS``, each slab whole, and only the
+    part of each slab that falls in the destination is kept: every rank
+    draws what one process draws, in the same slabs, so a rank's block holds
+    the bits of the whole draw. With ``dests=None`` the draws are ``meta``
     tensors; either way ``drawn`` lists what each call returned, in call
     order. Leaves the init makes without drawing (ones, zeros) are made as
     usual, on the generator's device."""
@@ -121,14 +160,15 @@ class DrawInto:
         if self.dests is None:
             out = torch.empty(shape, dtype=dtype, device="meta")
         else:
-            out = self.dests[len(self.drawn)]
-            if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
-                raise ValueError(f"draw {len(self.drawn)}: {tuple(shape)} {dtype} into {tuple(out.shape)} {out.dtype}")
-            row = math.prod(shape[1:])
-            step = len(out) if math.prod(shape) <= SLAB_ELEMENTS else max(1, SLAB_ELEMENTS // row)
-            for i in range(0, len(out), step):
-                out[i:i + step].copy_(truncnorm_init(self.generator, (min(step, len(out) - i), *shape[1:]), dtype,
-                                                     scale))
+            dest = self.dests[len(self.drawn)]
+            dest = dest if isinstance(dest, Block) else Block.whole(dest)
+            out = dest.local
+            if dest.shape != tuple(shape) or out.dtype != dtype:
+                raise ValueError(f"draw {len(self.drawn)}: {tuple(shape)} {dtype} into {dest.shape} {out.dtype}")
+            n = shape[0]
+            step = n if math.prod(shape) <= SLAB_ELEMENTS else max(1, SLAB_ELEMENTS // math.prod(shape[1:]))
+            for i in range(0, n, step):
+                dest.take(truncnorm_init(self.generator, (min(step, n - i), *shape[1:]), dtype, scale), i)
         self.drawn.append(out)
         return out
 
@@ -151,7 +191,7 @@ def truncnorm_init(generator, shape, dtype, scale=0.02) -> torch.Tensor:
     x = torch.empty(shape, dtype=torch.float32, device=init_device(generator))
     if generator is not None:
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (scale * x).to(dtype)
+    return x.mul_(scale).to(dtype)  # scaled in place: a draw holds its float32 values and their cast, no more
 
 
 # ---------------------------------------------------------------------------
@@ -297,16 +337,23 @@ def decode_attention(q, k_cache, v_cache, kv_len_mask, group=None):
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
     s = s * scale
     s = s.masked_fill(~kv_len_mask[:, None, None, :], -1e30)
-    if group is None:
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
-    else:
-        m = all_reduce(torch.amax(s, dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
-        p = torch.exp(s - m)
-        ol = torch.cat([torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()), torch.sum(p, dim=-1, keepdim=True)], -1)
-        ol = all_reduce(ol, group)  # the weighted values and the sum, in one call
-        o = ol[..., :-1] / ol[..., -1:]
+    o = softmax_weighted(s, lambda p: torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()), group)
     return o.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def softmax_weighted(s, weigh, group=None):
+    """``weigh(softmax(s))``, the softmax over the last dim of the float32
+    scores ``s`` and ``weigh`` a linear map of the weights (the weighted
+    sum of the rows they score). With ``group``, the last dim is this rank's
+    block of rows, split over ``group``'s ranks (flash-decoding): the row
+    maximum, then the weighted rows with the exponentials' sum (one call),
+    are combined over the group before the division."""
+    if group is None:
+        return weigh(torch.softmax(s, dim=-1))
+    m = all_reduce(torch.amax(s, dim=-1, keepdim=True), group, dist.ReduceOp.MAX)
+    p = torch.exp(s - m)
+    ol = all_reduce(torch.cat([weigh(p), torch.sum(p, dim=-1, keepdim=True)], -1), group)
+    return ol[..., :-1] / ol[..., -1:]
 
 
 def _attention_core(ctx, q, k, v, causal):
@@ -610,14 +657,20 @@ def moe_block(params, x, cfg, ctx=NO_CTX):
     Both forms (scatter, and gather under ``ctx.flag("moe_gather")``)
     combine alike, in a fixed order (:func:`_combine`), so they give the
     same bits as each other and from run to run at any top-k.
+
+    On a mesh the router, the dispatch and the combine run on the global
+    tokens, whole on every rank alike (the capacity and the drops are the
+    reference's, which GSPMD computes over all T tokens), and the expert
+    products on each rank's blocks of the weights (:func:`_experts_meshed`).
     """
     mc = cfg.moe
     B, S, d = x.shape
     T = B * S
     E, k = mc.n_experts, mc.top_k
-    dev = x.device
-    xt = x.reshape(T, d)
-    logits, gate_vals, eidx = moe_route(params["router"], xt, cfg)
+    meshed = _meshed(ctx, x, params["w_gate"])
+    xt = (_whole(x) if meshed else x).reshape(T, d)
+    dev = xt.device
+    logits, gate_vals, eidx = moe_route(_whole(params["router"]), xt, cfg)
 
     C = moe_capacity(T, cfg)
     # flatten (token, slot) pairs and sort by expert id (stable)
@@ -643,19 +696,90 @@ def moe_block(params, x, cfg, ctx=NO_CTX):
         vals = torch.where(keep[:, None], xt[st], 0).to(x.dtype)
         buf = torch.zeros((E * C, d), dtype=x.dtype, device=dev).index_add(0, buf_idx, vals)
         eb = buf.reshape(E, C, d)  # collisions only among dropped → add of 0s
-    eb = ctx.cons(eb, ("experts", None, "d_model"))
-    h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
-    h = ctx.cons(h, ("experts", None, "moe_ff"))
-    out_b = torch.bmm(h, params["w_down"]).reshape(E * C, d)
+    if meshed:
+        out_b = _experts_meshed(params, eb, ctx).reshape(E * C, d)
+    else:
+        eb = ctx.cons(eb, ("experts", None, "d_model"))
+        h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
+        h = ctx.cons(h, ("experts", None, "moe_ff"))
+        out_b = torch.bmm(h, params["w_down"]).reshape(E * C, d)
     contrib = out_b[buf_idx] * (sg * keep.to(sg.dtype))[:, None]
     out = _combine(contrib, st, T, k).to(x.dtype).reshape(B, S, d)
-    if mc.shared_ff:
-        out = out + swiglu(params["shared"], x, ctx)
     # load-balance aux loss (Switch): E * Σ_e f_e · p_e
     me = torch.softmax(logits, dim=-1).mean(0)
     ce = torch.bincount(flat_e, minlength=E).float() / (T * k)
     aux = E * torch.sum(me * ce)
+    if meshed:  # every rank holds the whole result: each keeps its block
+        out = ctx.cons(replicated_like(out, x), ("batch", "seq", "d_model"))
+        aux = replicated_like(aux, x)
+    if mc.shared_ff:
+        out = out + swiglu(params["shared"], x, ctx)
     return ctx.cons(out, ("batch", "seq", "d_model")), aux
+
+
+def _whole(t):
+    """A DTensor's full tensor (every rank the same; its gradient goes back
+    to each rank's block); anything else as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+class _IntoRegion(torch.autograd.Function):
+    """The identity on a tensor every rank of ``group`` holds whole, whose
+    gradient is summed over ``group``: each rank's products use a part of
+    it, and the whole gradient is the sum of the parts."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+class _OutOfRegion(torch.autograd.Function):
+    """The sum over ``group`` of each rank's part; its gradient, the same on
+    every rank of the group (what follows runs whole on every rank), goes
+    back to each part as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _experts_meshed(params, eb, ctx):
+    """The expert products of :func:`moe_block` on a mesh: ``eb`` (E, C, d),
+    whole on every rank, against each rank's block of the expert weights,
+    its experts and its part of ``moe_ff`` as the rules place them
+    (``expert_d``, FSDP'd under the baseline rules, is gathered whole). Each
+    rank writes its experts' partial ``w_down`` products into a zero
+    (E, C, d) buffer, and one sum over the axes that split the weights
+    makes the whole result on every rank: the partial products over
+    ``moe_ff`` add up and the experts' rows fall into place."""
+    mesh, rules = ctx.mesh, ctx.rules
+    E, _, d = eb.shape
+    ws = spec_for(mesh, rules, ("experts", None, "moe_ff"), params["w_gate"].shape)
+    specs = {"w_gate": ws, "w_up": ws, "w_down": (ws[0], ws[2], None)}
+    blocks = {}
+    for name, spec in specs.items():
+        w = params[name]
+        pl = placements_for(mesh, spec)
+        blocks[name] = w if tuple(w.placements) == pl else w.redistribute(mesh.device_mesh, pl)
+    e0, el = _local_offsets(blocks["w_gate"])[0], blocks["w_gate"].to_local().shape[0]
+    axes = tuple(a for e in (ws[0], ws[2]) for a in ((e,) if isinstance(e, str) else e or ()))
+    group = mesh.axis_group(axes) if axes else None
+    wg, wu, wd = (blocks[n].to_local() for n in ("w_gate", "w_up", "w_down"))
+    if group is not None:
+        eb = _IntoRegion.apply(eb, group)
+    ebl = eb[e0:e0 + el]
+    h = F.silu(torch.bmm(ebl, wg)) * torch.bmm(ebl, wu)
+    part = F.pad(torch.bmm(h, wd), (0, 0, 0, 0, e0, E - e0 - el))
+    return part if group is None else _OutOfRegion.apply(part, group)
 
 
 def _combine(contrib, st, T: int, k: int):

@@ -442,33 +442,46 @@ class Model(nn.Module):
         self.is_vlm = cfg.vlm is not None
 
     # -- params ------------------------------------------------------------
-    def init(self, generator: torch.Generator | None) -> dict:
+    def init(self, generator: torch.Generator | None, shardings=None) -> dict:
         """Random parameters drawn from ``generator``, on its device (truncated
         normals at scale 0.02, norms at one); ``None`` gives the same pytree
         as ``meta`` tensors. The draws come in the order embed, lm_head, the
         prefix layers, the body, the encoder, MTP (the reference's key
         order), so a config without a prefix, an encoder or MTP draws what
-        it drew before they were ported."""
+        it drew before they were ported. Every leaf past
+        ``layers.SLAB_ELEMENTS`` is drawn in slabs along its leading axis
+        (``layers.DrawInto``), ``embed`` and ``lm_head`` too.
+
+        With ``shardings`` (``train_loop.param_shardings`` on a mesh of
+        ranks, the reference's ``jax.jit(model.init, out_shardings=ps)``),
+        every rank walks the same draws, slab by slab, keeps the part of
+        each slab that falls in its own block, and gets DTensors on those
+        shardings: the same values as ``place(model.init(generator),
+        shardings)``, with no rank ever holding more than its blocks and one
+        slab."""
         cfg, dtype = self.cfg, self.dtype
+        sh = (lambda key: None) if shardings is None else shardings.__getitem__
+        V, d = cfg.vocab_padded, cfg.d_model
         params: dict[str, Any] = {
-            "embed": L.truncnorm_init(generator, (cfg.vocab_padded, cfg.d_model), dtype),
-            "ln_f": L.rmsnorm_init(cfg.d_model, dtype, L.init_device(generator)),
+            "embed": _fill(generator, lambda g: L.truncnorm_init(g, (V, d), dtype), shardings=sh("embed")),
+            "ln_f": _fill(generator, lambda g: L.rmsnorm_init(d, dtype, L.init_device(g)), shardings=sh("ln_f")),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = L.truncnorm_init(generator, (cfg.d_model, cfg.vocab_padded), dtype)
+            params["lm_head"] = _fill(generator, lambda g: L.truncnorm_init(g, (d, V), dtype), shardings=sh("lm_head"))
         for i, kind in enumerate(self.prefix):
-            params[f"prefix_{i}"] = _fill(generator, lambda g, k=kind: _KINDS[k]["init"](g, cfg, dtype))
-        params["body"] = _fill(generator, self._layer_init, self.repeats)
+            params[f"prefix_{i}"] = _fill(generator, lambda g, k=kind: _KINDS[k]["init"](g, cfg, dtype),
+                                          shardings=sh(f"prefix_{i}"))
+        params["body"] = _fill(generator, self._layer_init, self.repeats, shardings=sh("body"))
         if self.is_encdec:
-            params["encoder"] = self._encoder_init(generator)
+            params["encoder"] = self._encoder_init(generator, sh("encoder"))
         if cfg.mtp:
-            params["mtp"] = _fill(generator, self._mtp_init)
+            params["mtp"] = _fill(generator, self._mtp_init, shardings=sh("mtp"))
         return params
 
     def _layer_init(self, generator) -> dict:
         return {f"b{j}": _KINDS[kind]["init"](generator, self.cfg, self.dtype) for j, kind in enumerate(self.body)}
 
-    def _encoder_init(self, generator) -> dict:
+    def _encoder_init(self, generator, shardings=None) -> dict:
         """The encoder: its layers (layernorm, attention, GELU MLP) stacked
         over ``n_enc_layers``, ``ln_post``, and one cross-attention block
         (layernorm, attention) a decoder layer, stacked over ``n_layers``.
@@ -485,9 +498,11 @@ class Model(nn.Module):
             return {"ln": L.layernorm_init(cfg.d_model, dtype, L.init_device(g)),
                     "attn": L.attention_init(g, cfg, dtype)}
 
-        return {"layers": _fill(generator, layer, cfg.encdec.n_enc_layers),
-                "ln_post": L.layernorm_init(cfg.d_model, dtype, L.init_device(generator)),
-                "cross": _fill(generator, cross, cfg.n_layers)}
+        sh = (lambda key: None) if shardings is None else shardings.__getitem__
+        return {"layers": _fill(generator, layer, cfg.encdec.n_enc_layers, shardings=sh("layers")),
+                "ln_post": _fill(generator, lambda g: L.layernorm_init(cfg.d_model, dtype, L.init_device(g)),
+                                 shardings=sh("ln_post")),
+                "cross": _fill(generator, cross, cfg.n_layers, shardings=sh("cross"))}
 
     def _mtp_init(self, generator) -> dict:
         """The multi-token-prediction head: two norms, a (2d, d) projection and
@@ -656,9 +671,12 @@ class Model(nn.Module):
         total = ce + 0.01 * aux
         if cfg.mtp:
             mtp = params["mtp"]
-            emb_next = self._embed(params, batch["tokens"][:, 1:]).to(self.dtype)
+            # the lookup of every token, then the cut: the same rows, and on a mesh
+            # DTensor's vocabulary-split lookup keeps a sequence split it can read
+            emb_next = self._embed(params, batch["tokens"]).to(self.dtype)[:, 1:]
             hcomb = torch.cat([L.rmsnorm(mtp["norm_h"], h[:, :-1]), L.rmsnorm(mtp["norm_e"], emb_next)],
                               dim=-1) @ mtp["proj"]
+            hcomb = ctx.cons(hcomb, ("batch", "seq", "d_model"))
             hm, _ = _KINDS[self.body[-1]]["fwd"](mtp["block"], hcomb, cfg, ctx,
                                                  torch.zeros((), dtype=torch.float32, device=h.device))
             mtp_ce = _xent(self._head(params, hm)[:, :-1], labels[:, 2:], mask[:, 2:])
@@ -751,26 +769,43 @@ class Model(nn.Module):
         return logits, cache
 
 
-def _fill(generator, make, repeats: int | None = None) -> dict:
+def _fill(generator, make, repeats: int | None = None, shardings=None):
     """The tree ``make(generator)`` builds, its leaves allocated once and
     every drawn leaf drawn straight into place (in slabs where it is large,
     ``layers.DrawInto``); with ``repeats``, each leaf stacked over that many
     layers and filled layer by layer. The draws come in the order, and with
     the values, that calling ``make`` (once a layer, then stacking) would
-    give, and the device never holds a leaf twice."""
+    give, and the device never holds a leaf twice. With ``shardings`` (one
+    ``NamedSharding`` a leaf of the stacked tree) each leaf is this rank's
+    block of it, a DTensor on its sharding: every draw is made as in one
+    process and the block's part of it kept."""
     rec = L.DrawInto(None)
     leaves, treedef = tree.flatten(make(rec))
     at = {id(t): i for i, t in enumerate(leaves)}
     order = [at[id(t)] for t in rec.drawn]
     lead = () if repeats is None else (repeats,)
-    out = [torch.empty((*lead, *t.shape), dtype=t.dtype, device=L.init_device(generator)) for t in leaves]
+    shapes = [(*lead, *t.shape) for t in leaves]
+    if shardings is None:
+        blocks = [((0,) * len(s), s) for s in shapes]
+    else:
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        sh = tree.leaves(shardings)
+        blocks = [tuple(reversed(compute_local_shape_and_global_offset(s, n.mesh.device_mesh, n.placements)))
+                  for s, n in zip(shapes, sh, strict=True)]
+    out = [torch.empty(tuple(n), dtype=t.dtype, device=L.init_device(generator)) for t, (_, n) in zip(leaves, blocks)]
     if generator is not None:
         for r in range(repeats or 1):
-            views = out if repeats is None else [s[r] for s in out]
-            made = tree.leaves(make(L.DrawInto(generator, [views[i] for i in order])))
-            for view, t in zip(views, made):
-                if t is not view:  # a leaf made without a draw (ones, zeros)
-                    view.copy_(t)
+            dests = [L.Block(o if repeats is None else o[r], tuple(off[len(lead):]), tuple(s[len(lead):]))
+                     for o, (off, _), s in zip(out, blocks, shapes)]
+            made = tree.leaves(make(L.DrawInto(generator, [dests[i] for i in order])))
+            for dest, t in zip(dests, made):
+                if t is not dest.local:  # a leaf made without a draw (ones, zeros)
+                    dest.take(t)
+    if shardings is not None:
+        out = [DTensor.from_local(o, n.mesh.device_mesh, n.placements, run_check=False, shape=torch.Size(s),
+                                  stride=torch.empty(s, device="meta").stride())
+               for o, n, s in zip(out, sh, shapes)]
     return tree.unflatten(treedef, out)
 
 

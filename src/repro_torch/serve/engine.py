@@ -64,7 +64,14 @@ from torch.distributed.tensor import DTensor
 
 from .. import tree
 from ..models.model import Model
-from ..train.train_loop import cache_shardings, make_decode_step, make_prefill_step, param_shardings, place
+from ..train.train_loop import (
+    cache_shardings,
+    make_decode_step,
+    make_prefill_step,
+    param_shardings,
+    place,
+    refuse_unheld,
+)
 from .scheduler import (
     DEFAULT_BUCKETS,
     Request,
@@ -151,10 +158,13 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
 
 
 def _on_mesh(model, params, mesh, rules):
-    """(mesh, params): ``params`` placed on ``mesh`` by ``param_shardings``;
-    a mesh of one rank is no mesh."""
+    """(mesh, params): ``params`` placed on ``mesh`` by ``param_shardings``
+    (DTensors already on them stay where they are); a mesh of one rank is
+    no mesh. A family the port does not run on a mesh yet is refused before
+    anything is placed (``train_loop.refuse_unheld``)."""
     if mesh is None or mesh.device_mesh is None or mesh.device_mesh.size() == 1:
         return None, params
+    refuse_unheld(model.cfg, mesh)
     return mesh, place(params, param_shardings(model, mesh, rules))
 
 
@@ -356,6 +366,7 @@ class ContinuousEngine:
         rules=None,
         mesh=None,
     ):
+        refuse_unheld(model.cfg, mesh)
         if not model.supports_prefill:
             raise NotImplementedError(
                 f"{model.cfg.name}: one-pass prefill needs per-position cache "

@@ -59,9 +59,11 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(cfg: OptConfig, params):
-    """Zero moments beside each parameter, on its device, and step 0."""
+    """Zero moments beside each parameter, on its device (on its placements
+    for a DTensor), and step 0."""
     mdt = _moment_dtype(cfg)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    # a DTensor parameter's moments are DTensors on its placements (each rank its block)
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt, memory_format=torch.contiguous_format)  # noqa: E731
     step_dev = tree.leaves(params)[0].device
     return {
         "m": tree.map(zeros, params),

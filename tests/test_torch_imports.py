@@ -76,6 +76,29 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "imported" in r.stdout
 
 
+def test_the_meshed_moe_and_mla_modules_import_alone():
+    """The modules this slice changed (the meshed MoE block and MLA decode,
+    the sharded draw, the refusal of the families a mesh does not hold yet,
+    both launchers) import in a fresh interpreter without JAX or the JAX
+    package, and carry the slice's names."""
+    r = run_fresh("""
+        import sys
+        from repro_torch.models.layers import Block, DrawInto, _experts_meshed, moe_block
+        from repro_torch.models.mla import _latent_attention, _latent_attention_meshed, _mla_core, mla_decode
+        from repro_torch.models.model import Model, _fill
+        from repro_torch.train.train_loop import refuse_unheld
+        from repro_torch.train.optimizer import init_state
+        from repro_torch.serve.engine import ContinuousEngine, Engine, _on_mesh
+        import repro_torch.launch.serve, repro_torch.launch.train
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "ok" in r.stdout
+
+
 @pytest.mark.parametrize(
     "order", ["kernels-first", "core-first", "dist-first", "topo-first", "obs-first", "coded-first", "serve-first",
               "models-first", "configs-first", "launch-first", "train-first", "sharding-first", "profiles-first",
