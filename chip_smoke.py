@@ -13,7 +13,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
                 ragged, tiny and extreme-valued shapes and at every shape
-                that phases 4, 6-14, 16 and 17 hand it, as they hand it, with its
+                that phases 4, 6-14 and 16-18 hand it, as they hand it, with its
                 time, its wrapper's host time, its plain version's time, its
                 bound and its share of the bound at each of those. A
                 kernel's time is that of 30 back-to-back launches between
@@ -353,11 +353,43 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 own sharded draw: (a)'s first tokens. Each rank's held and
                 peak bytes and draw seconds, prefill and tick ms, tokens/s,
                 snapshot and recovery ms; the phase holds itself within 240 s.
-18. a line ``{"kernels": [...]}`` with every kernel's launches on the main
+18. ``families_mesh`` the SSM, encoder-decoder and VLM families on the
+                mesh: the parent runs each model in one process on the card,
+                in bf16 and in float32 (the bf16 weights upcast), and frees
+                it; then one spawned world of four ranks runs, model by
+                model at full width under the decode preset's ``opt`` rules,
+                RWKV6-3B (4 of 32 layers), Jamba (8 of 32), Whisper-base
+                (whole) and InternVL2-26B (6 of 48), each rank drawing its
+                own blocks: (a) ``Engine`` over the serve trace's first 4
+                prompts cut to 10, 6, 8 and 5 tokens, 8 new tokens, greedy:
+                tokens equal on every rank; a prefill's and the fourth
+                refeed tick's logits (both sides fed the same tokens) within
+                phase 7's bf16 tolerances of one process's, except where one
+                process's bf16 routing parts from float32's (a router
+                near-tie), and always within the larger of those tolerances
+                and 1.25x one process's distance from float32; a tick
+                counted (``CommDebugMode``, staged calls and bytes, ms); (b)
+                RWKV6 and Jamba: ``CodedServeGuard(K=2, R=2, mesh=<the four
+                ranks as "hosts">)`` on the recurrent state at tick 4, host
+                3 killed: the recovery bit-exact, the refeed resumed from it
+                to (a)'s tokens, each rank's ``gf_matmul`` launches one
+                snapshot's calls; (c) the four float32 smoke configs on the
+                mesh on the card: the engine's tokens equal the CPU's, one
+                train step within phase 8's tolerances of the CPU's; and
+                ``launch/train.py --mesh 2x2 --smoke --coded-every 1`` of
+                Whisper and InternVL2, rank 0's parity equal to a one-process
+                guard's;
+                (d) ``launch/serve.py --mesh 2x2 --arch whisper-base
+                --profile opt`` on (a)'s prompts, 4 new tokens: (a)'s first
+                tokens. Held, draw-peak and peak bytes (held equal to the
+                specs' reckoning, the ranks' peaks within 70 GB together),
+                draw seconds, tick ms, tokens/s, snapshot and recovery ms;
+                the phase holds itself within 240 s.
+19. a line ``{"kernels": [...]}`` with every kernel's launches on the main
    path, the coded path, the serve path, the train path, the ranks, the
    MoE, MLA, SSM, encoder-decoder and VLM serve paths, the analysis phase
-   and the coded guards and the MoE and MLA families on the mesh, error,
-   time, bound and plain time;
+   and the coded guards and every family on the mesh, error, time, bound
+   and plain time;
    the card's name and power limit; and last ``{"ok": true, "device": {...}}``.
 
 The widths, repeat counts and seed are the constants below: the script takes
@@ -3293,11 +3325,12 @@ def launcher(arch: str, prompts, *extra: str) -> tuple:
 def refeed(step, params, cache, toks, plen, start: int, stop: int, vocab: int):
     """Ticks ``start`` .. ``stop - 1`` of the fixed engine's greedy refeed
     (``Engine.generate``'s loop): token t of every row in at position t, the
-    argmax written at t + 1 past each row's prompt (``toks`` in place)."""
+    argmax written at t + 1 past each row's prompt (``toks`` in place); on a
+    mesh the logits are gathered whole first, as the engine gathers them."""
     B = toks.shape[0]
     for t in range(start, stop):
         lg, cache = step(params, cache, toks[:, t: t + 1], torch.full((B,), t, dtype=torch.int32, device=toks.device))
-        nxt = torch.argmax(lg[:, 0, :vocab], dim=-1).to(torch.int32)
+        nxt = torch.argmax(whole(lg)[:, 0, :vocab], dim=-1).to(torch.int32)
         toks[:, t + 1] = torch.where((t + 1) >= plen, nxt, toks[:, t + 1])
     return cache
 
@@ -4106,6 +4139,15 @@ def whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def logits_err(got: np.ndarray, want: np.ndarray) -> dict:
+    """Logits ``got`` against ``want``: the rms of the error over the rms of
+    ``want``, the largest error over the largest of ``want``, whether the
+    argmaxes agree, whether ``got`` is finite."""
+    return {"rms_of_rms": float(np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want ** 2))),
+            "max_of_max": float(np.abs(got - want).max() / np.abs(want).max()),
+            "argmax_equal": bool((got.argmax(-1) == want.argmax(-1)).all()), "finite": bool(np.isfinite(got).all())}
+
+
 def local_bytes(params) -> int:
     return sum((t.to_local() if isinstance(t, DTensor) else t).numel() * t.element_size()
                for t in tree.leaves(params))
@@ -4444,9 +4486,7 @@ def mesh_phase(mcfg: dict, dev) -> dict:
     small_equal = all(sv[r]["small_tokens"] == ref["small_tokens"] for r in ranks)
     check(small_equal, "mesh/serve: the float32 smoke config's tokens differ from the one-process engine's")
     pr, rp = sv[0]["probe"], ref["probe"]
-    lerr = {k: {"rms_of_rms": float(np.sqrt(np.mean((pr[k] - rp[k]) ** 2)) / np.sqrt(np.mean(rp[k] ** 2))),
-                "max_of_max": float(np.abs(pr[k] - rp[k]).max() / np.abs(rp[k]).max()),
-                "argmax_equal": bool(pr[k].argmax() == rp[k].argmax())} for k in ("prefill", "tick")}
+    lerr = {k: logits_err(pr[k], rp[k]) for k in ("prefill", "tick")}
     check(all(v["rms_of_rms"] <= REFEED_RMS_TOL and v["max_of_max"] <= REFEED_MAX_TOL for v in lerr.values()),
           f"mesh/serve: the full-width logits differ from one process's: {lerr}")
     n_same = sum(x == y for k in toks[0] for x, y in zip(toks[0][k], ref["tokens"][k]))
@@ -5364,10 +5404,7 @@ def moe_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
     check(not on_card or sum(peaks) <= MM_PEAK_SUM_MAX, f"moe_mesh/serve: the ranks' peaks {peaks} pass "
                                                         f"{MM_PEAK_SUM_MAX} bytes together")
     pr, rp = sv[0]["probe"], ref["probe"]
-    lerr = {k: {"rms_of_rms": float(np.sqrt(np.mean((pr[k] - rp[k]) ** 2)) / np.sqrt(np.mean(rp[k] ** 2))),
-                "max_of_max": float(np.abs(pr[k] - rp[k]).max() / np.abs(rp[k]).max()),
-                "argmax_equal": bool(pr[k].argmax() == rp[k].argmax()),
-                "finite": bool(np.isfinite(pr[k]).all())} for k in ("prefill", "tick")}
+    lerr = {k: logits_err(pr[k], rp[k]) for k in ("prefill", "tick")}
     check(all(v["finite"] and v["rms_of_rms"] <= REFEED_RMS_TOL and v["max_of_max"] <= REFEED_MAX_TOL
               for v in lerr.values()), f"moe_mesh/serve: the full-width logits differ from one process's: {lerr}")
     reqs = mm_requests(mcfg)
@@ -5449,6 +5486,597 @@ def moe_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the SSM, encoder-decoder and VLM families on the 2x2 mesh at full width
+# ---------------------------------------------------------------------------
+
+# every width kept, the depths of phases 12 and 13: RWKV6-3B 4 of its 32
+# layers (1.3 GB; 8 until the whole script took 1,156.5 s on a slow H100 host),
+# Jamba one period of 8 (26.6 GB), Whisper-base whole, InternVL2-26B 6 of 48
+# (7.0 GB)
+FM_MODELS = ((RWKV_ARCH, RWKV_LAYERS), (JAMBA_ARCH, JAMBA_LAYERS), (WHISPER_ARCH, None), (VLM_ARCH, VLM_LAYERS))
+FM_RECURRENT = (RWKV_ARCH, JAMBA_ARCH)
+# (a): the first FIXED_PROMPTS prompts of the serve trace (phases 12-13's), cut to these lengths so that the
+# refeed (the longest prompt plus FM_MAX_NEW ticks, a tick a few hundred ms on the mesh) fits the phase's time
+# (16, 9, 12 and 7 tokens until that run)
+FM_PROMPT_LENS = (10, 6, 8, 5)
+FM_MAX_NEW, FM_MAX_LEN = 8, 64
+FM_PROBE_TICKS = 4  # (a): one tick's logits: the fourth refeed tick of the prompts' first tokens
+FM_FRAMES_SEED = SEED + 1801  # (a): the probe prompt's stub frames or patches
+# (b): the snapshot mid-prompt (every prompt is longer); host FM_KILL_HOST dies, FM_LOST_TICKS ticks lost; the refeed
+# resumes until the shortest prompt's row has all its new tokens (as phase 12's does)
+FM_SNAPSHOT_TICK, FM_LOST_TICKS = 4, 2
+FM_KILL_HOST = 3
+FM_LAUNCH_NEW = 4  # (d): its tokens are the first of (a)'s for the same prompts
+FM_SMALL_BATCH = (4, 16)  # (c): one train step's batch and sequence (patches included)
+FM_TRAIN_ARGV = ["--smoke", "--mesh", "2x2", "--steps", "2", "--batch", "4", "--seq", "16", "--coded-every", "1"]
+# (c): the train launcher's runs, the families whose train state the coded guard covers nowhere else on the card
+# (the recurrent ones' decode state is (b)'s; all four ran until that run)
+FM_TRAIN_ARCHS = (WHISPER_ARCH, VLM_ARCH)
+FM_TRAIN_K = 8  # (c): the train launcher's --coded-k default
+FM_PEAK_SUM_MAX = 70 * 10**9  # the ranks' peaks together, at most (the card holds 80 GB)
+# (a): the probe's logits against one process's within phase 7's bf16 tolerances (REFEED_RMS_TOL, REFEED_MAX_TOL),
+# unless the one-process bf16 run routes a token otherwise than the same weights in float32 do (a router near-tie:
+# Jamba's tick, 5 of its 20 router calls, and the bf16 tick then departs from float32's by 5.4 % rms); and always
+# within the larger of those tolerances and FM_EXACT_SLACK x the one-process bf16 run's distance of the float32 run's
+# logits, the exact answer of the same weights: the mesh no less accurate than one process
+FM_EXACT_SLACK = 1.25
+FM_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
+FM_PHASE_S = 240  # what the phase may take (it aims at 150 s)
+FM_ENTRY = "CodedServeGuard(mesh=hosts).snapshot, {arch}"
+FM_TRAIN_ENTRY = "launch/train.py --mesh 2x2 --smoke --coded-every 1, {arch}"
+
+
+def fm_rules(cfg):
+    """The rules of (a), (b) and (d): the reference's decode preset under its
+    ``opt`` profile, as ``launch/serve.py --profile opt`` picks them."""
+    return rules_for(cfg, ShapeSpec("cli", "decode", FM_MAX_LEN, 1), OPT)
+
+
+def fm_prompts(vocab: int) -> list:
+    return [p[:n] for p, n in zip(ssm_prompts(vocab), FM_PROMPT_LENS)]
+
+
+def fm_small(arch: str):
+    """(c)'s float32 smoke config (Jamba at one period of 8 layers, its
+    Mamba, Mamba-MoE and attention layers)."""
+    cfg = smoke_config(arch).replace(dtype="float32")
+    return cfg.replace(n_layers=8) if arch == JAMBA_ARCH else cfg
+
+
+def fm_state_spec(model, prompts) -> tuple:
+    """(cache, state) of (b)'s guarded refeed, as meta tensors."""
+    total = max(map(len, prompts)) + FM_MAX_NEW
+    return (model.init_cache(len(prompts), FM_MAX_LEN, device="meta"),
+            {"tokens": meta((len(prompts), total), torch.int32), "pos": meta((), torch.int32)})
+
+
+def families_mesh_config() -> dict:
+    """Phase 18's configuration, handed to every rank: each model cut in
+    depth, its prompts, the bytes a rank holds under (a)'s rules, the
+    rank-form guard's shard width and kernel calls on the recurrent states
+    and the train launcher's guard on each smoke state (``paths``, for
+    phase 3)."""
+    plan, tplan = build_lcc(CM_K, R=CM_R), build_parity_plan(FM_TRAIN_K)
+    models, runs, truns = {}, {}, {}
+    for arch, layers in FM_MODELS:
+        cfg = get(arch) if layers is None else get(arch).replace(n_layers=layers)
+        model = build_model(cfg)
+        prompts = fm_prompts(cfg.vocab_size)
+        models[arch] = {"cfg": cfg, "prompts": prompts, "held": mm_held(model, fm_rules(cfg)),
+                        "whole": spec_bytes(model.param_specs())}
+        if arch in FM_RECURRENT:
+            S = -(-limb_count(fm_state_spec(model, prompts)) // CM_K)
+            models[arch]["S"] = S
+            runs[FM_ENTRY.format(arch=arch)] = ir_kernel_calls(
+                plan_prepare_shoot(plan.N, plan.p).to_ir(lcc_generator(plan), q=NTT), S, batch=1)
+        if arch in FM_TRAIN_ARCHS:
+            small = build_model(smoke_config(arch))
+            ocfg = OptConfig(total_steps=2)
+            St = -(-limb_count({"params": small.param_specs(), "opt": state_specs(ocfg, small.param_specs())})
+                   // FM_TRAIN_K)
+            truns[FM_TRAIN_ENTRY.format(arch=arch)] = [("gf_matmul", (FM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m,
+                                                                      St))]
+    return {"models": models, "launcher_extra": [], "train_extra": [], "small": [fm_small(a) for a, _ in FM_MODELS],
+            "runs": runs, "train_runs": truns,
+            "paths": [{"name": "families_mesh", "q": NTT, "runs": runs},
+                      {"name": "families_mesh", "q": M31, "runs": truns}]}
+
+
+def fm_probe_batch(cfg, prompt, dev) -> dict:
+    """(a)'s prompt for one prefill, with the stub frontend's frames or
+    patches for it (seeded, bf16)."""
+    b = {"tokens": torch.tensor([prompt], dtype=torch.int32, device=dev)}
+    rng = np.random.default_rng(FM_FRAMES_SEED)
+    n = cfg.encdec.n_frames if cfg.encdec else cfg.vlm.n_patches if cfg.vlm else 0
+    if n:
+        x = torch.from_numpy((rng.normal(size=(1, n, cfg.d_model)) * 0.02).astype(np.float32))
+        b["frames" if cfg.encdec else "patches"] = x.to(dev).to(torch.bfloat16)
+    return b
+
+
+def fm_probe(model, params, prompts, dev, mesh, rules) -> dict:
+    """One prompt's logits (a prefill of prompt 0, the last position) and
+    one tick's (the FM_PROBE_TICKS-th refeed tick of every prompt's first
+    tokens, from a zero cache), both whole (float32 numpy); both sides are
+    fed the same tokens. Returns them with the tick's step, cache and
+    inputs, for the counted tick."""
+    from repro_torch.serve.engine import _init_cache
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    lg = make_prefill_step(model, rules=rules, mesh=mesh)(params, fm_probe_batch(cfg, prompts[0], dev))
+    prefill = whole(lg)[0, -1, :V].float().cpu().numpy()
+    B = len(prompts)
+    cache = _init_cache(model, B, FM_MAX_LEN, dev, mesh, rules)
+    dec = make_decode_step(model, rules, mesh=mesh)
+    toks = torch.tensor([p[:FM_PROBE_TICKS] for p in prompts], dtype=torch.int32, device=dev)
+    for t in range(FM_PROBE_TICKS):
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        lg, cache = dec(params, cache, toks[:, t:t + 1], pos)
+    return {"prefill": prefill, "tick": whole(lg)[:, 0, :V].float().cpu().numpy(),
+            "step": (dec, cache, toks[:, -1:], pos)}
+
+
+def fm_guard(rank: int, dev, model, params, prompts, want: list, mesh, hosts, rules, S: int) -> dict:
+    """(b) on a rank: the refeed of (a)'s prompts through the meshed decode
+    step; at FM_SNAPSHOT_TICK the recurrent cache and ``{"tokens", "pos"}``
+    under ``CodedServeGuard(K=2, R=2, mesh=hosts)``; FM_LOST_TICKS more
+    ticks, then host FM_KILL_HOST dies: ``poll`` and ``recover``. The
+    recovery equals the snapshot's bytes (on rank 0, which gathered them);
+    the refeed resumed from it, placed back on the mesh until the shortest
+    prompt's row is complete, gives (a)'s tokens in every column written by
+    then."""
+    from repro_torch.serve.engine import _init_cache
+
+    V = model.cfg.vocab_size
+    total = max(map(len, prompts)) + FM_MAX_NEW
+    toks = torch.zeros((len(prompts), total), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    toks = toks.to(dev)
+    plen = torch.tensor([len(p) for p in prompts], device=dev)
+    step = make_decode_step(model, rules, mesh=mesh)
+    T = FM_SNAPSHOT_TICK
+    cache = refeed(step, params, _init_cache(model, len(prompts), FM_MAX_LEN, dev, mesh, rules), toks, plen, 0, T, V)
+    state = {"tokens": toks, "pos": torch.tensor(T, dtype=torch.int32, device=dev)}
+    held = gather_state((cache, state), keep=rank == 0)
+    held = None if held is None else tree.map(torch.clone, held)
+    guard = CodedServeGuard(K=CM_K, R=CM_R, injector=FaultInjector(kills=((T, FM_KILL_HOST),)), mesh=hosts,
+                            axis="hosts")
+    calls: dict = {}
+    sync(dev)
+    zero_launches()
+    with guard_calls(CodedServeGuard, calls):
+        guard.snapshot(cache, state, tick=T)
+        sync(dev)
+        launches_snap = launch_counts()
+        cache = refeed(step, params, cache, toks, plen, T, T + FM_LOST_TICKS, V)
+        dead = guard.poll(T + FM_LOST_TICKS)
+        cache_b, state_b = guard.recover(dead)
+    bit_exact = held is None or same_bits((cache_b, state_b), held)
+    cache_b = place(cache_b, cache_shardings(model, mesh, rules, cache_b))
+    toks_b = state_b["tokens"].to(dev)
+    stop = min(map(len, prompts)) + FM_MAX_NEW - 1  # the shortest prompt's last token is written at tick stop - 1
+    refeed(step, params, cache_b, toks_b, plen, int(state_b["pos"]), stop, V)
+    rows = toks_b.cpu().numpy()
+    return {"dead": dead, "alive": sorted(guard.alive), "host": guard._host, "bit_exact": bit_exact,
+            "resumed_to_tick": stop,
+            "resumed_equal": [rows[b, :stop + 1].tolist() for b in range(len(want))] == [w[:stop + 1] for w in want],
+            "launches": launches_snap, "snapshot_ms": calls["snapshot_ms"], "recover_ms": calls.get("recover_ms", []),
+            "width": calls.get("width"), "kernels": guard._ranks.kernels, "transport": guard._ranks.transport,
+            "calls": ir_kernel_calls(guard._ranks.ir, S, batch=1)}
+
+
+def fm_serve(rank: int, dev, fcfg: dict, arch: str, mesh, hosts) -> dict:
+    """(a) and (b) on a rank for one model: each rank draws only its own
+    blocks from the seed (``Model.init(shardings=)``); the fixed engine over
+    the prompts, greedy; one prompt's and one tick's logits; a tick counted
+    (``CommDebugMode``, staged calls and bytes, ms); for a recurrent model
+    (b)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    m = fcfg["models"][arch]
+    cfg, prompts = m["cfg"], m["prompts"]
+    model = build_model(cfg)
+    rules = fm_rules(cfg)
+    ps = param_shardings(model, mesh, rules)
+    sync(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), shardings=ps)
+    sync(dev)
+    out = {"draw_s": time.perf_counter() - t0, "draw_peak_bytes": peak(dev), "held_bytes": local_bytes(params),
+           "placed": all(isinstance(t, DTensor) for t in tree.leaves(params))}
+    reg = MetricsRegistry()
+    eng = Engine(model, params, max_len=FM_MAX_LEN, rules=rules, mesh=mesh, metrics=reg)
+    out["engine_kept_blocks"] = all(a is b for a, b in zip(tree.leaves(eng.params), tree.leaves(params)))
+    sync(dev)
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=FM_MAX_NEW)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    toks = [res.tokens[b][: res.lengths[b]].tolist() for b in range(len(prompts))]
+    out["plain"] = {"tokens": toks, "wall_s": wall, "steps": res.steps, "tick_ms": wall / res.steps * 1e3,
+                    "tokens_per_s": reg.snapshot()["serve.tokens_per_s"]["value"]}
+    probe = fm_probe(model, params, prompts, dev, mesh, rules)
+    dec, cache, step_toks, pos = probe.pop("step")
+    staging.reset_counts()
+    sync(dev)
+    t = time.perf_counter()
+    with CommDebugMode() as cdm:
+        dec(params, cache, step_toks, pos)
+    sync(dev)
+    out["counted_tick"] = {"ms": (time.perf_counter() - t) * 1e3,
+                           "collectives": {str(k): int(v) for k, v in cdm.get_comm_counts().items()},
+                           "staged_calls": staging.staged_calls(), "staged_bytes": staging.staged_bytes()}
+    del cache
+    if rank == 0:
+        out["probe"] = probe
+    if arch in FM_RECURRENT:
+        out["guarded"] = fm_guard(rank, dev, model, params, prompts, toks, mesh, hosts, rules, m["S"])
+    out["peak_bytes"] = peak(dev)
+    del eng, params
+    return out
+
+
+def fm_small_run(rank: int, dev, fcfg: dict, mesh) -> dict:
+    """(c) on a rank: each float32 smoke config on the mesh on the card, its
+    weights drawn on the CPU from a seed: the fixed engine's greedy tokens
+    and one train step of ``make_train_step(mesh=)`` (rank 0 returns the
+    whole parameters and moments); then ``launch/train.py --mesh 2x2
+    --smoke --coded-every 1`` of each of FM_TRAIN_ARCHS, its guard's launches
+    counted."""
+    out = {}
+    for i, cfg in enumerate(fcfg["small"]):
+        model = build_model(cfg)
+        p = tree.map(lambda t: t.to(dev), model.init(torch.Generator().manual_seed(SEED + 1800 + i)))
+        srules = rules_for(cfg, ShapeSpec("serve-test", "decode", 32, 4), BASELINE)
+        res = Engine(model, p, max_len=32, rules=srules, mesh=mesh, metrics=MetricsRegistry()).generate(
+            [list(r.prompt) for r in mesh_small_requests()[:4]], max_new_tokens=6)
+        rec = {"tokens": res.tokens.tolist()}
+        B, S = FM_SMALL_BATCH
+        trules = rules_for(cfg, ShapeSpec("t", "train", S, B), BASELINE)
+        st = init_state(RESUME_OPT, p)
+        p0, s0 = place((p, st), (param_shardings(model, mesh, trules),
+                                 opt_state_shardings(RESUME_OPT, model, mesh, trules)))
+        bsh = batch_shardings(model, mesh, trules)
+        b = make_batch(cfg, B, S, seed=SEED + 1810 + i, device=dev)
+        np_, ns, met = make_train_step(model, RESUME_OPT, rules=trules, mesh=mesh)(p0, s0,
+                                                                                   place(b, {k: bsh[k] for k in b}))
+        rec["metrics"] = {k: float(whole(v)) for k, v in met.items()}
+        state = tree.map(lambda t: whole(t).cpu(), (np_, ns))  # every rank: the gathers are collective
+        if rank == 0:
+            rec["state"] = state
+        out[cfg.name] = rec
+        del p, p0, s0, np_, ns, state
+    launcher = {}
+    for arch in FM_TRAIN_ARCHS:
+        sync(dev)
+        zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = train_main(["--arch", arch, *FM_TRAIN_ARGV, *fcfg["train_extra"]])
+        sync(dev)
+        g = run["guard"]
+        rec = {"losses": [h["loss"] for h in run["history"]], "step": g.step, "held": g._shards is not None,
+               "placed": all(isinstance(t, DTensor) for t in tree.leaves(run["state"])), "launches": launch_counts()}
+        one = gather_state(run["state"], keep=rank == 0)
+        if rank == 0:
+            og = CodedStateGuard(K=FM_TRAIN_K, device="cpu")
+            og.snapshot(tree.map(lambda t: t.cpu(), one), g.step)
+            rec["one_process_equal"] = np.array_equal(og._shards, g._shards) and np.array_equal(og._parity, g._parity)
+        launcher[arch] = rec
+        del run, one
+    out["train_launcher"] = launcher
+    return out
+
+
+def fm_launcher(rank: int, dev, fcfg: dict) -> dict:
+    """(d) on a rank: ``launch/serve.py --mesh 2x2 --arch whisper-base
+    --profile opt`` on (a)'s prompts, FM_LAUNCH_NEW new tokens: the
+    launcher's own sharded draw and its fixed-engine fall-back (rank 0
+    prints)."""
+    m = fcfg["models"][WHISPER_ARCH]
+    argv = ["--arch", WHISPER_ARCH, "--mesh", "2x2", "--max-new", str(FM_LAUNCH_NEW), "--max-len", str(FM_MAX_LEN),
+            "--profile", "opt", "--prompts", ";".join(",".join(map(str, p)) for p in m["prompts"]),
+            *fcfg["launcher_extra"]]
+    buf = io.StringIO()
+    sync(dev)
+    reset_peak(dev)
+    with contextlib.redirect_stdout(buf):
+        res = serve_main(argv)
+    sync(dev)
+    return {"tokens": [res.tokens[b][: res.lengths[b]].tolist() for b in range(len(m["prompts"]))],
+            "printed": buf.getvalue().splitlines(), "peak_bytes": peak(dev)}
+
+
+def families_mesh_worker(rank: int, world: int, init: str, fcfg: dict, go, out, device_type: str):
+    """A rank of phase ``families_mesh``: joins the world (the port's staging
+    backend on the card, gloo on the CPU), says it is ready, waits for the
+    parent's go and runs (a)-(b) model by model, then (c) and (d), sending
+    each part's result. Any error is sent to the parent, which fails the
+    run."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank lives on this host
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+        dev = torch.device("cpu")
+        backend = "gloo"
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+            staging.register()
+            backend = staging.BACKEND
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        torch.zeros(1, device=dev)
+        out.put(("ready", rank, None, None))
+        if not go.wait(FM_DEADLINE_S):
+            raise TimeoutError("the parent never said go")
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+        hosts = make_mesh((math.prod(MESH_SHAPE),), ("hosts",), group=dist.new_group(backend="gloo"), device=dev)
+        parts = [(arch, lambda a=arch: fm_serve(rank, dev, fcfg, a, mesh, hosts)) for arch, _ in FM_MODELS]
+        parts += [("small", lambda: fm_small_run(rank, dev, fcfg, mesh)), ("launcher", lambda: fm_launcher(rank, dev, fcfg))]
+        for part, fn in parts:
+            t0 = time.perf_counter()
+            res = fn()
+            res["seconds"] = time.perf_counter() - t0
+            out.put(("ok", rank, part, res))
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out.put(("done", rank, None, None))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("error", rank, None, traceback.format_exc()))
+
+
+@contextlib.contextmanager
+def routes(sink: list):
+    """The expert indices of every ``moe_route`` call while the block runs."""
+    fn = model_layers.moe_route
+
+    def route(router, xt, cfg):
+        out = fn(router, xt, cfg)
+        sink.append(out[2].cpu().tolist())
+        return out
+
+    model_layers.moe_route = route
+    try:
+        yield sink
+    finally:
+        model_layers.moe_route = fn
+
+
+def fm_reference(dev, fcfg: dict) -> dict:
+    """The parent's side: each model in one process on the card, drawn from
+    the same seed, the logits of (a)'s probe and its routing, in bf16 and in
+    float32 (the bf16 model's weights upcast: the exact answer they give),
+    the card freed after each; and each float32 smoke config's engine tokens
+    and one train step on the CPU."""
+    ref = {}
+    for arch, _ in FM_MODELS:
+        m = fcfg["models"][arch]
+        ref[arch] = {}
+        bf16_specs = build_model(m["cfg"]).param_specs()
+        for dtype in ("bfloat16", "float32"):
+            model = build_model(m["cfg"].replace(dtype=dtype))
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+            if dtype == "float32":  # round what the bf16 model holds in bf16: its weights, exactly
+                with torch.no_grad():
+                    for t, spec in zip(tree.leaves(params), tree.leaves(bf16_specs)):
+                        if spec.dtype == torch.bfloat16:
+                            t.copy_(t.to(torch.bfloat16))
+            with routes([]) as sink:
+                probe = fm_probe(model, params, m["prompts"], dev, None, None)
+            ref[arch][dtype] = {"prefill": probe["prefill"], "tick": probe["tick"], "routes": sink}
+            del params, probe
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    cpu = torch.device("cpu")
+    for i, scfg in enumerate(fcfg["small"]):
+        small = build_model(scfg)
+        p = small.init(torch.Generator().manual_seed(SEED + 1800 + i))
+        res = Engine(small, p, max_len=32, metrics=MetricsRegistry()).generate(
+            [list(r.prompt) for r in mesh_small_requests()[:4]], max_new_tokens=6)
+        rec = {"tokens": res.tokens.tolist()}
+        B, S = FM_SMALL_BATCH
+        trules = rules_for(scfg, ShapeSpec("t", "train", S, B), BASELINE)
+        b = make_batch(scfg, B, S, seed=SEED + 1810 + i, device=cpu)
+        np_, ns, met = make_train_step(small, RESUME_OPT, rules=trules)(p, init_state(RESUME_OPT, p), b)
+        rec["metrics"] = {k: float(v) for k, v in met.items()}
+        rec["state"] = (np_, ns)
+        ref[scfg.name] = rec
+    return ref
+
+
+def families_mesh_phase(fcfg: dict, dev) -> tuple[dict, dict]:
+    """Phase ``families_mesh``: the parent computes the one-process logits
+    on the card, freeing it after each model, then one spawned world of four
+    ranks runs every model in turn, then (c) and (d); every check is the
+    parent's. Returns (the launches of the guards' kernels, summed over the
+    ranks, the phase's record)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = math.prod(MESH_SHAPE)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < MOE_HELD_MAX, f"families_mesh: earlier phases still hold {held} bytes of the card")
+    ctx = mp.get_context("spawn")  # the parent has initialised CUDA: no fork
+    tmp = tempfile.TemporaryDirectory()
+    go, out = ctx.Event(), ctx.Queue()
+    init = "file://" + os.path.join(tmp.name, "store")
+    procs = [ctx.Process(target=families_mesh_worker, args=(r, world, init, fcfg, go, out, dev.type), daemon=True)
+             for r in range(world)]
+    parts = [a for a, _ in FM_MODELS] + ["small", "launcher"]
+    results: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        t_ref = time.perf_counter()
+        ref = fm_reference(dev, fcfg)
+        ref_s = time.perf_counter() - t_ref
+        go.set()
+        want, got, deadline = world * (len(parts) + 2), 0, time.monotonic() + FM_DEADLINE_S  # ready, parts, done
+        while got < want:
+            try:
+                status, rank, part, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                check(not dead, f"families_mesh: rank(s) {dead} died (exit codes {[procs[r].exitcode for r in dead]})")
+                check(time.monotonic() < deadline, f"families_mesh: the ranks did not finish within {FM_DEADLINE_S} s")
+                continue
+            check(status != "error", f"families_mesh: rank {rank} raised:\n{value}")
+            got += 1
+            if status == "ok":
+                results.setdefault(part, {})[rank] = value
+                if rank == 0:  # progress, on the error stream
+                    print(f"chip_smoke: families_mesh/{part} done on rank 0 in {value['seconds']:.1f} s, "
+                          f"{time.perf_counter() - t0:.1f} s into the phase: "
+                          f"{json.dumps(untokened(value), default=str)[:3000]}",
+                          file=sys.stderr, flush=True)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t0
+    ranks = range(world)
+    on_card = dev.type == "cuda"
+    counted = {"gf_matmul": 0, "butterfly_mac": 0}
+
+    # (a) and (b), model by model
+    served = {}
+    peaks_of = {}
+    for arch, layers in FM_MODELS:
+        m, sv = fcfg["models"][arch], results[arch]
+        toks = sv[0]["plain"]["tokens"]
+        check(all(sv[r]["plain"]["tokens"] == toks for r in ranks), f"families_mesh/{arch}: the ranks' tokens differ")
+        check(all(len(toks[b]) == len(p) + FM_MAX_NEW and toks[b][:len(p)] == p
+                  and all(0 <= t < m["cfg"].vocab_size for t in toks[b]) for b, p in enumerate(m["prompts"])),
+              f"families_mesh/{arch}: a row's tokens are not its prompt and its budget in the vocabulary")
+        check(all(sv[r]["placed"] and sv[r]["engine_kept_blocks"] for r in ranks),
+              f"families_mesh/{arch}: the sharded draw did not give the engine DTensors it kept")
+        check(all(sv[r]["held_bytes"] == m["held"] for r in ranks),
+              f"families_mesh/{arch}: ranks hold {[sv[r]['held_bytes'] for r in ranks]} bytes, the specs say {m['held']}")
+        check(all(sv[r]["draw_peak_bytes"] <= m["held"] + MM_DRAW_SLACK for r in ranks),
+              f"families_mesh/{arch}: a rank's draw peaked at {[sv[r]['draw_peak_bytes'] for r in ranks]} bytes")
+        peaks = [sv[r]["peak_bytes"] for r in ranks]
+        peaks_of[arch] = peaks
+        check(not on_card or sum(peaks) <= FM_PEAK_SUM_MAX,
+              f"families_mesh/{arch}: the ranks' peaks {peaks} pass {FM_PEAK_SUM_MAX} bytes together")
+        pr, rb, rf = sv[0]["probe"], ref[arch]["bfloat16"], ref[arch]["float32"]
+        near_tie = rb["routes"] != rf["routes"]
+        lerr = {k: {"mesh_vs_one_process": logits_err(pr[k], rb[k]), "mesh_vs_float32": logits_err(pr[k], rf[k]),
+                    "one_process_vs_float32": logits_err(rb[k], rf[k])} for k in ("prefill", "tick")}
+        for k, e in lerr.items():
+            one, mesh, exact = e["mesh_vs_one_process"], e["mesh_vs_float32"], e["one_process_vs_float32"]
+            check(one["finite"] and (near_tie or (one["rms_of_rms"] <= REFEED_RMS_TOL
+                                                  and one["max_of_max"] <= REFEED_MAX_TOL)),
+                  f"families_mesh/{arch}: the full-width {k} logits differ from one process's: {e}")
+            check(all(mesh[q] <= max(tol, FM_EXACT_SLACK * exact[q])
+                      for q, tol in (("rms_of_rms", REFEED_RMS_TOL), ("max_of_max", REFEED_MAX_TOL))),
+                  f"families_mesh/{arch}: the full-width {k} logits are further from float32's than one process's: {e}")
+        p0 = sv[0]["plain"]
+        rec = {"layers": f"{layers or m['cfg'].n_layers} of {get(arch).n_layers}", "whole_bytes": m["whole"],
+               "held_bytes_by_specs": m["held"], "held_bytes": [sv[r]["held_bytes"] for r in ranks],
+               "draw_s": [sv[r]["draw_s"] for r in ranks], "draw_peak_bytes": [sv[r]["draw_peak_bytes"] for r in ranks],
+               "peak_bytes": peaks, "prompt_lens": [len(p) for p in m["prompts"]], "max_new": FM_MAX_NEW,
+               "tokens_equal_across_ranks": True, "logits_err": lerr,
+               "logits_tolerance": {"rms_of_rms": REFEED_RMS_TOL, "max_of_max": REFEED_MAX_TOL,
+                                    "of_float32": f"the larger of these and {FM_EXACT_SLACK} x one process's"},
+               "router_near_tie": near_tie, "router_calls": len(rb["routes"]),
+               "tokens_per_s": p0["tokens_per_s"], "wall_s": p0["wall_s"], "ticks": p0["steps"],
+               "tick_ms": [sv[r]["plain"]["tick_ms"] for r in ranks], "counted_tick": sv[0]["counted_tick"],
+               "seconds": [sv[r]["seconds"] for r in ranks]}
+        if arch in FM_RECURRENT:
+            g0 = sv[0]["guarded"]
+            entry = FM_ENTRY.format(arch=arch)
+            want_calls = count_calls(fcfg["runs"][entry])
+            check(all(sv[r]["guarded"]["dead"] == [FM_KILL_HOST] and sv[r]["guarded"]["alive"] == [0, 1, 2]
+                      and sv[r]["guarded"]["host"] == r for r in ranks),
+                  f"families_mesh/{arch}: guard {[sv[r]['guarded']['dead'] for r in ranks]}")
+            check(g0["bit_exact"], f"families_mesh/{arch}: the recovered state differs from the snapshot's bytes")
+            check(all(sv[r]["guarded"]["resumed_equal"] for r in ranks),
+                  f"families_mesh/{arch}: the refeed resumed from the recovered state gives other tokens than (a)")
+            check(g0["width"] == m["S"], f"families_mesh/{arch}: rows {g0['width']} limbs wide, not phase 3's {m['S']}")
+            for r in ranks:
+                gr = sv[r]["guarded"]
+                check(gr["calls"] == fcfg["runs"][entry], f"families_mesh/{arch}: rank {r} runs other kernels than "
+                                                          "phase 3 held")
+                check(not on_card or (gr["kernels"] == "cuda" and (gr["launches"]["gf_matmul"],
+                                                                   gr["launches"]["butterfly_mac"]) == want_calls),
+                      f"families_mesh/{arch}: rank {r} launched {gr['launches']}, expected {want_calls}")
+                for k in counted:
+                    counted[k] += gr["launches"][k]
+            rec["guarded"] = {"K": CM_K, "R": CM_R, "snapshot_tick": FM_SNAPSHOT_TICK, "lost_ticks": FM_LOST_TICKS,
+                              "killed_host": FM_KILL_HOST, "recovered_bit_exact": True,
+                              "resumed_to_tick": g0["resumed_to_tick"],
+                              "resumed_tokens_equal": True, "row_limbs": g0["width"],
+                              "state_bytes": spec_bytes(fm_state_spec(build_model(m["cfg"]), m["prompts"])),
+                              "snapshot_ms": [sv[r]["guarded"]["snapshot_ms"] for r in ranks],
+                              "recover_ms": [sv[r]["guarded"]["recover_ms"] for r in ranks],
+                              "transport": g0["transport"], "launches": [sv[r]["guarded"]["launches"] for r in ranks]}
+        served[arch] = rec
+    check(not on_card or counted["gf_matmul"] > 0, "families_mesh: the guard never launched gf_matmul")
+
+    # (c) the float32 smoke configs on the mesh on the card against the CPU; the train launcher
+    sm = results["small"]
+    small_rec = {}
+    for scfg in fcfg["small"]:
+        name = scfg.name
+        check(all(sm[r][name]["tokens"] == ref[name]["tokens"] for r in ranks),
+              f"families_mesh/small: {name}'s tokens on the mesh differ from the CPU's")
+        (gp, gs), (cp, cs) = sm[0][name]["state"], ref[name]["state"]
+        worst, tol = small_errors(gp, gs, [sm[0][name]["metrics"]["loss"]], cp, cs, [ref[name]["metrics"]["loss"]],
+                                  [ref[name]["metrics"]["lr"]])
+        gn = abs(sm[0][name]["metrics"]["grad_norm"] - ref[name]["metrics"]["grad_norm"]) / ref[name]["metrics"]["grad_norm"]
+        check(all(worst[k] <= tol[k] for k in worst) and gn <= MM_NORM_RTOL,
+              f"families_mesh/small: {name}'s train step on the mesh and the CPU's differ: {worst}, norm {gn}")
+        small_rec[name] = {"tokens_equal_cpu": True, "max_err": worst, "tolerance": tol, "grad_norm_rel_err": gn}
+    tl_rec = {}
+    for arch in FM_TRAIN_ARCHS:
+        tl = [sm[r]["train_launcher"][arch] for r in ranks]
+        check(all(t["losses"] == tl[0]["losses"] and np.isfinite(t["losses"]).all() and t["step"] == 1
+                  and t["placed"] for t in tl), f"families_mesh/train_launcher: {arch}: {tl[0]}")
+        check(tl[0]["held"] and tl[0]["one_process_equal"],
+              f"families_mesh/train_launcher: {arch}'s parity differs from a one-process guard's over the gathered state")
+        entry = FM_TRAIN_ENTRY.format(arch=arch)
+        want_calls = count_calls(fcfg["train_runs"][entry])
+        for r in ranks:
+            exp = want_calls if r == 0 else (0, 0)
+            got_l = (tl[r]["launches"]["gf_matmul"], tl[r]["launches"]["butterfly_mac"])
+            check(not on_card or got_l == exp, f"families_mesh/train_launcher: {arch}: rank {r} launched {got_l}, "
+                                               f"expected {exp}")
+            for k in counted:
+                counted[k] += tl[r]["launches"][k]
+        tl_rec[arch] = {"losses": tl[0]["losses"], "parity_equal_one_process": True, "launches_rank0": tl[0]["launches"]}
+
+    # (d) the launcher's own sharded draw: the first tokens of (a)'s Whisper rows
+    ln = results["launcher"]
+    wt = results[WHISPER_ARCH][0]["plain"]["tokens"]
+    cut = [row[:len(p) + FM_LAUNCH_NEW] for row, p in zip(wt, fcfg["models"][WHISPER_ARCH]["prompts"])]
+    check(all(ln[r]["tokens"] == cut for r in ranks),
+          "families_mesh/launcher: launch/serve.py --mesh 2x2 gives other tokens than (a)'s engine")
+    check(any(line.startswith("seq 0:") for line in ln[0]["printed"]) and not any(ln[r]["printed"] for r in ranks if r)
+          and "falling back to fixed-batch" in ln[0]["printed"][0],
+          "families_mesh/launcher: rank 0 alone must print the fall-back and the sequences")
+    check(phase_s <= FM_PHASE_S, f"families_mesh: the phase took {phase_s:.1f} s, over {FM_PHASE_S} s")
+    record = {"mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "rules": "decode preset, opt profile", "models": served,
+              "peak_sum_bytes": {a: sum(p) for a, p in peaks_of.items()}, "small": small_rec,
+              "train_launcher": tl_rec,
+              "launcher": {"tokens_equal_engine": True, "max_new": FM_LAUNCH_NEW, "printed": ln[0]["printed"],
+                           "peak_bytes": [ln[r]["peak_bytes"] for r in ranks]},
+              "seconds_by_part": {part: [results[part][r]["seconds"] for r in ranks] for part in results},
+              "launches": counted, "reference_s": ref_s, "seconds": phase_s}
+    return counted, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -5484,9 +6112,10 @@ def main() -> int:
     analysis_cfgs = analysis_configs()
     cm_cfg = coded_mesh_config()
     mm_cfg = moe_mesh_config()
+    fm_cfg = families_mesh_config()
     shapes = path_shapes(configs + coded_cfgs + [serve_cfg, train_cfg] + ranks_cfgs
                          + [moe_cfg, mla_cfg, ssm_cfg, encvlm_cfg] + analysis_cfgs + cm_cfg["paths"]
-                         + mm_cfg["paths"], P)
+                         + mm_cfg["paths"] + fm_cfg["paths"], P)
     t_kernels = time.perf_counter()
     rows = [
         check_gf_matmul(dev, shapes["gf_matmul"]),
@@ -5605,6 +6234,12 @@ def main() -> int:
     moe_mesh_launches, moe_meshed = moe_mesh_phase(mm_cfg, dev)
     say("moe_mesh", card=smi, **moe_meshed)
 
+    # phase 18: RWKV6-3B, Jamba, Whisper-base and InternVL2-26B at full width on the 2x2 mesh, counted on the ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_mesh_launches, families_meshed = families_mesh_phase(fm_cfg, dev)
+    say("families_mesh", card=smi, **families_meshed)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for row in rows:
@@ -5613,7 +6248,7 @@ def main() -> int:
                            + ranks_launches[row["name"]] + moe_launches[row["name"]] + mla_launches[row["name"]]
                            + ssm_launches[row["name"]] + encvlm_launches[row["name"]]
                            + analysis_launches[row["name"]] + coded_mesh_launches[row["name"]]
-                           + moe_mesh_launches[row["name"]])
+                           + moe_mesh_launches[row["name"]] + families_mesh_launches[row["name"]])
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -18,6 +18,15 @@ The function returns a tensor (``out_specs`` one spec) or a tuple or list
 of tensors (``out_specs`` a tuple of specs, one each). When no input is a
 DTensor the outputs are given back as full plain tensors, so a caller that
 holds full tensors gets full tensors.
+
+A block's gradient leaves with the block's placements: every rank's
+gradient of a replicated input is taken to be the whole one, which holds
+where the ranks along that axis all do the same work. A region whose ranks
+do different parts of the work along some axes (their batch rows, their
+channels, their heads) names them in ``work_axes``: the gradient of an input
+replicated over one of them is a pending sum over it, which DTensor
+completes (the reference's ``shard_map`` transposes a replicated input the
+same way).
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 import torch.utils._pytree as pytree
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from .sharding import NamedSharding, placements_for
@@ -69,11 +78,12 @@ def _on_blocks(f):
     return run
 
 
-def shard_map(f, mesh, in_specs, out_specs):
+def shard_map(f, mesh, in_specs, out_specs, *, work_axes=()):
     """``f`` mapped over ``mesh``'s ranks: ``in_specs`` one spec a positional
     argument, ``out_specs`` one spec (a single output) or a tuple of specs
     (one an output of a tuple). On a mesh of one rank ``f`` runs on the
-    tensors as they are."""
+    tensors as they are. An input's gradient is a pending sum over each axis
+    of ``work_axes`` it is replicated on."""
     single = _is_spec(out_specs)
     # local_map reads a tuple as one placement list an output: one output's is a list
     out_pl = list(placements_for(mesh, out_specs)) if single else tuple(list(placements_for(mesh, s))
@@ -85,21 +95,26 @@ def shard_map(f, mesh, in_specs, out_specs):
         if mesh.device_mesh is None or mesh.device_mesh.size() == 1:
             return f(*args)
         any_dtensor = False
-        placed, in_pl = [], []
+        placed, in_pl, grad_pl = [], [], []
         for arg, spec in zip(args, in_specs):
             leaves, treedef = pytree.tree_flatten(arg)
             pl = placements_for(mesh, spec)
+            gpl = tuple(Partial() if ax in work_axes and isinstance(p, Replicate) else p
+                        for ax, p in zip(mesh.axis_names, pl))
             out = []
             for leaf in leaves:
                 if isinstance(leaf, torch.Tensor):
                     any_dtensor |= isinstance(leaf, DTensor)
                     out.append(NamedSharding(mesh, tuple(spec)).place(leaf))
                     in_pl.append(pl)
+                    grad_pl.append(gpl)
                 else:
                     out.append(leaf)
                     in_pl.append(None)
+                    grad_pl.append(None)
             placed.append(pytree.tree_unflatten(out, treedef))
-        res = local_map(_on_blocks(f), out_placements=out_pl, in_placements=tuple(in_pl), device_mesh=mesh.device_mesh,
+        res = local_map(_on_blocks(f), out_placements=out_pl, in_placements=tuple(in_pl),
+                        in_grad_placements=tuple(grad_pl), device_mesh=mesh.device_mesh,
                         redistribute_inputs=True)(*placed)
         if any_dtensor:
             return res

@@ -29,11 +29,11 @@ keeps a model that fits off FSDP), whose flags the model reads.
 torchrun, each drawing only its own block of the weights from the seed
 (``Model.init(generator, shardings=)`` on ``train.train_loop.param_shardings``),
 which holds a full-width MoE model (DeepSeek-V3, Arctic) cut in depth on
-one card; only rank 0 prints. The recurrent, encoder-decoder and VLM
-families are refused on a mesh (``NotImplementedError``, ROADMAP.md A3.1):
+one card; only rank 0 prints. Every family runs on a mesh, the recurrent,
+encoder-decoder and VLM ones through the fixed-batch fall-back:
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
-        --arch qwen3-1.7b --mesh 2x2 --smoke --device cpu
+        --arch rwkv6-3b --mesh 2x2 --smoke --device cpu
 
 On the card the ranks share it over the port's staging backend
 (``dist.staging``); on the CPU over gloo. ``--coded`` works on a mesh as on
@@ -59,7 +59,7 @@ from ..core.field import resolve_device
 from ..models import build_model
 from ..serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
 from ..train import latest_step, restore_checkpoint
-from ..train.train_loop import param_shardings, refuse_unheld
+from ..train.train_loop import param_shardings
 from .mesh import launcher_mesh, parse_mesh
 from .profiles import BASELINE, OPT, rules_for
 
@@ -116,7 +116,6 @@ def _serve(args, dev, mesh):
         cfg = cfg.replace(n_layers=args.layers)
     rules = rules_for(cfg, ShapeSpec("cli", "decode", args.max_len, 1), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
-    refuse_unheld(cfg, mesh)
     shardings = None if mesh is None else param_shardings(model, mesh, rules)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

@@ -16,16 +16,19 @@ batch and sequence) and the train step runs under them; on one card their
 flags are what the model reads (neither profile sets ``moe_gather``).
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU.
-``--layers N`` cuts the depth to N layers (every width kept).
+``--layers N`` cuts the depth to N layers (every width kept). The
+encoder-decoder and the VLM get their stub frontend's frames or patches
+beside each step's tokens, drawn from the step's seed
+(``models.inputs.frontend_inputs``; the reference's launcher feeds its
+``SyntheticLM`` tokens alone, which those two families cannot take).
 
 ``--mesh DxM`` trains on a (data, model) mesh of D·M ranks started by
 torchrun: each rank draws only its own block of the weights from the seed
 (``Model.init(generator, shardings=)``), makes its moments beside them, and
 draws the same global batch and keeps its shard (``train.train_loop``'s
-``param_shardings``, ``opt_state_shardings``, ``batch_shardings``); the
-recurrent, encoder-decoder and VLM families are refused on a mesh
-(``NotImplementedError``, ROADMAP.md A3.1); the checkpoint is written
-whole by rank 0 and restored under the same shardings; only rank 0 prints.
+``param_shardings``, ``opt_state_shardings``, ``batch_shardings``), every
+family alike; the checkpoint is written whole by rank 0 and restored under
+the same shardings; only rank 0 prints.
 ``--coded-every`` snapshots the sharded state on every rank together: rank 0
 gathers it and alone holds the parity (``train.elastic.CodedStateGuard``),
 so the returned guard recovers on rank 0's word, and
@@ -49,6 +52,7 @@ from ..configs import get, smoke_config
 from ..configs.base import ShapeSpec
 from ..core.field import resolve_device
 from ..models import build_model
+from ..models.inputs import frontend_inputs
 from ..train import (
     CodedStateGuard,
     OptConfig,
@@ -60,7 +64,7 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.data import to_device
-from ..train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place, refuse_unheld
+from ..train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
 from .mesh import launcher_mesh, parse_mesh
 from .profiles import BASELINE, OPT, rules_for
 
@@ -115,7 +119,6 @@ def _train(args, dev, mesh) -> dict:
     rules = rules_for(cfg, ShapeSpec("cli", "train", args.seq, args.batch), OPT if args.profile == "opt" else BASELINE)
     model = build_model(cfg)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
-    refuse_unheld(cfg, mesh)
     shardings = None
     if mesh is not None:
         shardings = {"params": param_shardings(model, mesh, rules),
@@ -140,7 +143,7 @@ def _train(args, dev, mesh) -> dict:
     history = []
     t0 = time.perf_counter()
     for s in range(start, args.steps):
-        batch = to_device(ds.batch(s, args.batch, args.seq), dev)
+        batch = to_device({**ds.batch(s, args.batch, args.seq), **frontend_inputs(cfg, args.batch, s)}, dev)
         if bshard is not None:  # every rank drew the same global batch: each keeps its shard
             batch = place(batch, {k: bshard[k] for k in batch})
         params, opt_state, metrics = step_fn(params, opt_state, batch)

@@ -67,3 +67,18 @@ def make_batch(cfg: ModelConfig, B: int, S: int, seed: int = 0, device=None) -> 
         patches = rng.normal(size=(B, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32) * 0.02
         batch["patches"] = torch.from_numpy(patches).to(dev).to(torch.bfloat16)
     return batch
+
+
+def frontend_inputs(cfg: ModelConfig, B: int, seed: int) -> dict:
+    """The stub frontend's inputs for ``B`` rows, as numpy arrays drawn from
+    ``seed``: ``frames`` (B, n_frames, d_model) for the encoder-decoder,
+    ``patches`` (B, n_patches, d_model) for the VLM, normal at scale 0.02 in
+    float32 (as :func:`make_batch` draws them; the model casts them to its
+    dtype); nothing for the other families."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.encdec is not None:
+        out["frames"] = (rng.normal(size=(B, cfg.encdec.n_frames, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.vlm is not None:
+        out["patches"] = (rng.normal(size=(B, cfg.vlm.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    return out

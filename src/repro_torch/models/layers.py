@@ -1,9 +1,9 @@
 """Shared model layers (eager PyTorch, pytree params).
 
-A port of the reference package's ``models/layers.py`` for the dense,
-MoE and MLA decoders: norms, RoPE, chunked causal and decode attention, the GQA
-block, the SwiGLU MLP and the top-k routed MoE block, each with its logical
-dims (``*_specs``). Conventions follow the reference step by step:
+A port of the reference package's ``models/layers.py`` for every family:
+norms, RoPE, chunked causal and decode attention, the GQA block, the SwiGLU
+and GELU MLPs and the top-k routed MoE block, each with its logical dims
+(``*_specs``). Conventions follow the reference step by step:
 
 * params are nested dicts of tensors; every builder has an ``init`` and an
   ``apply``-style function;
@@ -18,16 +18,19 @@ dims (``*_specs``). Conventions follow the reference step by step:
   (``dist.sharding.constrain``); without one it is the identity.
 
 On a mesh the parameters, the cache and the activations are DTensors and
-DTensor's sharding propagation runs the products, norms, RoPE, SwiGLU and
-the tied head; a constant made on the spot (positions, RoPE frequencies,
-the vocabulary pad) joins them as a replicated DTensor
-(:func:`replicated_like`). Regions run instead on each rank's blocks
-(``dist._compat.shard_map``, or by hand), where DTensor has no sharding
-strategy, would gather the cache or would sum the expert products one op at
-a time:
+DTensor's sharding propagation runs the products, norms, RoPE, SwiGLU, the
+GELU MLP, the layernorms and the tied head; a constant made on the spot
+(positions, RoPE frequencies, the vocabulary pad, the sinusoidal positions)
+joins them as a replicated DTensor (:func:`replicated_like`). Regions run
+instead on each rank's blocks (``dist._compat.shard_map``, or by hand),
+where DTensor has no sharding strategy, would gather the cache or would
+dispatch a scan's small ops one at a time:
 
 * the attention core of a full sequence (:func:`chunked_causal_attention`),
-  with batch over its axes and heads over theirs, the sequence whole;
+  with batch over its axes and heads over theirs, the sequence whole; the
+  encoder's bidirectional attention, and the encoder-decoder's
+  cross-attention, whose queries (a prompt, or one token a tick) attend all
+  of the encoder's frames, go through the same region;
 * the decode attention over the cache (:func:`decode_attention`), split
   over the cache's ``kv_seq`` axes as flash-decoding splits it: each rank
   scores its own rows, and a max and two sums over those axes combine them;
@@ -39,10 +42,14 @@ a time:
   (the reference's capacity and drops), the products on each rank's blocks
   of the expert weights, summed over the axes that split them in one call;
 * the MLA family's attention core and its decode over the latent cache
-  (``models.mla``), in the same forms as the attention's.
-
-The GELU MLP and the layernorm blocks of the encoder-decoder wait for a
-later slice (ROADMAP.md queue A4).
+  (``models.mla``), in the same forms as the attention's;
+* the recurrent mixers' scans (``models.ssm``): Mamba's causal conv and
+  selective scan on each rank's batch rows and ``d_inner`` channels,
+  RWKV6's time mix and WKV scan on its batch rows and heads and its channel
+  mix on its part of ``d_ff``, time whole, each with the one sum its
+  partial products need (:func:`sum_of_parts`, ``_OutOfRegion``); the state
+  they return lies as the cache holds it, so the decode writes stay on each
+  rank's blocks.
 """
 
 from __future__ import annotations
@@ -579,9 +586,9 @@ def gelu_mlp(params, x, ctx=NO_CTX):
     """The encoder's MLP: biases before the activation and after
     ``w_down``; the GELU is the tanh approximation (``jax.nn.gelu``'s
     default)."""
-    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    h = F.gelu(rows(x) @ params["w_up"] + params["b_up"], approximate="tanh")
     h = ctx.cons(h, ("batch", "seq", "d_ff"))
-    return ctx.cons(h @ params["w_down"] + params["b_down"], ("batch", "seq", "d_model"))
+    return ctx.cons(rows(h) @ params["w_down"] + params["b_down"], ("batch", "seq", "d_model"))
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +759,33 @@ class _OutOfRegion(torch.autograd.Function):
         return g, None
 
 
+class _SumOfParts(torch.autograd.Function):
+    """The sum over ``group`` of each rank's part, where each rank goes on
+    with the sum on its own part of the work (its channels, its heads): the
+    sum's gradient on each rank is then a part of the whole, so the backward
+    sums it over ``group`` too and every part gets the whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+def sum_of_parts(x, group):
+    """:class:`_SumOfParts` over ``group``; ``x`` itself without one."""
+    return x if group is None else _SumOfParts.apply(x, group)
+
+
+def spec_axes(*entries) -> tuple[str, ...]:
+    """The mesh axes that spec entries name (an axis, a tuple of them, or
+    ``None``), in order."""
+    return tuple(a for e in entries for a in ((e,) if isinstance(e, str) else e or ()))
+
+
 def _experts_meshed(params, eb, ctx):
     """The expert products of :func:`moe_block` on a mesh: ``eb`` (E, C, d),
     whole on every rank, against each rank's block of the expert weights,
@@ -771,7 +805,7 @@ def _experts_meshed(params, eb, ctx):
         pl = placements_for(mesh, spec)
         blocks[name] = w if tuple(w.placements) == pl else w.redistribute(mesh.device_mesh, pl)
     e0, el = _local_offsets(blocks["w_gate"])[0], blocks["w_gate"].to_local().shape[0]
-    axes = tuple(a for e in (ws[0], ws[2]) for a in ((e,) if isinstance(e, str) else e or ()))
+    axes = spec_axes(ws[0], ws[2])
     group = mesh.axis_group(axes) if axes else None
     wg, wu, wd = (blocks[n].to_local() for n in ("w_gate", "w_up", "w_down"))
     if group is not None:

@@ -40,6 +40,14 @@ recurrent layer (Mamba, RWKV) keeps a state with no per-position rows, and
 the encoder-decoder and VLM frontends have no per-position cache, so these
 models have no one-pass prefill: they are served by the fixed ``Engine``'s
 per-token refeed.
+
+Every family runs on a mesh of ranks (``Ctx(mesh=)``, DTensor parameters,
+cache and activations): the recurrent mixers' scans, the attention cores
+(the encoder's and the cross-attention's too) and the MoE experts in
+regions on each rank's blocks (``models.layers``, ``models.ssm``), the rest
+as DTensor ops. The patch prefix and the text are each gathered whole in
+the sequence before they are joined, and the text cut out again after the
+trunk, so their positions are the reference's whatever the rules split.
 """
 
 from __future__ import annotations
@@ -266,7 +274,7 @@ def _mamba_block(moe: bool) -> dict[str, Any]:
         return _ffn(params, x + h, cfg, ctx, aux)
 
     def decode(params, x, cfg, cache, pos, ctx):
-        h, cache = SSM.mamba_decode(params["mamba"], L.rmsnorm(params["ln1"], x), cfg, cache)
+        h, cache = SSM.mamba_decode(params["mamba"], L.rmsnorm(params["ln1"], x), cfg, cache, ctx)
         x, _ = _ffn(params, x + h, cfg, ctx, 0.0)
         return x, cache
 
@@ -295,18 +303,20 @@ def _rwkv_specs(cfg):
 def _rwkv_fwd(params, x, cfg, ctx, aux):
     h, _ = SSM.rwkv6_time_mix(params["tm"], L.layernorm(params["ln1"], x), cfg, ctx)
     x = x + h
-    h2, _ = SSM.rwkv6_channel_mix(params["cm"], L.layernorm(params["ln2"], x))
+    h2, _ = SSM.rwkv6_channel_mix(params["cm"], L.layernorm(params["ln2"], x), ctx=ctx)
     return x + h2, aux
 
 
 def _rwkv_decode(params, x, cfg, cache, pos, ctx):
     """One token through the RWKV layer: its ``wkv`` state and both
-    token-shift rows are written into ``cache`` in place."""
+    token-shift rows are written into ``cache`` in place (on a mesh, each
+    rank into the block it holds: the mixers return them placed as the
+    cache is)."""
     h, (wkv, tm_prev) = SSM.rwkv6_time_mix(params["tm"], L.layernorm(params["ln1"], x), cfg, ctx,
                                            state=cache["wkv"], x_prev=cache["tm_prev"], return_state=True)
     x = x + h
     h2, cm_prev = SSM.rwkv6_channel_mix(params["cm"], L.layernorm(params["ln2"], x), x_prev=cache["cm_prev"],
-                                        return_state=True)
+                                        return_state=True, ctx=ctx)
     cache["wkv"].copy_(wkv)
     cache["tm_prev"].copy_(tm_prev)
     cache["cm_prev"].copy_(cm_prev)
@@ -575,7 +585,8 @@ class Model(nn.Module):
         output: sinusoidal positions added, then every encoder layer
         (bidirectional attention, no RoPE), then ``ln_post``."""
         cfg = self.cfg
-        x = frames + _sinusoidal(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None]
+        pe = L.replicated_like(_sinusoidal(frames.shape[1], cfg.d_model, frames.device), frames)
+        x = ctx.cons(frames + pe.to(frames.dtype)[None], ("batch", "seq", "d_model"))
         enc = params["encoder"]
         for lp in _unstack(enc["layers"]):
             h, _ = L.attention_fwd(lp["attn"], L.layernorm(lp["ln1"], x), cfg, ctx, rope=False, causal=False)
@@ -583,19 +594,22 @@ class Model(nn.Module):
             x = x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x), ctx)
         return L.layernorm(enc["ln_post"], x)
 
-    def _cross_attn(self, cp, x, enc_out):
+    def _cross_attn(self, cp, x, enc_out, ctx=L.NO_CTX):
         """The decoder's cross-attention onto the encoder's output: queries
         from ``layernorm(x)``, keys and values from ``enc_out`` (recomputed
-        on every call), no RoPE, no mask."""
+        on every call), no RoPE, no mask. On a mesh the attention core runs
+        on each rank's batch rows and heads (``layers._attention_core``),
+        the S queries against all of the F frames."""
         cfg = self.cfg
-        xn = L.layernorm(cp["ln"], x)
+        xn = L.rows(L.layernorm(cp["ln"], x))
         B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        enc_out = L.rows(enc_out)
         q = (xn @ cp["attn"]["wq"]).reshape(B, S, H, hd)
         k = (enc_out @ cp["attn"]["wk"]).reshape(B, -1, Hkv, hd)
         v = (enc_out @ cp["attn"]["wv"]).reshape(B, -1, Hkv, hd)
-        o = L.chunked_causal_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
-        return o.transpose(1, 2).reshape(B, S, -1) @ cp["attn"]["wo"]
+        o = L._attention_core(ctx, q, k, v, causal=False).reshape(B, S, -1)
+        return ctx.cons(L.rows(o) @ cp["attn"]["wo"], ("batch", "seq", "d_model"))
 
     def _crosses(self, params) -> list | None:
         """The cross-attention blocks, one a body layer in ``_layers``'s
@@ -634,7 +648,7 @@ class Model(nn.Module):
             else:
                 x, aux = fn(p, x, cfg, ctx, aux)
             if crosses is not None and i >= len(self.prefix):
-                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, enc_out)
+                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, enc_out, ctx)
         return L.rmsnorm(params["ln_f"], x), aux
 
     # -- public forward --------------------------------------------------------
@@ -646,14 +660,18 @@ class Model(nn.Module):
         x = self._embed(params, batch["tokens"]).to(self.dtype)
         enc_out = None
         if self.is_encdec:
-            enc_out = self._encode_frames(params, batch["frames"].to(self.dtype), ctx)
-            x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+            frames = L.replicated_like(batch["frames"], params["embed"])  # a plain batch is every rank's whole
+            enc_out = self._encode_frames(params, frames.to(self.dtype), ctx)
+            x = x + L.replicated_like(_sinusoidal(x.shape[1], cfg.d_model, x.device), x).to(x.dtype)[None]
         if self.is_vlm:
-            x = torch.cat([batch["patches"].to(self.dtype), x], dim=1)
+            # the patches, then the text, each whole in the sequence first: their
+            # positions are the reference's whatever splits the rules give them
+            patches = L.replicated_like(batch["patches"], params["embed"])
+            x = torch.cat([L.rows(patches.to(self.dtype)), L.rows(x)], dim=1)
         x = ctx.cons(x, ("batch", "seq", "d_model"))
         h, aux = self._trunk(params, x, ctx, enc_out)
         if self.is_vlm:
-            h = h[:, batch["patches"].shape[1]:]
+            h = L.rows(h)[:, batch["patches"].shape[1]:]
         logits = self._head(params, h)
         return logits, aux, h
 
@@ -721,12 +739,12 @@ class Model(nn.Module):
         cfg = self.cfg
         x = ctx.cons(self._embed(params, tokens).to(self.dtype), ("batch", "seq", "d_model"))
         if self.is_encdec:
-            x = x + _sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None, :]
+            x = x + L.replicated_like(_sinusoidal_at(pos, cfg.d_model), x).to(x.dtype)[:, None, :]
         crosses = self._crosses(params)
         for i, (kind, p, c) in enumerate(self._layers(params, cache)):
             x, _ = _KINDS[kind]["decode"](p, x, cfg, c, pos, ctx)
             if crosses is not None and i >= len(self.prefix):
-                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, cache["enc_out"])
+                x = x + self._cross_attn(crosses[i - len(self.prefix)], x, cache["enc_out"], ctx)
         logits = self._head(params, L.rmsnorm(params["ln_f"], x))
         return logits, cache
 

@@ -70,7 +70,6 @@ from ..train.train_loop import (
     make_prefill_step,
     param_shardings,
     place,
-    refuse_unheld,
 )
 from .scheduler import (
     DEFAULT_BUCKETS,
@@ -160,11 +159,9 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
 def _on_mesh(model, params, mesh, rules):
     """(mesh, params): ``params`` placed on ``mesh`` by ``param_shardings``
     (DTensors already on them stay where they are); a mesh of one rank is
-    no mesh. A family the port does not run on a mesh yet is refused before
-    anything is placed (``train_loop.refuse_unheld``)."""
+    no mesh."""
     if mesh is None or mesh.device_mesh is None or mesh.device_mesh.size() == 1:
         return None, params
-    refuse_unheld(model.cfg, mesh)
     return mesh, place(params, param_shardings(model, mesh, rules))
 
 
@@ -366,7 +363,6 @@ class ContinuousEngine:
         rules=None,
         mesh=None,
     ):
-        refuse_unheld(model.cfg, mesh)
         if not model.supports_prefill:
             raise NotImplementedError(
                 f"{model.cfg.name}: one-pass prefill needs per-position cache "

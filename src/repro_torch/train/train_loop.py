@@ -171,21 +171,6 @@ def cache_shardings(model, mesh, rules: ShardingRules | None, cache_shapes):
     return _tree_shard(mesh, rules, cache_shapes, model.cache_dims())
 
 
-def refuse_unheld(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run on a
-    mesh of more than one rank yet: the recurrent (Mamba, RWKV6),
-    encoder-decoder and VLM families, whose scans, state writes, encoder
-    and patch prefix have no meshed path (ROADMAP.md A3.1). The dense, MoE
-    and MLA families pass; a mesh of one rank is no mesh."""
-    if mesh is None or mesh.device_mesh is None or mesh.device_mesh.size() == 1:
-        return
-    family = "recurrent (SSM)" if cfg.ssm is not None else "encoder-decoder" if cfg.encdec is not None else \
-        "VLM" if cfg.vlm is not None else None
-    if family is not None:
-        raise NotImplementedError(f"{cfg.name}: the {family} family does not run on a mesh of ranks yet "
-                                  "(ROADMAP.md A3.1)")
-
-
 def place(tree_, shardings):
     """Every leaf of ``tree_`` placed under its sharding (``shardings`` has
     the same structure; a :class:`NamedSharding` is a leaf of it): a full

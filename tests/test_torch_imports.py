@@ -77,16 +77,19 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 
 def test_the_meshed_moe_and_mla_modules_import_alone():
-    """The modules this slice changed (the meshed MoE block and MLA decode,
-    the sharded draw, the refusal of the families a mesh does not hold yet,
-    both launchers) import in a fresh interpreter without JAX or the JAX
-    package, and carry the slice's names."""
+    """The modules the meshed model families changed (the meshed MoE block
+    and MLA decode, the sharded draw, the recurrent mixers' regions and the
+    region sums, the shard_map with work axes, the launchers' stub frontend)
+    import in a fresh interpreter without JAX or the JAX package, and carry
+    those names."""
     r = run_fresh("""
         import sys
-        from repro_torch.models.layers import Block, DrawInto, _experts_meshed, moe_block
+        from repro_torch.models.layers import Block, DrawInto, _experts_meshed, moe_block, spec_axes, sum_of_parts
         from repro_torch.models.mla import _latent_attention, _latent_attention_meshed, _mla_core, mla_decode
         from repro_torch.models.model import Model, _fill
-        from repro_torch.train.train_loop import refuse_unheld
+        from repro_torch.models.ssm import _layernorm_of_parts, _mamba_meshed, _mamba_mix, _rwkv_meshed, _time_mix
+        from repro_torch.models.inputs import frontend_inputs
+        from repro_torch.dist._compat import shard_map
         from repro_torch.train.optimizer import init_state
         from repro_torch.serve.engine import ContinuousEngine, Engine, _on_mesh
         import repro_torch.launch.serve, repro_torch.launch.train

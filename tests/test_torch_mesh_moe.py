@@ -240,16 +240,3 @@ def test_serve_launcher_2x2_prints_the_reference_token_lines(ref, port, arch):
     want = [s for s in json.loads(str(ref["data"][f"launch/{arch}"])) if s.startswith("cli-")]
     got = [s for s in port[0]["launch"][arch] if s.startswith("cli-")]
     assert len(want) == 2 and got == want
-
-
-# ---------------------------------------------------------------------------
-# the families the mesh does not hold yet
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", H.UNHELD)
-@pytest.mark.parametrize("entry", H.ENTRIES)
-def test_unheld_family_is_refused_on_a_mesh(port, arch, entry):
-    for r in port:
-        msg = r["refused"][f"{arch}/{entry}"]
-        assert "A3.1" in msg and arch in msg, msg

@@ -45,8 +45,6 @@ TRAIN_CASES = [(a, p, "float32") for a in ARCHS for p in ("baseline", "opt")] + 
     [("deepseek-v3-671b", "opt", "bfloat16")]  # big_model's bf16 moments
 RANK_K, RANK_R, RANK_KILLS = 2, 2, ((2, 3),)  # the rank form over the four ranks as hosts
 LAUNCH_PROMPTS = "1,2,3;7,8"
-UNHELD = ("rwkv6-3b", "jamba-v0.1-52b", "whisper-base", "internvl2-26b")
-ENTRIES = ("continuous", "fixed", "serve_launcher", "train_launcher")
 
 
 def _spec(s) -> list:
@@ -256,12 +254,11 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.profiles import BASELINE, OPT, profile_with, rules_for
     from repro_torch.launch.serve import main as serve_main
-    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
     from repro_torch.models import mla as MLA
     from repro_torch.obs.metrics import MetricsRegistry
-    from repro_torch.serve import CodedServeGuard, ContinuousEngine, Engine, FaultInjector, Request
+    from repro_torch.serve import CodedServeGuard, ContinuousEngine, FaultInjector, Request
     from repro_torch.train import OptConfig, init_state, make_train_step
     from repro_torch.train.data import to_device
     from repro_torch.train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
@@ -397,26 +394,8 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
         launch[arch] = buf.getvalue().splitlines()
     res["launch"] = launch
 
-    # the families not held on a mesh: refused by both engines and both launchers
-    refused = {}
-    for arch in UNHELD:
-        model = build_model(smoke_config(arch))
-        calls = {
-            "continuous": lambda: ContinuousEngine(model, {}, mesh=mesh),
-            "fixed": lambda: Engine(model, {}, mesh=mesh),
-            "serve_launcher": lambda: serve_main(["--arch", arch, "--smoke", "--mesh", "2x2", "--device", "cpu"]),
-            "train_launcher": lambda: train_main(["--arch", arch, "--smoke", "--mesh", "2x2", "--device", "cpu",
-                                                  "--steps", "1", "--batch", "4", "--seq", "16"]),
-        }
-        for entry, call in calls.items():
-            try:
-                call()
-                refused[f"{arch}/{entry}"] = "not refused"
-            except NotImplementedError as e:
-                refused[f"{arch}/{entry}"] = str(e)
-    res["refused"] = refused
     dist.barrier()
-    agreed = {k: res[k] for k in ("engine", "guarded", "refused")}
+    agreed = {k: res[k] for k in ("engine", "guarded")}
     return _numpy(res) if rank == 0 else _numpy(agreed)
 
 
