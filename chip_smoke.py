@@ -297,8 +297,16 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 parameters resharded onto a 4 x 1 mesh, bit for bit against
                 the file; (d) ``pipeline_apply`` over four Qwen3-1.7B blocks
                 (one a rank, axis ``pipe``), 6 microbatches of (2, 256,
-                2048), against the blocks in sequence on one rank. The phase
-                holds itself within 150 s; no hand kernel runs in it.
+                2048), against the blocks in sequence on one rank; (e) beside
+                the world, in processes of their own: (a)'s tick counted by
+                the dry run (``dist.counting``: the same config, rules, 4
+                slots and max_len, on ``meta`` blocks of a fake world of four
+                ranks), whose calls and bytes a collective must equal (a)'s
+                staged calls and bytes (a call's input and output bytes),
+                beside ``CommDebugMode``'s count of the same meta tick; and
+                one production-mesh cell (Qwen3-1.7B, ``decode_32k``, 256
+                ranks) through ``launch.dryrun``, printed with its wall time.
+                The phase holds itself within 150 s; no hand kernel runs in it.
 16. ``coded_mesh`` the coded guards on the mesh: one spawned world of four
                 ranks on ``cuda:0`` (the staging backend; the guard's host
                 axis over a gloo group of the same ranks), checks made by the
@@ -417,6 +425,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4064,6 +4073,7 @@ PIPE_TOL = 2.0 ** -7
 MESH_TIMEOUT_S = 300  # a rank's wait for its peers (the group's timeout)
 MESH_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
 MESH_PHASE_S = 150  # what the phase may take
+MESH_DRY_CELL = ("qwen3-1.7b", "decode_32k")  # (e): the production-mesh cell the phase dry-runs
 
 
 def mesh_config() -> dict:
@@ -4390,6 +4400,48 @@ def mesh_worker(rank: int, world: int, init: str, ckpt: str, mcfg: dict, go, out
         out.put(("error", rank, None, traceback.format_exc()))
 
 
+def mesh_dry_tick(mcfg: dict) -> dict:
+    """(e), in a process of its own: (a)'s tick (the decode step of the
+    engine's config on MESH_SHAPE under its rules, SERVE_SLOTS slots, max_len,
+    tokens and positions whole on every rank) counted by the dry run's
+    counter on ``meta`` blocks of a fake world of four ranks standing for
+    cards; then the same tick under ``CommDebugMode``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.dist.counting import count_collectives, fake_world
+    from repro_torch.launch.costpass import meta_blocks
+    from repro_torch.train.train_loop import cache_shardings, param_shardings
+
+    t0 = time.perf_counter()
+    fake_world(math.prod(MESH_SHAPE))
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device="meta")
+    cfg, max_len = mcfg["serve"], mcfg["max_len"]
+    model = build_model(cfg)
+    rules = mesh_rules(cfg, max_len)
+    params = model.init(None, shardings=param_shardings(model, mesh, rules))
+    cache = model.init_cache(SERVE_SLOTS, max_len, device="meta")
+    cache = meta_blocks(cache, cache_shardings(model, mesh, rules, cache))
+    toks = torch.empty((SERVE_SLOTS, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((SERVE_SLOTS,), dtype=torch.int32, device="meta")
+    dec = make_decode_step(model, rules, mesh=mesh)
+    counter = count_collectives(dec, params, cache, toks, pos)
+    with CommDebugMode() as cdm:
+        dec(params, cache, toks, pos)
+    return {"calls": counter.staged_calls(), "bytes": counter.staged_bytes(), "collectives": counter.collectives(),
+            "comm_debug_mode": {str(k): int(v) for k, v in cdm.get_comm_counts().items()},
+            "torch": torch.__version__, "seconds": time.perf_counter() - t0}
+
+
+def mesh_dry_cell() -> dict:
+    """(e), in a process of its own: MESH_DRY_CELL on the 256-rank production
+    mesh through ``launch.dryrun`` (this process the fake world's rank 0)."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_cell(*MESH_DRY_CELL, d, force=True, multi_pod=False)
+        wall = time.perf_counter() - t0
+    return {"record": {k: v for k, v in rec.items() if k not in ("op_cost", "traceback")}, "wall_s": wall}
+
+
 def mesh_reference(dev, mcfg: dict) -> dict:
     """The parent's side: the one-process engine on the same weights and
     requests, on the card ((a), (b)), one prefill's and one tick's logits,
@@ -4439,7 +4491,9 @@ def mesh_phase(mcfg: dict, dev) -> dict:
     procs = [ctx.Process(target=mesh_worker, args=(r, world, init, ckpt, mcfg, go, out, dev.type), daemon=True)
              for r in range(world)]
     results: dict = {}
+    dry_pool = ProcessPoolExecutor(2, mp_context=ctx)  # (e): each count in a fake world of its own
     try:
+        dry_tick, dry_cell = dry_pool.submit(mesh_dry_tick, mcfg), dry_pool.submit(mesh_dry_cell)
         for p in procs:
             p.start()
         t_ref = time.perf_counter()
@@ -4468,15 +4522,32 @@ def mesh_phase(mcfg: dict, dev) -> dict:
                     print(f"chip_smoke: mesh/{part} done on rank 0 in {value['seconds']:.1f} s, "
                           f"{time.perf_counter() - t0:.1f} s into the phase: {json.dumps(nums, default=str)[:1500]}",
                           file=sys.stderr, flush=True)
+        dry_tick, dry_cell = dry_tick.result(MESH_DEADLINE_S), dry_cell.result(MESH_DEADLINE_S)
     finally:
         for p in procs:
             if p.is_alive():
                 p.terminate()
         for p in procs:
             p.join(30)
+        dry_pool.shutdown(cancel_futures=True)
         tmp.cleanup()
     phase_s = time.perf_counter() - t0
     ranks = range(world)
+
+    # (e) the dry run's count of (a)'s tick against the staged calls; one production-mesh cell
+    staged = results["serve"][0]["tick_staged"]  # the staging group stages CUDA tensors only: on the card
+    check(dev.type != "cuda" or dry_tick["calls"] == staged["calls"] and dry_tick["bytes"] == staged["bytes"],
+          f"mesh/dryrun: the dry run counts {dry_tick['calls']} calls of {dry_tick['bytes']} bytes a tick; "
+          f"the staging group staged {staged['calls']} of {staged['bytes']}")
+    cell = dry_cell["record"]
+    check(cell["status"] == "ok" and cell["n_chips"] == 256 and cell["collective_bytes_per_device"] > 0,
+          f"mesh/dryrun: {MESH_DRY_CELL} on pod16x16 is {cell.get('status')}: {cell.get('error')}")
+    say("mesh_dryrun_cell", wall_s=dry_cell["wall_s"], record=cell)
+    dry_rec = {"tick_calls": dry_tick["calls"], "tick_bytes": dry_tick["bytes"],
+               "tick_collectives": dry_tick["collectives"], "staged_calls": staged["calls"],
+               "staged_bytes": staged["bytes"], "comm_debug_mode_real_tick": results["serve"][0]["tick_collectives"],
+               "comm_debug_mode_meta_tick": dry_tick["comm_debug_mode"], "torch": dry_tick["torch"],
+               "count_s": dry_tick["seconds"], "cell_wall_s": dry_cell["wall_s"]}
 
     # (a) serving
     sv = results["serve"]
@@ -4554,7 +4625,7 @@ def mesh_phase(mcfg: dict, dev) -> dict:
                 "tolerance_of_largest": PIPE_TOL}
     check(phase_s <= MESH_PHASE_S, f"mesh: the phase took {phase_s:.1f} s, over {MESH_PHASE_S} s")
     return {"serve": serve_rec, "launcher": launcher_rec, "train": train_rec, "pipeline": pipe_rec,
-            "reference_s": ref_s, "seconds": phase_s}
+            "dryrun": dry_rec, "reference_s": ref_s, "seconds": phase_s}
 
 
 def first_divergence(a: dict, b: dict):

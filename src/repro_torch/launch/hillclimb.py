@@ -1,54 +1,73 @@
-"""Hill-climb driver: measure one (arch × shape) cell on one card under a
-set of optimization levers (``launch.profiles``) and append the iteration
-to ``results/perf_iterations_torch.jsonl`` (hypothesis → change → before →
-after).
+"""Hill-climb driver: measure one (arch × shape) cell on one card, or on a
+production mesh of ranks (``--multi-pod``: 512; the 256-rank mesh through
+:func:`measure`), under a set of optimization levers (``launch.profiles``)
+and append the iteration to ``results/perf_iterations_torch.jsonl``
+(hypothesis → change → before → after).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch jamba-v0.1-52b \\
-      --shape train_4k --levers moe_gather,bf16_moments \\
+      --shape train_4k [--multi-pod] --levers moe_gather,bf16_moments \\
       --hypothesis "..." [--tag iter2]
 
 Metrics per run: the roofline terms against one H100's data-sheet peaks
 (``launch.roofline``) from the op-level count on ``meta`` tensors
-(``launch.costpass.count_cell``), the live-bytes tracker's footprint and
-the useful-flops ratio. Nothing runs on the card; on one card the
-collective term is 0 (the mesh levers act once there is a mesh, ROADMAP.md
-queue A3).
+(``launch.costpass.count_cell``; divided by the mesh's ranks), the
+live-bytes tracker's footprint (a device's local blocks on a mesh) and the
+useful-flops ratio. On a mesh the collective term is the differential
+count of the step's collectives (``launch.costpass.count_mesh_cell``, this
+process made rank 0 of a fake world of the mesh's size), priced over the
+data sheet's NVLink rate: the mesh levers (``moe_ep``, ``dp_only``,
+``no_fsdp``, ``attn_heads``, …) show what they do to it. Nothing runs on a
+card; on one card the collective term is 0.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 
 from ..configs import SHAPES, get
 from . import costpass
 from .dryrun import MESH
+from .mesh import dryrun_mesh, production_tag
 from .profiles import Profile, apply_profile_cfg, rules_for
-from .roofline import HBM_BW, PEAK_FLOPS, model_flops
+from .roofline import HBM_BW, NVLINK_BW, P_LINKS, PEAK_FLOPS, model_flops
 
 
-def measure(arch: str, shape_name: str, profile: Profile) -> dict:
+def measure(arch: str, shape_name: str, profile: Profile, multi_pod: bool | None = None) -> dict:
+    """The cell's roofline terms under ``profile``: on one card
+    (``multi_pod=None``), or on the production mesh of 256 (``False``) or
+    512 (``True``) ranks, whose fake world this process then joins."""
     cfg = apply_profile_cfg(get(arch), profile)
     shape = SHAPES[shape_name]
     rules = rules_for(cfg, shape, profile)
     mdt = "bfloat16" if profile.bf16_moments else None
     t0 = time.time()
     c, mem, method = costpass.count_cell(cfg, shape, rules, moment_dtype=mdt)
-    compute_s = c.flops / PEAK_FLOPS
-    memory_s = c.bytes / HBM_BW
+    n_chips, coll_by_op = 1, {}
+    if multi_pod is not None:
+        mesh = dryrun_mesh(multi_pod)
+        n_chips = math.prod(mesh.shape)
+        counted = costpass.count_mesh_cell(cfg, shape, mesh, rules, moment_dtype=mdt)
+        mem = counted["memory"]
+        coll_by_op = {op: max(v["bytes"], 0) for op, v in
+                      costpass.collectives_corrected(counted["calls"], counted["R"]).items()}
+    coll_bytes = sum(coll_by_op.values())
+    compute_s = c.flops / n_chips / PEAK_FLOPS
+    memory_s = c.bytes / n_chips / HBM_BW
     # the bottleneck is judged with the flash-fused memory term: a fused
     # attention kernel keeps the S² score tiles on chip (op_cost.Cost.tile_bytes)
-    memory_flash_s = c.bytes_flash / HBM_BW
-    coll_s = 0.0
+    memory_flash_s = c.bytes_flash / n_chips / HBM_BW
+    coll_s = coll_bytes / (P_LINKS * NVLINK_BW)
     terms = {"compute": compute_s, "memory": memory_flash_s, "collective": coll_s}
     mf = model_flops(get(arch), shape)
     return {
         "arch": arch,
         "shape": shape_name,
-        "mesh": MESH,
+        "mesh": MESH if multi_pod is None else production_tag(multi_pod),
         "profile": profile.name,
         "levers": {
             k: getattr(profile, k)
@@ -65,8 +84,8 @@ def measure(arch: str, shape_name: str, profile: Profile) -> dict:
         "step_time_bound_s": max(terms.values()),
         "roofline_fraction": compute_s / max(terms.values()),
         "useful_ratio": mf / c.flops,
-        "collective_gb_per_dev": 0.0,
-        "collective_by_op_gb": {},
+        "collective_gb_per_dev": coll_bytes / 1e9,
+        "collective_by_op_gb": {k: v / 1e9 for k, v in sorted(coll_by_op.items(), key=lambda kv: -kv[1])},
         "hbm_gb_per_dev": mem["peak_bytes"] / 1e9,
         "temp_gb_per_dev": mem["temp_bytes"] / 1e9,
         "count_method": method,
@@ -78,6 +97,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Measure one cell's roofline terms under a set of levers")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
+    ap.add_argument("--multi-pod", action="store_true", help="on the (pod=2, data=16, model=16) mesh of 512 ranks")
     ap.add_argument("--levers", default="", help="comma list; empty = baseline")
     ap.add_argument("--time-chunk", type=int, default=0)
     ap.add_argument("--hypothesis", default="")
@@ -90,7 +110,7 @@ def main(argv=None):
     if "time_chunk" in levers or args.time_chunk:
         kw["time_chunk"] = args.time_chunk or 256
     prof = Profile(args.tag or (("+".join(levers)) or "baseline"), **kw)
-    rec = measure(args.arch, args.shape, prof)
+    rec = measure(args.arch, args.shape, prof, multi_pod=True if args.multi_pod else None)
     rec["hypothesis"] = args.hypothesis
     os.makedirs(os.path.dirname(args.log) or ".", exist_ok=True)
     with open(args.log, "a") as f:

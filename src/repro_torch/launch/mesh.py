@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import math
 import os
 
@@ -121,13 +122,19 @@ class RankMesh:
         return self._axis_groups[dims]
 
 
-def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, group=None, device=None) -> RankMesh:
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, group=None, device=None,
+              device_type: str = "cuda") -> RankMesh:
     """The mesh of ``shape`` with axis names ``axes`` over the ranks of
     ``group`` (``None``: the default group, which must be initialised), as
     seen from this process; ``device`` is where this rank computes
-    (``None``: the card). Builds the mesh's ``DeviceMesh`` (a collective
-    call: every rank of the group makes it), whose one-axis groups the mesh's
-    :meth:`RankMesh.axis_group` then reuses."""
+    (``None``: the card; ``"meta"``: nowhere, the dry run's shapes-only
+    mesh over ``dist.counting.fake_world``, whose ``DeviceMesh`` is of
+    ``device_type``: the ranks it stands for, ``"cuda"`` cards or ``"cpu"``
+    gloo ranks, on which DTensor runs a shard-to-shard step as an
+    all-gather and a chunk instead of an all-to-all). Builds the mesh's
+    ``DeviceMesh`` (a collective call: every rank of the group makes it),
+    whose one-axis groups the mesh's :meth:`RankMesh.axis_group` then
+    reuses."""
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
     if len(shape) != len(axes):
@@ -150,7 +157,10 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, group=None, devi
         # pick one from LOCAL_RANK, and every rank here shares one card
         torch.cuda.set_device(device)
         torch.cuda.init()
-    dm = DeviceMesh(device.type, torch.tensor(ranks).reshape(shape), mesh_dim_names=axes)
+    # a ``meta`` mesh (the dry run's) is a mesh of the ranks' type whose
+    # DTensors hold ``meta`` blocks
+    dm = DeviceMesh(device_type if device.type == "meta" else device.type, torch.tensor(ranks).reshape(shape),
+                    mesh_dim_names=axes)
     mesh = RankMesh(group, shape, axes, rank, coords, ranks, device, dm)
     if len(shape) > 1:
         mesh._axis_groups.update({(d,): dm.get_group(d) for d in range(len(shape))})
@@ -171,6 +181,26 @@ def make_production_mesh(*, multi_pod: bool = False, group=None, device=None) ->
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} needs a group of {math.prod(shape)} "
                          f"ranks; this group has {n}")
     return make_mesh(shape, axes, group=group, device=device)
+
+
+#: the dry run's production meshes: tag → ``multi_pod`` (the reference's tags)
+PRODUCTION_MESHES = {"pod16x16": False, "pod2x16x16": True}
+
+
+def production_tag(multi_pod: bool) -> str:
+    return "pod2x16x16" if multi_pod else "pod16x16"
+
+
+@functools.cache
+def dryrun_mesh(multi_pod: bool) -> RankMesh:
+    """The production mesh of the dry run, built once a process: this
+    process made rank 0 of a fake world of 256 (512) ranks
+    (``dist.counting.fake_world``; a process in another world raises) and
+    the mesh over it on the ``meta`` device, standing for cards."""
+    from ..dist.counting import fake_world
+
+    fake_world(512 if multi_pod else 256)
+    return make_production_mesh(multi_pod=multi_pod, device="meta")
 
 
 #: how long a rank of a launcher's mesh waits for its peers before it fails

@@ -8,9 +8,13 @@ count of the step (``launch.op_cost``, recorded by ``launch.dryrun``):
     collective = collective_bytes_per_device / (P_LINKS × NVLINK_BW)  [s]
 
 The peaks are the H100 SXM data sheet's dense rates at its 700 W power
-limit, not measured: a card set below 700 W reaches less. On one card there
-is no collective, so that term is 0; counting the bytes of c10d collectives
-waits for the mesh (ROADMAP.md queue A3).
+limit, not measured: a card set below 700 W reaches less; NVLINK_BW is the
+data sheet's NVLink rate, not measured either (the port has run on one card
+only). The collective bytes are those the dry run counts on a production
+mesh of ranks (``dist.counting`` over ``meta`` tensors): the differential
+pass's ``collective_bytes_per_device_corrected`` where ``launch.costpass``
+wrote it, else the dry run's own count (the layer body once), as the
+reference reads them; a one-card record has none, so its term is 0.
 
 MODEL_FLOPS (analytic useful flops, the reference's formulas):
     train : 6 · N_active · tokens   (+ attention term 12·L·d_head·H·S²·B·(…))
@@ -185,7 +189,7 @@ def analyze(rec: dict) -> RooflineRow:
     fl = oc["flops_global"] / n
     by = (oc["bytes_global"] - oc.get("tile_bytes_global", 0.0)) / n
     row.note = "op-cost+flash" + (f" ({oc['method']})" if oc.get("method") else "")
-    cb = rec.get("collective_bytes_per_device", 0)
+    cb = rec.get("collective_bytes_per_device_corrected", rec.get("collective_bytes_per_device", 0))
     row.compute_s = fl / PEAK_FLOPS
     row.memory_s = by / HBM_BW
     row.collective_s = cb / (P_LINKS * NVLINK_BW)

@@ -475,9 +475,7 @@ def _qkv(params, x, cfg, positions, rope=True):
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q, k, v = _heads(q, H, hd), _heads(k, Hkv, hd), _heads(v, Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -487,6 +485,44 @@ def _qkv(params, x, cfg, positions, rope=True):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _head_aligned(x, n: int):
+    """``x`` (..., n·hd) with a split of its last dim gathered where it does
+    not fall on head boundaries (n not a multiple of the ranks that split
+    it: 8 KV heads over a model axis of 16), the reshard GSPMD inserts
+    there: DTensor refuses to unflatten such a split into heads."""
+    if isinstance(x, DTensor):
+        split = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == x.ndim - 1]
+        if split and n % math.prod(x.device_mesh.size(i) for i in split):
+            x = x.redistribute(x.device_mesh, [Replicate() if i in split else p for i, p in enumerate(x.placements)])
+    return x
+
+
+class _HeadAlignedGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves head-aligned (:func:`_head_aligned`):
+    the backward of a heads-to-flat reshape unflattens it."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _head_aligned(g, ctx.n), None
+
+
+def _heads(x, n: int, hd: int):
+    """``x`` (..., n·hd) as (..., n, hd), head-aligned first."""
+    x = _head_aligned(x, n)
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _flat_heads(o):
+    """``o`` (..., n, hd) as (..., n·hd), its gradient head-aligned."""
+    flat = o.reshape(*o.shape[:-2], -1)
+    return _HeadAlignedGrad.apply(flat, o.shape[-2]) if flat.requires_grad else flat
 
 
 def attention_fwd(params, x, cfg, ctx=NO_CTX, positions=None, rope=True, causal=True):
@@ -504,7 +540,7 @@ def attention_fwd(params, x, cfg, ctx=NO_CTX, positions=None, rope=True, causal=
     else:
         q = ctx.cons(q, ("batch", "seq", "heads", None))
         k = ctx.cons(k, ("batch", "seq", "kv_heads", None))
-    o = _attention_core(ctx, q, k, v, causal).reshape(B, S, -1)
+    o = _flat_heads(_attention_core(ctx, q, k, v, causal))
     y = rows(o) @ params["wo"]
     return ctx.cons(y, ("batch", "seq", "d_model")), (k, v)
 

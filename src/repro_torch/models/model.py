@@ -602,13 +602,12 @@ class Model(nn.Module):
         the S queries against all of the F frames."""
         cfg = self.cfg
         xn = L.rows(L.layernorm(cp["ln"], x))
-        B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         enc_out = L.rows(enc_out)
-        q = (xn @ cp["attn"]["wq"]).reshape(B, S, H, hd)
-        k = (enc_out @ cp["attn"]["wk"]).reshape(B, -1, Hkv, hd)
-        v = (enc_out @ cp["attn"]["wv"]).reshape(B, -1, Hkv, hd)
-        o = L._attention_core(ctx, q, k, v, causal=False).reshape(B, S, -1)
+        q = L._heads(xn @ cp["attn"]["wq"], H, hd)
+        k = L._heads(enc_out @ cp["attn"]["wk"], Hkv, hd)
+        v = L._heads(enc_out @ cp["attn"]["wv"], Hkv, hd)
+        o = L._flat_heads(L._attention_core(ctx, q, k, v, causal=False))
         return ctx.cons(L.rows(o) @ cp["attn"]["wo"], ("batch", "seq", "d_model"))
 
     def _crosses(self, params) -> list | None:

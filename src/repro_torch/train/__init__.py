@@ -1,7 +1,8 @@
 # Training: the optimizer, the synthetic data pipeline, the train step and
 # the serving half of the train loop, and the two recovery tiers (the disk
 # checkpoint in the reference's format, the coded-parity state guard). The
-# sharding functions wait for ROADMAP.md queue A3.
+# sharding functions (``train_loop``'s ``*_shardings``) place a step on a
+# mesh of ranks.
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
 from .data import DataConfig, Prefetcher, SyntheticLM  # noqa: F401
 from .elastic import CodedStateGuard, reshard_state  # noqa: F401

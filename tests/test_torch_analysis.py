@@ -252,12 +252,15 @@ def test_roofline_peaks_are_the_h100_data_sheet():
     assert (roofline.PEAK_FLOPS, roofline.HBM_BW, roofline.NVLINK_BW, roofline.P_LINKS) == (989e12, 3.35e12, 450e9, 1)
 
 
-def a_record(arch: str, shape: str, flops: float, nbytes: float, tile: float, coll: int) -> dict:
+def a_record(arch: str, shape: str, flops: float, nbytes: float, tile: float, coll) -> dict:
     """One dry-run record both packages' ``analyze`` read: the reference's
-    ``jaxpr_cost`` and the port's ``op_cost`` hold the same numbers."""
+    ``jaxpr_cost`` and the port's ``op_cost`` hold the same numbers. ``coll``
+    is a one-card record's collective bytes, or a production mesh's record
+    (``mesh``, ``n_chips``, the dry run's bytes and the cost pass's
+    corrected bytes)."""
     cost = {"flops_global": flops, "bytes_global": nbytes, "tile_bytes_global": tile}
-    return {"arch": arch, "shape": shape, "mesh": "1xH100", "status": "ok", "n_chips": 1,
-            "jaxpr_cost": dict(cost), "op_cost": dict(cost), "collective_bytes_per_device": coll,
+    mesh = coll if isinstance(coll, dict) else {"mesh": "1xH100", "n_chips": 1, "collective_bytes_per_device": coll}
+    return {"arch": arch, "shape": shape, "status": "ok", **mesh, "jaxpr_cost": dict(cost), "op_cost": dict(cost),
             "memory": {"argument_bytes": 3e9, "temp_bytes": 2e9, "output_bytes": 1e9, "peak_bytes": 6e9}}
 
 
@@ -265,9 +268,13 @@ def a_record(arch: str, shape: str, flops: float, nbytes: float, tile: float, co
     ("qwen3-1.7b", "train_4k", 1.7e16, 2.2e14, 3e13, 0),
     ("jamba-v0.1-52b", "prefill_32k", 3.0e16, 2.0e14, 1e13, 12345678),
     ("deepseek-v3-671b", "decode_32k", 4.1e14, 3.4e12, 0.0, 0),
+    ("qwen3-1.7b", "decode_32k", 1.6e12, 1.2e12, 0.0, {"mesh": "pod2x16x16", "n_chips": 512,
+                                                      "collective_bytes_per_device": 822272,
+                                                      "collective_bytes_per_device_corrected": 21364992}),
 ])
 def test_analyze_reads_the_record_as_the_reference_does(arch, shape, flops, nbytes, tile, coll):
     rec = a_record(arch, shape, flops, nbytes, tile, coll)
+    n = rec["n_chips"]
     mine, ref = roofline.analyze(rec), r_roofline.analyze(rec)
     assert mine.hlo_flops_global == ref.hlo_flops_global == flops
     assert mine.model_flops == ref.model_flops
@@ -275,9 +282,12 @@ def test_analyze_reads_the_record_as_the_reference_does(arch, shape, flops, nbyt
     assert mine.hbm_gb_per_dev == ref.hbm_gb_per_dev == 6.0
     assert mine.compute_s * roofline.PEAK_FLOPS == pytest.approx(ref.compute_s * r_roofline.PEAK_FLOPS, rel=1e-15)
     assert mine.memory_s * roofline.HBM_BW == pytest.approx(ref.memory_s * r_roofline.HBM_BW, rel=1e-15)
-    assert mine.memory_s * roofline.HBM_BW == nbytes - tile
+    assert mine.memory_s * roofline.HBM_BW == (nbytes - tile) / n
     assert mine.collective_s * roofline.NVLINK_BW == pytest.approx(ref.collective_s * r_roofline.ICI_BW, rel=1e-15)
-    skipped = {"arch": arch, "shape": shape, "mesh": "1xH100", "status": "skipped", "reason": "by design"}
+    # the corrected bytes first, as the reference reads them
+    assert mine.collective_s * roofline.NVLINK_BW == rec.get("collective_bytes_per_device_corrected",
+                                                             rec["collective_bytes_per_device"])
+    skipped = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "status": "skipped", "reason": "by design"}
     assert roofline.render_table([roofline.analyze(skipped)]) == r_roofline.render_table([r_roofline.analyze(skipped)])
 
 
