@@ -23,13 +23,15 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 inputs that pass 100 MB (2x the L2), as the caller finds them
                 cold. ``host_us`` is one call of the wrapper, enqueue only.
                 ``gf_matmul`` is held at every M from 1 to 17, K in 1..9 and
-                33, N % 4 in {0, 1, 2, 3}, with an operand at a 4-byte offset,
-                on all-(q-1) operands at every row tile, and at a batch of
-                65,537, so that every row tile of the row kernel and both
-                forms of the general kernel run; each main-path shape's
-                record names the row tile it gets. ``butterfly_mac`` (the
-                row form: parts read through a row table, or one source a
-                slot) is held at every pair of source and output 16-byte
+                33, N % 4 in {0, 1, 2, 3}, with A, B and C at 4-, 8- and
+                12-byte offsets, on all-(q-1) operands at every row tile,
+                and at a batch of 65,537, so that every row tile of the row
+                kernel and the general kernel each run in their aligned and
+                their ragged form, or the run fails; each main-path shape's
+                record names the row tile and the form it gets.
+                ``butterfly_mac`` (the row form: parts read through a row
+                table, or one source a slot) is held at every pair of source
+                and output 16-byte
                 phases, rows of head or tail alone, gathered, repeated and
                 identity rows, radix 1 to 8 and the cap of 64, a batch of
                 65,537 and offsets past 2^31 elements, and the run fails
@@ -497,6 +499,7 @@ from repro_torch.kernels.gf_matmul.kernel import (  # noqa: E402
     gf_matmul_launcher,
     gf_matmul_plain,
     launch_plan,
+    row_form,
 )
 from repro_torch.kernels.gf_matmul.ops import gf_matmul, gf_matmul_batched  # noqa: E402
 from repro_torch.models import build_model, make_batch, train_batch_specs  # noqa: E402
@@ -957,13 +960,14 @@ def check_gf_matmul(dev, shapes: list) -> dict:
         err = max_abs_err(got, want)
         check(same(got, want), f"gf_matmul_batched != plain at the main-path shape {(B, M, K, N)}, q={q}")
         m_tile = launch_plan(M, N, b.data_ptr(), got.data_ptr())
+        form = row_form(N, b.data_ptr(), got.data_ptr())
         del got, want
         nbytes = 4 * (a.numel() + b.numel() + B * M * N)
         inputs = [(a, b)] + [(a.clone(), b.clone()) for _ in range(copies_for(nbytes) - 1)]
         launchers = [gf_matmul_launcher(x, y, q)[0] for x, y in inputs]
         record = {
             "shape": f"batch {B} x ({M}x{K}).({K}x{N})", "q": q, "from": who, "max_abs_err": err,
-            "m_tile": m_tile,
+            "m_tile": m_tile, "form": form,
             "ms": kernel_ms(launchers), "input_copies": len(inputs),
             "host_us": host_us(lambda: gf_matmul_cuda(a, b, q)),
             "plain_ms": cuda_ms(lambda: gf_matmul_plain(a, b, q), PLAIN_REPS, warmup=1),
@@ -976,29 +980,30 @@ def check_gf_matmul(dev, shapes: list) -> dict:
 
 
 def check_gf_matmul_forms(dev) -> tuple[int, int]:
-    """Every row tile of the row kernel and both forms of the general kernel
-    (16-byte and scalar accesses), each reached by the shapes that send the
-    launch there, bit for bit against the plain version and, on the small
-    cases, the host oracle: every M from 1 to 17, K in 1..9 and 33, N % 4 in
-    {0, 1, 2, 3}, tiles over several batch entries and blocks, an operand at
-    a 4-byte offset, all-(q-1) operands for every row tile and both primes,
-    and a batch above 65,535. Returns (cases, worst)."""
+    """Every row tile of the row kernel in its aligned and its ragged form,
+    and both forms of the general kernel (M = 17), each reached by the
+    shapes that send the launch there, bit for bit against the plain version
+    and, on the small cases, the host oracle: every M from 1 to 17, K in
+    1..9 and 33, N % 4 in {0, 1, 2, 3}, tiles over several batch entries and
+    blocks, A, B and C as views at 4-, 8- and 12-byte offsets with batch > 1
+    and a ragged N (the rows of one launch start at different 16-byte
+    phases; nothing outside C is written), all-(q-1) operands for every row
+    tile in both forms and both primes, and a batch above 65,535. Returns
+    (cases, worst)."""
     cases, worst = 0, 0
     reached = set()
-    probe = torch.empty(16, dtype=torch.int32, device=dev)  # a fresh, 16-byte-aligned C
 
-    def hold(a, b, q, what, host=False):
+    def hold(a, b, q, what, host=False, out=None) -> str:
         nonlocal cases, worst
         want = gf_matmul_plain(a, b, q)
+        launch, got = gf_matmul_launcher(a, b, q, out=out)
         B, M, K = a.shape
         N = b.shape[2]
-        m_tile = launch_plan(M, N, b.data_ptr(), probe.data_ptr())
-        if m_tile == GENERAL:
-            form = "general, 16-byte" if N % 4 == 0 and b.data_ptr() % 16 == 0 else "general, scalar"
-        else:
-            form = f"row tile {m_tile}"
+        m_tile = launch_plan(M, N, b.data_ptr(), got.data_ptr())
+        kernel = "general" if m_tile == GENERAL else f"row tile {m_tile}"
+        form = f"{kernel}, {row_form(N, b.data_ptr(), got.data_ptr())}"
         reached.add(form)
-        got = gf_matmul_cuda(a, b, q)
+        launch()
         worst = max(worst, max_abs_err(got, want))
         check(same(got, want), f"gf_matmul ({form}) != plain at {what}, q={q}")
         cases += 1
@@ -1008,6 +1013,11 @@ def check_gf_matmul_forms(dev) -> tuple[int, int]:
             for z in range(B):
                 check(np.array_equal(wn[z], f.matmul(an[z], bn[z]).astype(np.uint32)),
                       f"gf_matmul plain != host oracle at {what}, entry {z}, q={q}")
+        return form
+
+    def at_offset(shape, words: int, q: int, seed: int) -> torch.Tensor:
+        """Residues in a contiguous view that starts ``words`` words into its buffer."""
+        return rand_residues((words + math.prod(shape),), q, dev, seed)[words:].view(shape)
 
     for M in range(1, 18):
         for K in (*range(1, 10), 33):
@@ -1017,25 +1027,41 @@ def check_gf_matmul_forms(dev) -> tuple[int, int]:
                 b = rand_residues((3, K, N), q, dev, seed=2000 + 100 * M + K + N)
                 hold(a, b, q, f"batch 3 x ({M}x{K}).({K}x{N})", host=(N == 4100 and K in (1, 4, 9, 33)) or N == 1029)
     for M, K in ((2, 2), (8, 8), (16, 4), (5, 3)):  # many tiles a block, batch entries changing inside a block
-        a = rand_residues((5, M, K), M31, dev, seed=3000 + M)
-        b = rand_residues((5, K, (1 << 16) + 4), M31, dev, seed=3001 + M)
-        hold(a, b, M31, f"batch 5 x ({M}x{K}).({K}x{(1 << 16) + 4})")
-    # an operand that is a view at a 4-byte offset: only the general kernel takes it
+        for N in ((1 << 16) + 4, (1 << 16) + 3):
+            a = rand_residues((5, M, K), M31, dev, seed=3000 + M)
+            b = rand_residues((5, K, N), M31, dev, seed=3001 + M + N)
+            hold(a, b, M31, f"batch 5 x ({M}x{K}).({K}x{N})")
+    # an operand that is a view at a 4-byte offset: the row kernel takes it, in its ragged form
     for q in (M31, NTT):
         M, K, N = 4, 8, 4096
-        flat_a = rand_residues((1 + 2 * M * K,), q, dev, seed=4000)
-        flat_b = rand_residues((1 + 2 * K * N,), q, dev, seed=4001)
-        a, b = flat_a[1:].view(2, M, K), flat_b[1:].view(2, K, N)
+        b = at_offset((2, K, N), 1, q, seed=4001)
+        a = at_offset((2, M, K), 1, q, seed=4000)
         check(b.is_contiguous() and b.data_ptr() % 16 == 4, "the offset view is not where it should be")
-        check(launch_plan(M, N, b.data_ptr(), probe.data_ptr()) == GENERAL, "the row kernel took an unaligned B")
-        hold(a, b, q, f"B at a 4-byte offset, batch 2 x ({M}x{K}).({K}x{N})", host=True)
-    # operands of all q-1, the accumulator's worst case, at every row tile
+        form = hold(a, b, q, f"B at a 4-byte offset, batch 2 x ({M}x{K}).({K}x{N})", host=True)
+        check(form == "row tile 4, ragged", f"an unaligned B went to {form}, not the row kernel's ragged form")
+    # A, B and C at 4-, 8- and 12-byte offsets, batch > 1, a ragged N: the phase changes from row to row
+    offsets = [(b_off, c_off) for b_off in range(4) for c_off in range(4) if b_off or c_off]
+    for i, (M, K, N) in enumerate(((2, 4, 4097), (2, 2, 4098), (16, 8, 1027), (1, 3, 8191), (4, 4, 2049),
+                                   (8, 5, 1030))):
+        q = M31 if i % 2 else NTT
+        for j, (b_off, c_off) in enumerate(offsets if i < 2 else offsets[i::3]):
+            a = at_offset((3, M, K), b_off, q, seed=4100 + 20 * i + j)
+            b = at_offset((3, K, N), b_off, q, seed=4200 + 20 * i + j)
+            buf = torch.full((c_off + 3 * M * N + 4,), -1, dtype=torch.int32, device=dev)
+            out = buf[c_off:c_off + 3 * M * N].view(3, M, N)
+            what = f"B at {4 * b_off} and C at {4 * c_off} bytes, batch 3 x ({M}x{K}).({K}x{N})"
+            form = hold(a, b, q, what, host=i == 0, out=out)
+            check(form.endswith("ragged"), f"{what} went to {form}")
+            check(bool((buf[:c_off] == -1).all()) and bool((buf[c_off + 3 * M * N:] == -1).all()),
+                  f"gf_matmul ({form}) wrote outside C at {what}")
+    # operands of all q-1, the accumulator's worst case, at every row tile in both forms
     for q in (M31, NTT):
         for M in ROW_TILES:
             for K in (4, 5, 33):
-                a = torch.full((2, M, K), q - 1, dtype=torch.int32, device=dev)
-                b = torch.full((2, K, 4100), q - 1, dtype=torch.int32, device=dev)
-                hold(a, b, q, f"all q-1, batch 2 x ({M}x{K}).({K}x4100)", host=True)
+                for N in (4100, 4101):
+                    a = torch.full((2, M, K), q - 1, dtype=torch.int32, device=dev)
+                    b = torch.full((2, K, N), q - 1, dtype=torch.int32, device=dev)
+                    hold(a, b, q, f"all q-1, batch 2 x ({M}x{K}).({K}x{N})", host=True)
     # a batch the old grid's z axis could not hold
     a = rand_residues((65537, 2, 2), M31, dev, seed=5000)
     b = rand_residues((65537, 2, 4), M31, dev, seed=5001)
@@ -1043,7 +1069,8 @@ def check_gf_matmul_forms(dev) -> tuple[int, int]:
     a = rand_residues((65537, 3, 2), NTT, dev, seed=5002)
     b = rand_residues((65537, 2, 3), NTT, dev, seed=5003)
     hold(a, b, NTT, "batch 65537 x (3x2).(2x3)")
-    want = {f"row tile {t}" for t in ROW_TILES} | {"general, 16-byte", "general, scalar"}
+    want = {f"{k}, {form}" for k in [f"row tile {t}" for t in ROW_TILES] + ["general"]
+            for form in ("aligned", "ragged")}
     check(reached == want, f"gf_matmul's checks reached {sorted(reached)}, not every form {sorted(want)}")
     return cases, worst
 

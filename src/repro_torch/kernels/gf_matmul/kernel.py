@@ -33,16 +33,29 @@ GRID_Y_MAX = 65535
 def launch_plan(M: int, N: int, b_ptr: int, c_ptr: int) -> int:
     """The row tile of the launch for a (batch, M, K) x (batch, K, N)
     product whose B and C start at the addresses ``b_ptr`` and ``c_ptr``:
-    the smallest of ``ROW_TILES`` >= M where the row kernel takes the shape
-    (M <= 16, N % 4 == 0, B and C 16-byte aligned), else ``GENERAL``, the
-    general kernel, which takes any shape its grid holds. Neither K nor the
-    batch sets a limit: the row kernel walks the batch on a persistent grid
-    and the general one in strides of its grid's z axis."""
-    if M <= ROW_TILES[-1] and N % 4 == 0 and b_ptr % 16 == 0 and c_ptr % 16 == 0:
+    the smallest of ``ROW_TILES`` >= M for every M <= 16, whatever N % 4 is
+    and wherever B and C start (``row_form`` names the form the kernel then
+    takes), else ``GENERAL``, the general kernel, which takes any shape its
+    grid holds. Neither K nor the batch sets a limit: the row kernel walks
+    the batch on a persistent grid and the general one in strides of its
+    grid's z axis. Raises where N < 1 or an address is not 4-byte aligned,
+    which the C launcher refuses."""
+    if N < 1 or b_ptr % 4 or c_ptr % 4:
+        raise ValueError(f"gf_matmul takes N >= 1 and 4-byte-aligned B and C, got N={N}, {b_ptr:#x}, {c_ptr:#x}")
+    if M <= ROW_TILES[-1]:
         return next(t for t in ROW_TILES if t >= M)
     if (M + GENERAL_TILE_M - 1) // GENERAL_TILE_M > GRID_Y_MAX:
         raise ValueError(f"M={M} exceeds the general kernel's grid ({GRID_Y_MAX} x {GENERAL_TILE_M} rows)")
     return GENERAL
+
+
+def row_form(N: int, b_ptr: int, c_ptr: int) -> str:
+    """Which form a launch takes, as the C launcher decides it: "aligned"
+    where every row of B and C starts on a 16-byte boundary (N % 4 == 0, B
+    and C 16-byte aligned), else "ragged", where each row is split at its
+    own 16-byte phase. Both the row kernel and the general one have the two
+    forms."""
+    return "aligned" if N % 4 == 0 and b_ptr % 16 == 0 and c_ptr % 16 == 0 else "ragged"
 
 
 def _library():
@@ -77,13 +90,15 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, q: int):
         raise ValueError(f"q={q} must be an odd modulus in (2, 2^31)")
 
 
-def gf_matmul_launcher(a: torch.Tensor, b: torch.Tensor, q: int):
+def gf_matmul_launcher(a: torch.Tensor, b: torch.Tensor, q: int, *, out: torch.Tensor | None = None):
     """``(launch, out)``: every check, the output ``out`` and the launch plan
     made once; each ``launch()`` enqueues one product into ``out`` on
     PyTorch's current stream and counts it. ``gf_matmul_cuda`` is one launch
     of a fresh launcher; a timing loop calls ``launch`` alone, so that its
     events see the device and not the checks. a: (batch, M, K), b: (batch,
-    K, N), canonical residues, contiguous, on one CUDA device.
+    K, N), canonical residues, contiguous, on one CUDA device. ``out``, where
+    given, is a contiguous (batch, M, N) ``int32`` tensor on their device, at
+    any 4-byte offset (a view into a larger buffer); else it is allocated.
     ``launch_plan`` chooses the kernel and its row tile by shape."""
     _check_operands(a, b, q)
     if not a.is_contiguous() or not b.is_contiguous():
@@ -94,10 +109,16 @@ def gf_matmul_launcher(a: torch.Tensor, b: torch.Tensor, q: int):
     N = b.shape[2]
     if min(batch, M, K, N) < 1:
         raise ValueError(f"gf_matmul_cuda takes no empty operand, got {tuple(a.shape)} @ {tuple(b.shape)}")
-    fn = _library()
     dev, index = a.device, a.get_device()
-    out = torch.empty((batch, M, N), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((batch, M, N), dtype=torch.int32, device=dev)
+    elif (tuple(out.shape) != (batch, M, N) or out.dtype != torch.int32 or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({batch}, {M}, {N}) int32 tensor on {dev}, "
+                         f"got {tuple(out.shape)} {out.dtype} on {out.device}")
+    fn = _library()
     m_tile = launch_plan(M, N, b.data_ptr(), out.data_ptr())
+    form = row_form(N, b.data_ptr(), out.data_ptr())
     args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K, N, q, m_tile, index)
 
     def launch():
@@ -108,8 +129,8 @@ def gf_matmul_launcher(a: torch.Tensor, b: torch.Tensor, q: int):
             with torch.cuda.device(index):
                 err = fn(*args, stream)
         if err != 0:
-            form = "the general kernel" if m_tile == GENERAL else f"row tile {m_tile}"
-            raise RuntimeError(f"gf_matmul_launch ({form}) failed with CUDA error {err}")
+            kernel = "the general kernel" if m_tile == GENERAL else f"row tile {m_tile}"
+            raise RuntimeError(f"gf_matmul_launch ({kernel}, {form}) failed with CUDA error {err}")
         gf_matmul_cuda.launches += 1
 
     launch.operands = (a, b, out)  # the C arguments are their addresses: keep them alive

@@ -3,7 +3,10 @@
 Dispatch is by where the operands lie and by nothing else: tensors on a CUDA
 device go to the hand-written kernel (``kernel.gf_matmul_cuda``) or raise;
 tensors on the CPU go to the plain PyTorch version. There is no ``try`` that
-falls back. The kernel masks ragged edges itself, so nothing is padded here.
+falls back. The kernel takes every width and every 4-byte offset in one
+launch: a product of at most 16 rows runs the row kernel, whose ragged form
+splits each row of B and C at its own 16-byte phase (``kernel.row_form``), and
+a taller one the general kernel. So nothing is padded or copied here.
 """
 
 from __future__ import annotations

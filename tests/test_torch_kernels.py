@@ -37,6 +37,7 @@ from repro_torch.kernels.gf_matmul.kernel import (
     gf_matmul_cuda,
     gf_matmul_plain,
     launch_plan,
+    row_form,
 )
 from repro_torch.kernels.gf_matmul.ops import (
     encode_direct,
@@ -177,16 +178,64 @@ def test_launch_plan_row_tile_is_the_smallest_at_least_M(M):
 @pytest.mark.parametrize(
     "M,N,b_ptr,c_ptr,why",
     [
+        (17, 1029, 0x1000, 0x2000, "M above the largest row tile, N % 4 == 1"),
+        (17, 1030, 0x1000, 0x2000, "M above the largest row tile, N % 4 == 2"),
+        (17, 1031, 0x1000, 0x2000, "M above the largest row tile, N % 4 == 3"),
+        (17, 1024, 0x1004, 0x2000, "M above the largest row tile, B at a 4-byte offset"),
+        (17, 1024, 0x1000, 0x2008, "M above the largest row tile, C at an 8-byte offset"),
+        (17, 1024, 0x1000, 0x2000, "M above the largest row tile"),
+    ],
+)
+def test_launch_plan_sends_what_the_row_kernel_refuses_to_the_general_one(M, N, b_ptr, c_ptr, why):
+    """Only M > 16 is refused by the row kernel: it goes to the general
+    kernel whatever N % 4 is and wherever B and C start."""
+    assert launch_plan(M, N, b_ptr, c_ptr) == GENERAL, why
+
+
+@pytest.mark.parametrize(
+    "M,N,b_ptr,c_ptr,why",
+    [
         (8, 1029, 0x1000, 0x2000, "N % 4 == 1"),
         (8, 1030, 0x1000, 0x2000, "N % 4 == 2"),
         (8, 1031, 0x1000, 0x2000, "N % 4 == 3"),
         (8, 1024, 0x1004, 0x2000, "B at a 4-byte offset"),
         (8, 1024, 0x1000, 0x2008, "C at an 8-byte offset"),
-        (17, 1024, 0x1000, 0x2000, "M above the largest row tile"),
+        (8, 1024, 0x1000, 0x200C, "C at a 12-byte offset"),
+        (1, 1029, 0x1000, 0x2000, "M = 1, N % 4 == 1"),
+        (1, 1031, 0x1008, 0x2004, "M = 1, N % 4 == 3, B and C unaligned"),
+        (2, 1029, 0x1000, 0x2000, "M = 2, N % 4 == 1"),
+        (2, 1031, 0x100C, 0x2000, "M = 2, N % 4 == 3, B unaligned"),
+        (4, 1029, 0x1000, 0x2004, "M = 4, N % 4 == 1, C unaligned"),
+        (4, 1031, 0x1000, 0x2000, "M = 4, N % 4 == 3"),
+        (16, 1029, 0x1000, 0x2000, "M = 16, N % 4 == 1"),
+        (16, 1031, 0x1004, 0x200C, "M = 16, N % 4 == 3, B and C unaligned"),
     ],
 )
-def test_launch_plan_sends_what_the_row_kernel_refuses_to_the_general_one(M, N, b_ptr, c_ptr, why):
-    assert launch_plan(M, N, b_ptr, c_ptr) == GENERAL, why
+def test_launch_plan_sends_ragged_and_unaligned_shapes_to_the_row_kernel(M, N, b_ptr, c_ptr, why):
+    """Every M <= 16 goes to the smallest row tile >= M in one launch,
+    whatever N % 4 is and wherever B and C start: the row kernel's ragged
+    form splits each row at its own 16-byte phase."""
+    assert launch_plan(M, N, b_ptr, c_ptr) == next(t for t in ROW_TILES if t >= M), why
+    assert row_form(N, b_ptr, c_ptr) == "ragged", why
+
+
+@pytest.mark.parametrize(
+    "N,b_ptr,c_ptr,form",
+    [
+        (1024, 0x1000, 0x2000, "aligned"),
+        (4, 0, 0, "aligned"),
+        (1025, 0x1000, 0x2000, "ragged"),
+        (1026, 0x1000, 0x2000, "ragged"),
+        (1027, 0x1000, 0x2000, "ragged"),
+        (1024, 0x1004, 0x2000, "ragged"),
+        (1024, 0x1008, 0x2000, "ragged"),
+        (1024, 0x1000, 0x200C, "ragged"),
+    ],
+)
+def test_row_form_is_aligned_only_where_every_row_starts_on_16_bytes(N, b_ptr, c_ptr, form):
+    """The form the C launcher takes: every row of B and C starts on a
+    16-byte boundary only where N % 4 == 0 and both start on one."""
+    assert row_form(N, b_ptr, c_ptr) == form
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 8, 9, 16])
@@ -209,6 +258,9 @@ def test_launch_plan_limits_and_names():
     assert launch_plan(8 * 65535, 4, 0, 0) == GENERAL
     with pytest.raises(ValueError, match="grid"):
         launch_plan(8 * 65535 + 1, 4, 0, 0)
+    for N, b_ptr, c_ptr in ((0, 0, 0), (4, 0x1002, 0), (4, 0, 0x2001)):  # what the C launcher refuses
+        with pytest.raises(ValueError, match="4-byte"):
+            launch_plan(2, N, b_ptr, c_ptr)
 
 
 def test_gf_matmul_batch_above_the_old_grid_cap():
@@ -234,6 +286,52 @@ def test_gf_matmul_row_tile_edges_vs_host(M, K):
     got = to_numpy(gf_matmul_batched(t(a), t(b), q=q))
     for z in range(2):
         assert np.array_equal(got[z].astype(np.uint64), gf_matmul_host(a[z], b[z], q))
+
+
+def _at_offset(a: np.ndarray, words: int) -> torch.Tensor:
+    """``a`` as a contiguous CPU tensor that starts ``words`` words into its buffer."""
+    flat = torch.full((words + a.size,), -1, dtype=torch.int32)
+    view = flat[words:].view(a.shape)
+    view.copy_(t(a))
+    return view
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+@pytest.mark.parametrize("words", [0, 1, 2, 3])
+@pytest.mark.parametrize("N", [517, 518, 519])
+@pytest.mark.parametrize("batch,M,K", [(8, 2, 4), (1, 2, 2)])
+def test_gf_matmul_guard_shapes_ragged_and_offset(q, words, N, batch, M, K):
+    """The coded guards' products scaled down (batch 8 x (2x4).(4xN) and
+    1 x (2x2).(2xN), N % 4 = 1, 2, 3), with A and B as views at 0-3 words'
+    offset: the plain version and the ops door against the reference's
+    batched kernel in interpret mode and against the host oracle. On the
+    card the same shapes run the row kernel's ragged form, which
+    ``chip_smoke.py`` holds against this plain version."""
+    seed = 1000 * batch + N + 10 * words
+    a_np = rand_u32((batch, M, K), q, seed=seed)
+    b_np = rand_u32((batch, K, N), q, seed=seed + 1)
+    a, b = _at_offset(a_np, words), _at_offset(b_np, words)
+    assert a.is_contiguous() and b.is_contiguous() and b.data_ptr() % 16 == (4 * words) % 16
+    assert launch_plan(M, N, b.data_ptr(), 0) == next(r for r in ROW_TILES if r >= M)
+    got = to_numpy(gf_matmul_plain(a, b, q))
+    want = np.asarray(ref_gf_matmul_batched(jnp.asarray(a_np), jnp.asarray(b_np), q=q, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(to_numpy(gf_matmul_batched(a, b, q=q)), got)
+    for z in range(batch):
+        assert np.array_equal(got[z].astype(np.uint64), gf_matmul_host(a_np[z], b_np[z], q))
+
+
+@pytest.mark.parametrize("q", [M31, NTT])
+@pytest.mark.parametrize("batch,M,K,N", [(8, 2, 4, 517), (1, 2, 2, 519), (2, 16, 9, 1030)])
+def test_gf_matmul_guard_shapes_all_q_minus_1(q, batch, M, K, N):
+    """Every operand q - 1, the accumulator's worst case, at ragged guard
+    shapes and at the tallest row tile with more than one fold."""
+    a_np = np.full((batch, M, K), q - 1, dtype=np.uint32)
+    b_np = np.full((batch, K, N), q - 1, dtype=np.uint32)
+    got = to_numpy(gf_matmul_plain(_at_offset(a_np, 1), _at_offset(b_np, 3), q))
+    want = np.asarray(ref_gf_matmul_batched(jnp.asarray(a_np), jnp.asarray(b_np), q=q, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got[0].astype(np.uint64), gf_matmul_host(a_np[0], b_np[0], q))
 
 
 def _cpu_pair(q=M31):
