@@ -8,7 +8,8 @@ card, at a width its users would call real, and checks everything it
 computes. It imports ``repro_torch`` only (never JAX, never the JAX package).
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
-1. ``env``      torch/CUDA versions, the card's name and power limit.
+1. ``env``      torch/CUDA versions, the card's name and power limit, the
+                host's memory (``MemTotal``).
 2. ``build``    builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc.
 3. ``kernels``  each kernel against its plain PyTorch version on the card,
                 bit for bit (tolerance 0: the arithmetic is exact mod q), over
@@ -28,7 +29,11 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 and at a batch of 65,537, so that every row tile of the row
                 kernel and the general kernel each run in their aligned and
                 their ragged form, or the run fails; each main-path shape's
-                record names the row tile and the form it gets.
+                record names the row tile and the form it gets. The coded
+                entry points run in column blocks of ``block_columns(rows)``
+                (``coded.rs_checkpoint``, a block's working set within
+                ``BLOCK_BYTES``): phase 3 holds each block shape
+                they give a kernel, the last, ragged block's too.
                 ``butterfly_mac`` (the row form: parts read through a row
                 table, or one source a slot) is held at every pair of source
                 and output 16-byte
@@ -87,7 +92,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 the CPU at rtol 1e-6). Each with its wall ms, the device
                 bytes each entry point holds as it starts and at its peak
                 (read as it returns, before any check), busy time and idle
-                share, and host numpy ms of the recovery.
+                share, and host numpy ms of the recovery. Every encode here
+                runs in column blocks, and its launches follow the blocks.
 7. ``serve``    the serving path at the full width of Qwen3-1.7B (14 of its 28
                 layers, cut for the script's time; d_model 2048, 16 heads x
                 128, 8 KV heads, d_ff 6144, vocab 151,936, bf16 weights drawn
@@ -113,12 +119,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 steps of ``launch.train.main`` at full width and depth (28
                 layers, bf16 weights drawn on the card from the seed, float32
                 AdamW moments, ``remat="block"``, batch 8 x 256 synthetic
-                tokens, the launcher's defaults), with ``--coded-every 0``:
-                a snapshot of this 17 GB state would need 43x its bytes on
-                the card; each step's loss and grad norm, the median step
-                wall, tokens/s, peak device bytes, the state's bytes, and one
-                step and one ``apply_updates`` under the profiler (busy, idle
-                share, ms by kind); (b) the float32 smoke config, three steps
+                tokens, the launcher's defaults), with ``--coded-every 5``:
+                one ``CodedStateGuard(K=8)`` snapshot of the whole 17.2 GB
+                state after the last step, encoded in column blocks into
+                68.8 GB of host copies; the snapshot's wall, its copies to
+                the host, its added device bytes (at most 2 GiB) and the
+                steps' peak before it; every 16th block of the guard's limbs
+                and the last against the returned state's, built again on
+                the card, and
+                the parity of the first, the ragged last, a leaf boundary's
+                and four random blocks against a plain ``x @ A mod q`` on the
+                card and the host oracle on sampled columns; each step's loss
+                and grad norm, the median step wall, tokens/s, peak device
+                bytes, the state's bytes, and one step and one
+                ``apply_updates`` under the profiler (busy, idle share, ms by
+                kind); (b) the float32 smoke config, three steps
                 on the card against the CPU from the same parameters and
                 batches, within stated tolerances; (c) the resume of the
                 reference's system test at its own cut
@@ -330,9 +345,19 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
                 (d) ``launch/train.py --mesh 2x2 --smoke --coded-every 1``, 3
                 steps: rank 0's shards and parity equal a one-process guard's
                 over the gathered state, ``fail_and_recover([1, 4, 6])`` and
-                ``reshard_state`` give every rank its blocks bit for bit.
-                Each snapshot's and recovery's ms, each rank's held and peak
-                bytes; the phase holds itself within 240 s.
+                ``reshard_state`` give every rank its blocks bit for bit;
+                (d') ``launch/train.py --mesh 2x2 --layers 1 --coded-every 1``
+                at full width, 2 steps of 8 x 256: rank 0 gathers the meshed
+                state and encodes it in column blocks; its added bytes, and
+                the limbs and parity of its first, last and three random
+                blocks against the state gathered again and a plain ``x @ A
+                mod q`` on the card. Each snapshot's and recovery's ms, each
+                rank's held and peak bytes, rank 0's added bytes at each
+                snapshot of (c) and (d'); the phase holds itself within 240 s.
+                Then a line ``memory``: every blocked entry point's held,
+                peak and added bytes (phases 6, 8 and 16) beside its bound
+                and its bytes before the blocks (ROADMAP B1); a row over its
+                bound fails the run.
 17. ``moe_mesh`` the MoE and MLA families on the mesh: the parent serves
                 one prefill and one tick of DeepSeek-V3 at full width (bf16, 4
                 of 61 layers: the 3 dense MLA prefix layers, one MLA-MoE
@@ -449,8 +474,10 @@ from repro_torch.coded.lagrange_compute import (  # noqa: E402
     lcc_encode_ranks,
     lcc_generator,
 )
+from repro_torch.coded import rs_checkpoint  # noqa: E402
 from repro_torch.coded.rs_checkpoint import (  # noqa: E402
     build_parity_plan,
+    column_blocks,
     encode_parity,
     encode_parity_collective,
     encode_parity_ranks,
@@ -854,6 +881,13 @@ def count_calls(calls: list[tuple]) -> tuple[int, int]:
     """(gf_matmul, butterfly_mac) launches in a list of kernel calls."""
     return (sum(1 for k, _ in calls if k == "gf_matmul"),
             sum(1 for k, _ in calls if k == "butterfly_mac"))
+
+
+def in_blocks(calls_of, S: int, rows: int) -> list[tuple]:
+    """The kernel calls of an encode of S columns that holds ``rows`` rows,
+    run in column blocks (``rs_checkpoint.column_blocks``): ``calls_of(w)``
+    for each block's width w, in order."""
+    return [c for lo, hi in column_blocks(S, rows) for c in calls_of(hi - lo)]
 
 
 def path_shapes(configs: list[dict], P: int) -> dict[str, list]:
@@ -1537,16 +1571,21 @@ def is_narrowing(name: str) -> bool:
     return "direct_copy_kernel_cuda" in name and "LoadWithCast" in name and "lambda(int)" in name
 
 
-def check_not_fed(what: str, profile: dict, scales: int):
+def check_not_fed(what: str, profile: dict, scales: int, blocks: int = 1):
     """The encode's ``butterfly_mac`` launches read their parts where they
     lie: on the device timeline no gather and no copy runs just before one
     (the row form's callers build no ``(radix, B, P)`` stack), but for the
     int64 -> int32 narrowing (``is_narrowing``) that ends each of the
     encode's ``scales`` local scales a run, just before a loose step: it is
-    the scale's own output."""
+    the scale's own output. An encode in ``blocks`` column blocks stores
+    each block's output into its columns of the result (a copy) just before
+    the next block's first ``butterfly_mac``, and the last block's just
+    before the next run's: ``blocks x ENCODE_REPS - 1`` such copies, and no
+    other."""
     fed = profile["butterfly_mac_fed_by"]
+    stores = blocks * ENCODE_REPS - 1 if blocks > 1 else 0
     check(sum(fed.values()) > 0, f"{what}: the profile saw no butterfly_mac launch")
-    check(not fed.get("gathers") and not fed.get("copies") and fed.get("narrowing", 0) <= scales * ENCODE_REPS,
+    check(not fed.get("gathers") and fed.get("copies", 0) <= stores and fed.get("narrowing", 0) <= scales * ENCODE_REPS,
           f"{what}: a gather or a copy feeds butterfly_mac ({fed}; {profile['butterfly_mac_fed_by_names']})")
 
 
@@ -1718,20 +1757,21 @@ def coded_configs() -> list[dict]:
     return [
         {"name": "coded_checkpoint", "q": M31, "K": CKPT_K, "S": S, "spec": ck_spec, "plan": plan,
          "seed": SEED + 700, "runs": {
-             "CodedStateGuard.snapshot": [("gf_matmul", (CKPT_K, ps.n, ps.m, S))],
-             "encode_parity_collective": ir_kernel_calls(ps.to_ir(plan.A, q=M31), S),
-             "encode_parity_collective(4, 4)": ir_kernel_calls(
-                 plan_hierarchical(CKPT_K, plan.p, 4).to_ir(plan.A, q=M31), S),
+             "CodedStateGuard.snapshot": in_blocks(lambda w: [("gf_matmul", (CKPT_K, ps.n, ps.m, w))], S, CKPT_K),
+             "encode_parity_collective": in_blocks(lambda w: ir_kernel_calls(ps.to_ir(plan.A, q=M31), w), S, CKPT_K),
+             "encode_parity_collective(4, 4)": in_blocks(lambda w: ir_kernel_calls(
+                 plan_hierarchical(CKPT_K, plan.p, 4).to_ir(plan.A, q=M31), w), S, CKPT_K),
          }},
         {"name": "lcc_serve", "q": NTT, "K": SERVE_K, "S": S6, "spec": sv_spec, "plan": lplan,
          "seed": SEED + 800, "runs": {
-             "CodedServeGuard.snapshot": [("gf_matmul", (lplan.N, lps.n, lps.m, S6))],
-             "CodedServeGuard.snapshot(collective=True)": ir_kernel_calls(
-                 lps.to_ir(lcc_generator(lplan), q=NTT), S6),
+             "CodedServeGuard.snapshot": in_blocks(lambda w: [("gf_matmul", (lplan.N, lps.n, lps.m, w))], S6, lplan.N),
+             "CodedServeGuard.snapshot(collective=True)": in_blocks(
+                 lambda w: ir_kernel_calls(lps.to_ir(lcc_generator(lplan), q=NTT), w), S6, lplan.N),
          }},
         {"name": "lcc_square", "q": NTT, "K": SQUARE_K, "S": S48, "spec": sq_spec, "plan": qplan,
          "seed": SEED + 800, "runs": {
-             "lcc_encode": draw_loose_calls(qplan.plan_omega, S48) + draw_loose_calls(qplan.plan_alpha, S48),
+             "lcc_encode": in_blocks(lambda w: draw_loose_calls(qplan.plan_omega, w)
+                                     + draw_loose_calls(qplan.plan_alpha, w), S48, qplan.N),
          }},
     ]
 
@@ -1763,11 +1803,15 @@ def peak_of(sink: dict, entry: str):
 @contextlib.contextmanager
 def timed(module, name: str, sink: list):
     """Record the wall ms of every call of ``module.name`` into ``sink``
-    while the block runs: how the host numpy part of a recovery is timed
-    inside the guard that calls it."""
+    while the block runs: how the host numpy part of a recovery, or a
+    snapshot's copies to the host, is timed inside the guard that calls it.
+    Each call starts from a synchronised card, so that its time holds no
+    wait for earlier device work."""
     fn = getattr(module, name)
 
     def wrapper(*args, **kw):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         sink.append((time.perf_counter() - t0) * 1e3)
@@ -1803,7 +1847,7 @@ def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
             fn = encode_parity_collective(plan, sizes, device=dev)
             outs[entry] = fn(shards)
         check(fn.device.type == "cuda" and fn.kernels == "cuda", f"{name}: {entry} did not run on the card")
-        check(ir_kernel_calls(fn.ir, cfg["S"]) == runs[entry],
+        check(in_blocks(lambda w: ir_kernel_calls(fn.ir, w), cfg["S"], plan.K) == runs[entry],
               f"{name}: {entry} runs other kernel shapes than phase 3 held")
         counted[entry] = check_launches(name, entry, before, runs[entry])
         check(same(outs[entry], parity), f"{name}: {entry} != encode_parity")
@@ -1848,7 +1892,7 @@ def drive_lcc_serve(cfg: dict, dev) -> tuple[dict, dict]:
                                 collective=collective, device=dev)
         if collective:
             enc = guard._collective
-            check(enc.kernels == "cuda" and ir_kernel_calls(enc.ir, cfg["S"]) == runs[entry],
+            check(enc.kernels == "cuda" and in_blocks(lambda w: ir_kernel_calls(enc.ir, w), cfg["S"], plan.N) == runs[entry],
                   f"{name}: {entry} runs other kernels than phase 3 held")
         reg, tracer = MetricsRegistry(), Tracer()
         guard.attach(reg, tracer)
@@ -1956,6 +2000,7 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
     gf_matmul_cuda.launches = 0
     butterfly_mac_rows_cuda.launches = 0
     records, timers = {}, {}
+    S_of = {cfg["name"]: cfg["S"] for cfg in cfgs}
     for cfg, drive in zip(cfgs, (drive_coded_checkpoint, drive_lcc_serve, drive_lcc_square)):
         records[cfg["name"]], timers[cfg["name"]] = drive(cfg, dev)
         torch.cuda.empty_cache()
@@ -1972,8 +2017,9 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
             record[f"{entry}_ms"] = wall_ms(run, ENCODE_REPS)
         record["profile"] = {entry: profile_encode(f"{name}/{entry}", run, ENCODE_REPS)
                              for entry, run in entries.items()}
-        if name == "lcc_square":
-            check_not_fed(f"{name}/lcc_encode", record["profile"]["lcc_encode"], 1)  # the forward encode's scale
+        if name == "lcc_square":  # the forward encode's scale, once a column block
+            nb = len(column_blocks(S_of[name], SQUARE_K))
+            check_not_fed(f"{name}/lcc_encode", record["profile"]["lcc_encode"], nb, blocks=nb)
         timers[name] = None
         torch.cuda.empty_cache()
     return counted, records
@@ -2031,9 +2077,9 @@ def serve_config() -> dict:
     S = -(-limb_count(spec) // SERVE_K)
     return {"name": "serve", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
             "runs": {
-                "ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))],
-                "ContinuousEngine.serve(guard collective=True)": ir_kernel_calls(
-                    lps.to_ir(lcc_generator(plan), q=NTT), S),
+                "ContinuousEngine.serve(guard)": in_blocks(lambda w: [("gf_matmul", (plan.N, lps.n, lps.m, w))], S, plan.N),
+                "ContinuousEngine.serve(guard collective=True)": in_blocks(
+                    lambda w: ir_kernel_calls(lps.to_ir(lcc_generator(plan), q=NTT), w), S, plan.N),
             }}
 
 
@@ -2086,7 +2132,8 @@ def guarded_run(scfg: dict, eng, trace, dev, *, collective: bool, greedy: bool) 
                             collective=collective, device=dev)
     if collective:
         enc = guard._collective
-        check(enc.kernels == "cuda" and ir_kernel_calls(enc.ir, scfg["S"]) == scfg["runs"][entry],
+        check(enc.kernels == "cuda" and in_blocks(lambda w: ir_kernel_calls(enc.ir, w), scfg["S"], scfg["plan"].N)
+              == scfg["runs"][entry],
               f"serve: {entry} runs other kernels than phase 3 held")
     snap_ms, host_ms = [], []
     before = launches()
@@ -2284,8 +2331,14 @@ def serve_phase(scfg: dict, dev) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen3-1.7b"
-# (a): the launcher at its defaults (batch 8 x seq 256, lr 3e-4) for six steps
-TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "6", "--coded-every", "0"]
+# (a): the launcher at its defaults (batch 8 x seq 256, lr 3e-4, K = 8) for six steps, with one coded snapshot of
+# the whole state after the last one (step 5)
+TRAIN_STEPS, TRAIN_CODED_EVERY, TRAIN_K = 6, 5, 8
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--coded-every", str(TRAIN_CODED_EVERY)]
+TRAIN_SNAPSHOT = "launch.train --coded-every 5: CodedStateGuard.snapshot"
+SNAPSHOT_ADDED_MAX = 2 << 30  # the device bytes a snapshot may add beside the state it reads
+TRAIN_PARITY_BLOCKS = 4  # (a): random column blocks whose parity is held, beside the first, the last and a leaf edge's
+TRAIN_SHARD_EVERY = 16  # (a): every 16th column block of the guard's limbs is held (all 4,103 took 15 s), and the last
 TRAIN_LOSS_SLACK = 1.5  # step 0's loss within this of ln(vocab): random weights guess uniformly
 # (b): the float32 smoke config on the card against the CPU
 SMALL_TRAIN_STEPS, SMALL_TRAIN_BATCH, SMALL_TRAIN_SEQ = 3, 8, 64
@@ -2320,27 +2373,157 @@ def resume_model():
 
 def train_config() -> dict:
     """The train phase's configuration, host-side: the resume's state spec,
-    its shard width and the kernel call of one snapshot (``runs``)."""
+    its shard width and the kernel calls of one snapshot (``runs``), and
+    those of (a)'s snapshot of the full-width state (the launcher's
+    ``OptConfig`` for TRAIN_STEPS steps)."""
     model = resume_model()
     spec = {"params": model.param_specs(), "opt": state_specs(RESUME_OPT, model.param_specs())}
     plan = build_parity_plan(RESUME_K)
     S = -(-limb_count(spec) // RESUME_K)
+    full = build_model(get(TRAIN_ARCH))
+    ocfg = OptConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
+    full_spec = {"params": full.param_specs(), "opt": state_specs(ocfg, full.param_specs())}
+    fplan = build_parity_plan(TRAIN_K)
+    S_full = -(-limb_count(full_spec) // TRAIN_K)
     return {"name": "train_resume", "q": M31, "K": RESUME_K, "S": S, "spec": spec, "plan": plan,
-            "runs": {"CodedStateGuard.snapshot": [("gf_matmul", (RESUME_K, plan.ps_plan.n, plan.ps_plan.m, S))]}}
+            "full": {"K": TRAIN_K, "S": S_full, "plan": fplan, "state_bytes": spec_bytes(full_spec)},
+            "runs": {"CodedStateGuard.snapshot": in_blocks(
+                         lambda w: [("gf_matmul", (RESUME_K, plan.ps_plan.n, plan.ps_plan.m, w))], S, RESUME_K),
+                     TRAIN_SNAPSHOT: in_blocks(
+                         lambda w: [("gf_matmul", (TRAIN_K, fplan.ps_plan.n, fplan.ps_plan.m, w))], S_full, TRAIN_K)}}
 
 
-def train_full_width(dev) -> dict:
-    """(a): six steps of the launcher at Qwen3-1.7B's full width and depth,
-    then one more step and one ``apply_updates`` under the profiler."""
+def mem_total() -> int:
+    """The host's memory in bytes (``/proc/meminfo``'s ``MemTotal``)."""
+    with open("/proc/meminfo") as fh:
+        return int(fh.readline().split()[1]) * 1024
+
+
+def leaf_u8(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf's bytes, flat (a bool's as ``uint8``)."""
+    t = leaf.detach()
+    return (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous().view(-1).view(torch.uint8)
+
+
+def leaf_limb_starts(leaves) -> list[int]:
+    """Each leaf's first limb and, last, the limb count: a leaf takes its
+    byte count over 2, rounded up."""
+    starts = [0]
+    for leaf in leaves:
+        starts.append(starts[-1] + -(-leaf.numel() * leaf.element_size() // 2))
+    return starts
+
+
+def plain_limbs(leaves, a: int, b: int, dev) -> torch.Tensor:
+    """Limbs ``[a, b)`` of a state whose leaves are ``leaves`` (pytree
+    order), paired here from each leaf's bytes without the coded layer's
+    readers: the leaves' bytes, each padded with a zero to an even count,
+    laid end to end, zeros past the last, two little-endian bytes a limb."""
+    u8 = torch.zeros(2 * (b - a), dtype=torch.uint8, device=dev)
+    o = 0
+    for leaf in leaves:
+        if o >= 2 * b:
+            break
+        n = leaf.numel() * leaf.element_size()
+        lo, hi = max(2 * a, o), min(2 * b, o + n)
+        if lo < hi:
+            u8[lo - 2 * a : hi - 2 * a] = leaf_u8(leaf)[lo - o : hi - o]
+        o += n + n % 2
+    pairs = u8.view(-1, 2).to(torch.int32)
+    return pairs[:, 0] | (pairs[:, 1] << 8)
+
+
+def plain_block(leaves, K: int, S: int, lo: int, hi: int, dev) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of the state's K limb rows of S
+    (:func:`plain_limbs` for each row)."""
+    return torch.stack([plain_limbs(leaves, j * S + lo, j * S + hi, dev) for j in range(K)])
+
+
+def leaf_edge_block(starts: list[int], S: int, K: int) -> int:
+    """The index of a column block, neither the first nor the last, that a
+    leaf boundary (``starts``: :func:`leaf_limb_starts`) crosses (falls
+    strictly inside)."""
+    last = len(column_blocks(S, K)) - 1
+    w = rs_checkpoint.block_columns(K)
+    for b in starts[1:-1]:
+        col = b % S
+        if col % w and 0 < col // w < last:
+            return col // w
+    raise AssertionError("no leaf boundary falls inside a column block")
+
+
+def check_snapshot(name: str, guard, state, fcfg: dict, dev, every: int) -> dict:
+    """A blocked ``CodedStateGuard`` snapshot of ``state`` against the state:
+    every ``every``-th block of ``guard._shards`` (and the last) equals the
+    state's limbs paired again on the card from its leaves' bytes
+    (:func:`plain_block`, not the guard's reader); the parity of the first
+    block, the ragged last one, one a leaf boundary crosses and
+    TRAIN_PARITY_BLOCKS random ones equals the plain ``x @ A mod q`` of those
+    limbs on the card and, on ``check_output``'s random columns, the host
+    oracle. Returns the record."""
+    K, S, plan = fcfg["K"], fcfg["S"], fcfg["plan"]
+    check(guard._shards.shape == guard._parity.shape == (K, S) and guard._shards.dtype == np.uint32,
+          f"{name}: shards {guard._shards.shape}, parity {guard._parity.shape}, not ({K}, {S})")
+    leaves = tree.leaves(state)
+    starts = leaf_limb_starts(leaves)
+    check(-(-starts[-1] // K) == S, f"{name}: {starts[-1]} limbs do not make {K} rows of {S}")
+    blocks = column_blocks(S, K)
+    t0 = time.perf_counter()
+    shard_blocks = sorted(set(range(0, len(blocks), every)) | {len(blocks) - 1})
+    for i in shard_blocks:
+        lo, hi = blocks[i]
+        held = torch.from_numpy(np.ascontiguousarray(guard._shards[:, lo:hi]).view(np.int32)).to(dev)
+        check(same(plain_block(leaves, K, S, lo, hi, dev), held),
+              f"{name}: the guard's limbs differ from the state's in block {i}")
+    shards_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edge = leaf_edge_block(starts, S, K)
+    rng = np.random.default_rng(SEED + 1300)
+    picked = sorted({0, len(blocks) - 1, edge} | set(rng.choice(len(blocks), TRAIN_PARITY_BLOCKS).tolist()))
+    x = torch.cat([plain_block(leaves, K, S, *blocks[i], dev) for i in picked], dim=1)
+    par = torch.cat([torch.from_numpy(np.ascontiguousarray(guard._parity[:, slice(*blocks[i])]).view(np.int32))
+                     for i in picked], dim=1).to(dev)
+    n_cols = check_output(f"{name}/parity", par, x, np.asarray(plan.A), plan.q, SEED + 1300)
+    parity_s = time.perf_counter() - t0
+    return {"blocks": len(blocks), "block_columns": rs_checkpoint.block_columns(K),
+            "shard_blocks_checked": len(shard_blocks), "shard_check_s": shards_s, "parity_blocks_checked": picked,
+            "leaf_edge_block": edge, "checked_columns": {"plain_on_card": int(x.shape[1]), "host_oracle": n_cols},
+            "parity_check_s": parity_s}
+
+
+def train_full_width(tcfg: dict, dev) -> dict:
+    """(a): six steps of the launcher at Qwen3-1.7B's full width and depth
+    with one coded snapshot of the whole state after the last, read by
+    :func:`guard_calls` (its wall and device bytes; the steps' peak before
+    it) and :func:`timed` (its copies to the host), and held by
+    :func:`check_snapshot`; then one more step and one ``apply_updates``
+    under the profiler."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    calls, copy_ms = {}, []
+    before = launches()
     t0 = time.perf_counter()
-    run = train_main(TRAIN_ARGV)
+    with guard_calls(CodedStateGuard, calls, memory=True), timed(rs_checkpoint.HostRows, "put", copy_ms):
+        run = train_main(TRAIN_ARGV)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(torch.cuda.max_memory_allocated(), calls.get("before_peak_bytes", 0))
+    counted = check_launches("train", TRAIN_SNAPSHOT, before, tcfg["runs"][TRAIN_SNAPSHOT])
     model, ocfg, state, hist = run["model"], run["opt_cfg"], run["state"], run["history"]
+    guard = run["guard"]
+    check(len(calls.get("snapshot_ms", [])) == 1 and guard.step == TRAIN_CODED_EVERY,
+          f"train: {len(calls.get('snapshot_ms', []))} snapshots, the last at step {guard.step}, "
+          f"expected one at step {TRAIN_CODED_EVERY}")
+    snap = {"step": guard.step, "wall_ms": calls["snapshot_ms"][0], **calls.get("memory", [{}])[0],
+            "steps_peak_bytes": calls.get("before_peak_bytes"), "copy_to_host_ms": sum(copy_ms),
+            "copies": len(copy_ms), "launches": counted}
+    check(snap.get("added_bytes", 0) <= SNAPSHOT_ADDED_MAX,
+          f"train: the snapshot added {snap.get('added_bytes')} device bytes, over {SNAPSHOT_ADDED_MAX}")
+    snap.update(check_snapshot("train/snapshot", guard, state, tcfg["full"], dev, every=TRAIN_SHARD_EVERY),
+                host_bytes=guard._shards.nbytes + guard._parity.nbytes, mem_total=mem_total())
+    del guard
+    run["guard"] = None
     cfg = model.cfg
     params, opt = state["params"], state["opt"]
     check(cfg.n_layers == 28 and cfg.d_model == 2048 and cfg.vocab_padded == 152064 and cfg.remat == "block"
@@ -2363,8 +2546,8 @@ def train_full_width(dev) -> dict:
               "losses": losses, "grad_norms": [h["grad_norm"] for h in hist], "step_ms": step_ms,
               "median_step_ms_2_to_6": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
               "ln_vocab": uniform, "launcher_s": run["seconds"], "run_s": run_s, "held_bytes": held, "peak_bytes": peak,
-              "coded_every": 0,
-              "why_no_snapshot": "a snapshot adds 43x its state's bytes: 43 x 17.2 GB exceeds the card"}
+              "coded_every": TRAIN_CODED_EVERY, "K": TRAIN_K,
+              "snapshot": snap}
     ds = SyntheticLM(cfg)
     b = to_device(ds.batch(len(hist), batch, seq), dev)
     step = make_train_step(model, ocfg)
@@ -2490,8 +2673,9 @@ def train_phase(tcfg: dict, dev) -> tuple[dict, dict]:
     (launches, record)."""
     gf_matmul_cuda.launches = 0
     butterfly_mac_rows_cuda.launches = 0
-    record = {"full_width": train_full_width(dev)}
-    check(launches() == (0, 0), "train: the unguarded steps launched a hand kernel")
+    record = {"full_width": train_full_width(tcfg, dev)}
+    check(launches() == count_calls(tcfg["runs"][TRAIN_SNAPSHOT]),
+          "train: the full-width run launched other hand kernels than its snapshot's")
     record["small_vs_cpu"] = train_small_vs_cpu(dev)
     record["resume"] = train_resume(tcfg, dev)
     counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
@@ -2874,7 +3058,7 @@ def moe_config() -> dict:
     lps = plan_prepare_shoot(plan.N, plan.p)
     S = -(-limb_count(spec) // SERVE_K)
     return {"name": "moe", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
-            "runs": {"ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))]}}
+            "runs": {"ContinuousEngine.serve(guard)": in_blocks(lambda w: [("gf_matmul", (plan.N, lps.n, lps.m, w))], S, plan.N)}}
 
 
 @contextlib.contextmanager
@@ -3164,7 +3348,7 @@ def mla_config() -> dict:
     lps = plan_prepare_shoot(plan.N, plan.p)
     S = -(-limb_count(spec) // SERVE_K)
     return {"name": "mla", "q": NTT, "K": SERVE_K, "S": S, "spec": spec, "plan": plan, "model": model,
-            "runs": {"ContinuousEngine.serve(guard)": [("gf_matmul", (plan.N, lps.n, lps.m, S))]}}
+            "runs": {"ContinuousEngine.serve(guard)": in_blocks(lambda w: [("gf_matmul", (plan.N, lps.n, lps.m, w))], S, plan.N)}}
 
 
 def mla_small_vs_cpu(dev) -> dict:
@@ -3334,7 +3518,7 @@ def refeed_config(name: str, cfgs) -> dict:
         entry = f"{arch}: CodedServeGuard.snapshot"
         models[arch] = {"arch": arch, "model": model, "prompts": prompts, "total": total, "spec": spec, "S": S,
                         "entry": entry}
-        runs[entry] = [("gf_matmul", (plan.N, lps.n, lps.m, S))]
+        runs[entry] = in_blocks(lambda w: [("gf_matmul", (plan.N, lps.n, lps.m, w))], S, plan.N)
     return {"name": name, "q": NTT, "K": SERVE_K, "plan": plan, "models": models, "runs": runs}
 
 
@@ -3644,7 +3828,9 @@ def ssm_phase(scfg: dict, dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
-    check(counted["gf_matmul"] == 2, f"the SSM serve path launched gf_matmul {counted['gf_matmul']} times, not 2")
+    want = sum(count_calls(calls)[0] for calls in scfg["runs"].values())  # one snapshot a model, in column blocks
+    check(counted["gf_matmul"] == want,
+          f"the SSM serve path launched gf_matmul {counted['gf_matmul']} times, not {want}")
     record["launches"] = counted
     # (d): the float32 smoke configs on the card against the CPU
     record["small_vs_cpu"] = {arch: small_vs_cpu(smoke_config(arch).replace(dtype="float32"), dev, SEED + 1305 + i,
@@ -3840,8 +4026,9 @@ def encvlm_phase(ecfg: dict, dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     counted = {"gf_matmul": gf_matmul_cuda.launches, "butterfly_mac": butterfly_mac_rows_cuda.launches}
-    check(counted["gf_matmul"] == 2,
-          f"the encoder-decoder and VLM serve paths launched gf_matmul {counted['gf_matmul']} times, not 2")
+    want = sum(count_calls(calls)[0] for calls in ecfg["runs"].values())  # one snapshot a model, in column blocks
+    check(counted["gf_matmul"] == want,
+          f"the encoder-decoder and VLM serve paths launched gf_matmul {counted['gf_matmul']} times, not {want}")
     record["launches"] = counted
     # (d): the float32 smoke configs on the card against the CPU
     record["small_vs_cpu"] = {arch: small_vs_cpu(smoke_config(arch).replace(dtype="float32"), dev, SEED + 1405 + i,
@@ -3895,9 +4082,10 @@ def analysis_configs() -> list[dict]:
         {"name": "quickstart_dft", "q": NTT, "runs": {
             "a2a_encode": a2a_kernel_calls({"kind": "dft", "plan": dplan, "K": K}, 1)}},
         {"name": "coded_checkpoint_recovery", "q": M31, "S": S_ck, "runs": {
-            "encode_parity": [("gf_matmul", (K, pplan.ps_plan.n, pplan.ps_plan.m, S_ck))]}},
+            "encode_parity": in_blocks(lambda w: [("gf_matmul", (K, pplan.ps_plan.n, pplan.ps_plan.m, w))], S_ck, K)}},
         {"name": "train_lm", "q": M31, "S": S_lm, "runs": {
-            "CodedStateGuard.snapshot": [("gf_matmul", (8, gplan.ps_plan.n, gplan.ps_plan.m, S_lm))] * 2}},
+            "CodedStateGuard.snapshot": in_blocks(
+                lambda w: [("gf_matmul", (8, gplan.ps_plan.n, gplan.ps_plan.m, w))], S_lm, 8) * 2}},
         {"name": "trace_encode", "q": M31, "ir": ir, "runs": {
             "ir_encode": ir_kernel_calls(ir, TRACE_PAYLOAD) * TRACE_CALLS}},
     ]
@@ -4679,13 +4867,17 @@ CM_LAUNCH_NEW = 8  # (c): two chunks of 4 ticks: the kills after ticks 2 and 6 a
 CM_LAUNCH_K, CM_LAUNCH_R = 3, 2
 CM_LAUNCH_CODED = ["--coded", f"{CM_LAUNCH_K},{CM_LAUNCH_R}", "--kill", "2:0", "--kill", "6:4"]
 CM_TRAIN_STEPS, CM_TRAIN_K, CM_TRAIN_LOST = 3, 8, [1, 4, 6]  # (d): the launcher's --coded-k default
+# (d'): the train guard at full width, one of 28 layers, 2 steps of 8 x 256: one snapshot, after step 1
+CM_FULL_LAYERS, CM_FULL_STEPS, CM_FULL_BATCH, CM_FULL_SEQ = 1, 2, 8, 256
+CM_FULL_BLOCKS = 3  # (d'): random column blocks rank 0 holds, beside the first and the last
 CM_DEADLINE_S = 600  # the whole phase: a rank that has not answered by then fails the run
 # what the phase may take: 158 and 226 s on two hosts before (b') lost its recovery (14 s); most of the
 # rest is host numpy (four Lagrange decodes of 11-14 s each), which moves with the host
 CM_PHASE_S = 240
 CM_ENTRIES = {"ranks": "CodedServeGuard(mesh=hosts).snapshot",
               "wide": "CodedServeGuard(mesh=hosts, p=3).snapshot", "launch": "launch/serve.py --mesh 2x2 --coded 3,2",
-              "train": "launch/train.py --mesh 2x2 --smoke --coded-every 1"}
+              "train": "launch/train.py --mesh 2x2 --smoke --coded-every 1",
+              "train_full": "launch/train.py --mesh 2x2 --layers 1 --coded-every 1"}
 
 
 def cm_state_spec(model, max_new: int) -> tuple:
@@ -4711,22 +4903,29 @@ def coded_mesh_config() -> dict:
     small = build_model(smoke_config(TRAIN_ARCH))
     ocfg = OptConfig(total_steps=CM_TRAIN_STEPS)
     tplan = build_parity_plan(CM_TRAIN_K)
+    full = build_model(get(TRAIN_ARCH).replace(n_layers=CM_FULL_LAYERS))
+    focfg = OptConfig(total_steps=CM_FULL_STEPS)
     S = {"ranks": -(-limb_count(cm_state_spec(model, CM_MAX_NEW)) // CM_K),
          "launch": -(-limb_count(cm_state_spec(model, CM_LAUNCH_NEW)) // CM_LAUNCH_K),
          "train": -(-limb_count({"params": small.param_specs(), "opt": state_specs(ocfg, small.param_specs())})
-                    // CM_TRAIN_K)}
+                    // CM_TRAIN_K),
+         "train_full": -(-limb_count({"params": full.param_specs(), "opt": state_specs(focfg, full.param_specs())})
+                         // CM_TRAIN_K)}
 
     def rank_calls(plan):
         return ir_kernel_calls(plan_prepare_shoot(plan.N, plan.p).to_ir(lcc_generator(plan), q=NTT), S["ranks"],
                                batch=1)
 
     runs = {"ranks": rank_calls(rplan), "wide": rank_calls(wplan),
-            "launch": [("gf_matmul", (lplan.N, lps.n, lps.m, S["launch"]))],
-            "train": [("gf_matmul", (CM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m, S["train"]))]}
+            "launch": in_blocks(lambda w: [("gf_matmul", (lplan.N, lps.n, lps.m, w))], S["launch"], lplan.N),
+            "train": in_blocks(lambda w: [("gf_matmul", (CM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m, w))], S["train"],
+                               CM_TRAIN_K),
+            "train_full": in_blocks(lambda w: [("gf_matmul", (CM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m, w))],
+                                    S["train_full"], CM_TRAIN_K)}
     return {"serve": cfg, "max_len": SERVE_POSITIONS, "buckets": MESH_BUCKETS, "mix": SERVE_MIX, "S": S,
             "launcher_extra": [], "train_extra": [], "runs": runs,
             "paths": [{"name": "coded_mesh", "q": NTT, "runs": {CM_ENTRIES[k]: runs[k] for k in ("ranks", "wide", "launch")}},
-                      {"name": "coded_mesh", "q": M31, "runs": {CM_ENTRIES["train"]: runs["train"]}}]}
+                      {"name": "coded_mesh", "q": M31, "runs": {CM_ENTRIES[k]: runs[k] for k in ("train", "train_full")}}]}
 
 
 def cm_requests(mcfg: dict) -> list:
@@ -4747,16 +4946,33 @@ def launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def guard_calls(cls, sink: dict):
+def guard_calls(cls, sink: dict, memory: bool = False):
     """Time every ``snapshot`` and ``recover`` of guards of ``cls`` while the
     block runs (wall ms into ``sink["snapshot_ms"]``, ``sink["recover_ms"]``),
-    and keep the width of the coded shards a snapshot leaves on this rank."""
+    and keep the width of the coded shards a snapshot leaves on this rank.
+    With ``memory``, on the card, each snapshot's device bytes go into
+    ``sink["memory"]`` (held as it starts, peak, added, and the bytes of the
+    state it read, ``state_bytes``) and the peak of what ran before the last
+    one into ``sink["before_peak_bytes"]`` (each snapshot resets the peak)."""
     snap, rec = cls.snapshot, getattr(cls, "recover", None)
 
     def snapshot(self, *a, **kw):
+        on_card = memory and self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            sink["before_peak_bytes"] = max(sink.get("before_peak_bytes", 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            held_bytes = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         snap(self, *a, **kw)
         sink.setdefault("snapshot_ms", []).append((time.perf_counter() - t0) * 1e3)
+        if on_card:
+            torch.cuda.synchronize()
+            pk = torch.cuda.max_memory_allocated()
+            meta = self._meta
+            sink.setdefault("memory", []).append({
+                "held_bytes": held_bytes, "peak_bytes": pk, "added_bytes": pk - held_bytes,
+                "state_bytes": sum(math.prod(sh) * dt.itemsize for sh, dt in zip(meta.shapes, meta.dtypes))})
         held = getattr(self, "group", None)
         if held is not None and held._mem:
             sink["width"] = len(next(iter(held._mem.values())))
@@ -4886,13 +5102,14 @@ def cm_launcher(rank: int, dev, mcfg: dict) -> dict:
         reset_peak(dev)
         zero_launches()
         t0 = time.perf_counter()
-        with guard_calls(CodedServeGuard, calls), contextlib.redirect_stdout(buf):
+        with guard_calls(CodedServeGuard, calls, memory=True), contextlib.redirect_stdout(buf):
             rep = serve_main(argv + extra)
         sync(dev)
         res[name] = {"tokens": tokens_of(rep), "printed": buf.getvalue().splitlines(), "stats": rep.coded,
-                     "launches": launch_counts(), "seconds": time.perf_counter() - t0, "peak_bytes": peak(dev),
+                     "launches": launch_counts(), "seconds": time.perf_counter() - t0,
+                     "peak_bytes": max(peak(dev), calls.get("before_peak_bytes", 0)),
                      "snapshot_ms": calls.get("snapshot_ms", []), "recover_ms": calls.get("recover_ms", []),
-                     "width": calls.get("width")}
+                     "snapshot_memory": calls.get("memory", []), "width": calls.get("width")}
         del rep
         if dev.type == "cuda":
             gc.collect()
@@ -4914,11 +5131,12 @@ def cm_train(rank: int, dev, mcfg: dict) -> dict:
     sync(dev)
     reset_peak(dev)
     zero_launches()
-    with guard_calls(CodedStateGuard, calls), contextlib.redirect_stdout(io.StringIO()):
+    with guard_calls(CodedStateGuard, calls, memory=True), contextlib.redirect_stdout(io.StringIO()):
         run = train_main(argv)
     sync(dev)
     rec = {"launches": launch_counts(), "losses": [h["loss"] for h in run["history"]],
-           "snapshot_ms": calls.get("snapshot_ms", []), "peak_bytes": peak(dev), "held_bytes": local_bytes(run["state"])}
+           "snapshot_ms": calls.get("snapshot_ms", []), "snapshot_memory": calls.get("memory", []),
+           "peak_bytes": max(peak(dev), calls.get("before_peak_bytes", 0)), "held_bytes": local_bytes(run["state"])}
     g, final = run["guard"], run["state"]
     rec.update(step=g.step, holds=g._shards is not None,
                width=None if g._shards is None else int(g._shards.shape[1]))
@@ -4942,6 +5160,53 @@ def cm_train(rank: int, dev, mcfg: dict) -> dict:
         and a.to_local().shape == b.to_local().shape
         and same(a.to_local().reshape(-1).view(torch.uint8), b.to_local().reshape(-1).view(torch.uint8))
         for a, b in zip(tree.leaves(placed), tree.leaves(final)))
+    return rec
+
+
+def cm_train_full(rank: int, dev, mcfg: dict) -> dict:
+    """(d') on a rank: ``launch/train.py --mesh 2x2 --layers 1 --coded-every
+    1`` at full width for CM_FULL_STEPS steps of 8 x 256: one snapshot of
+    the meshed state, gathered to rank 0 and encoded there in column blocks.
+    Rank 0 then gathers the final state again and holds the first, the last
+    and CM_FULL_BLOCKS random blocks of its shards against the state's limbs
+    and of its parity against the plain ``x @ A mod q`` on the card."""
+    from repro_torch.coded.rs_checkpoint import gather_state
+
+    argv = ["--arch", TRAIN_ARCH, "--mesh", "2x2", "--layers", str(CM_FULL_LAYERS), "--coded-every", "1",
+            "--steps", str(CM_FULL_STEPS), "--batch", str(CM_FULL_BATCH), "--seq", str(CM_FULL_SEQ),
+            *mcfg["train_extra"]]
+    calls: dict = {}
+    sync(dev)
+    reset_peak(dev)
+    zero_launches()
+    with guard_calls(CodedStateGuard, calls, memory=True), contextlib.redirect_stdout(io.StringIO()):
+        run = train_main(argv)
+    sync(dev)
+    g, final = run["guard"], run["state"]
+    rec = {"launches": launch_counts(), "losses": [h["loss"] for h in run["history"]], "step": g.step,
+           "snapshot_ms": calls.get("snapshot_ms", []), "snapshot_memory": calls.get("memory", []),
+           "peak_bytes": max(peak(dev), calls.get("before_peak_bytes", 0)), "held_bytes": local_bytes(final),
+           "holds": g._shards is not None, "width": None if g._shards is None else int(g._shards.shape[1])}
+    one = gather_state(final, keep=rank == 0)
+    if rank == 0:
+        K, S = g._shards.shape
+        leaves = tree.leaves(one)
+        blocks = column_blocks(S, K)
+        rng = np.random.default_rng(SEED + 1400)
+        picked = sorted({0, len(blocks) - 1} | set(rng.choice(len(blocks), CM_FULL_BLOCKS).tolist()))
+        gt = to_tensor(np.ascontiguousarray(np.asarray(g.plan.A).T).astype(np.uint32), dev)
+        shards_equal = parity_equal = True
+        for i in picked:
+            lo, hi = blocks[i]
+            x = plain_block(leaves, K, S, lo, hi, dev)
+            held = torch.from_numpy(np.ascontiguousarray(g._shards[:, lo:hi]).view(np.int32)).to(dev)
+            par = torch.from_numpy(np.ascontiguousarray(g._parity[:, lo:hi]).view(np.int32)).to(dev)
+            shards_equal &= same(x, held)
+            parity_equal &= same(gf_matmul_plain(gt[None], x[None], M31)[0], par)
+        rec.update(blocks=len(blocks), blocks_checked=picked, shards_equal=shards_equal, parity_equal=parity_equal,
+                   host_bytes=g._shards.nbytes + g._parity.nbytes)
+        del leaves, x, held, par
+    del one, run, g, final
     return rec
 
 
@@ -4974,7 +5239,8 @@ def coded_mesh_worker(rank: int, world: int, init: str, mcfg: dict, go, out, dev
         out.put(("ready", rank, None, None))
         if not go.wait(CM_DEADLINE_S):
             raise TimeoutError("the parent never said go")
-        for part, fn in (("serve", cm_serve), ("launcher", cm_launcher), ("train", cm_train)):
+        for part, fn in (("serve", cm_serve), ("launcher", cm_launcher), ("train", cm_train),
+                         ("train_full", cm_train_full)):
             t0 = time.perf_counter()
             res = fn(rank, dev, mcfg)
             res["seconds"] = time.perf_counter() - t0
@@ -5007,7 +5273,7 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
         for p in procs:
             p.start()
         go.set()
-        want, got, deadline = world * 5, 0, time.monotonic() + CM_DEADLINE_S  # ready, 3 parts, done
+        want, got, deadline = world * 6, 0, time.monotonic() + CM_DEADLINE_S  # ready, 4 parts, done
         while got < want:
             try:
                 status, rank, part, value = out.get(timeout=5)
@@ -5145,9 +5411,34 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
                  "snapshot_ms": {r: tr[r]["snapshot_ms"] for r in ranks}, "recover_ms": [tr[r]["recover_ms"] for r in ranks],
                  "held_bytes": [tr[r]["held_bytes"] for r in ranks], "peak_bytes": [tr[r]["peak_bytes"] for r in ranks],
                  "seconds": tr[0]["seconds"]}
+
+    # (d') the train guard over the meshed full-width state, one layer
+    tf = results["train_full"]
+    check(all(tf[r]["losses"] == tf[0]["losses"] and all(math.isfinite(v) for v in tf[r]["losses"]) for r in ranks),
+          f"coded_mesh/train_full: losses {[tf[r]['losses'] for r in ranks]}")
+    check(tf[0]["holds"] and not any(tf[r]["holds"] for r in ranks if r) and tf[0]["width"] == mcfg["S"]["train_full"],
+          f"coded_mesh/train_full: rank 0 alone must hold shards of {mcfg['S']['train_full']} limbs")
+    check(tf[0]["shards_equal"] and tf[0]["parity_equal"],
+          f"coded_mesh/train_full: blocks {tf[0]['blocks_checked']}: shards equal {tf[0]['shards_equal']}, "
+          f"parity equal to the plain kernel {tf[0]['parity_equal']}")
+    want = count_calls(mcfg["runs"]["train_full"])
+    fsnaps = len(tf[0]["snapshot_ms"])
+    for r in ranks:
+        got = tf[r]["launches"]
+        exp = (want[0] * fsnaps, want[1] * fsnaps) if r == 0 else (0, 0)
+        check(not on_card or (got["gf_matmul"], got["butterfly_mac"]) == exp,
+              f"coded_mesh/train_full: rank {r} launched {got}, expected {exp}")
+        add(got)
+    full_rec = {"argv": ["--layers", CM_FULL_LAYERS, "--coded-every", "1", "--steps", CM_FULL_STEPS, "--batch",
+                         CM_FULL_BATCH, "--seq", CM_FULL_SEQ], "K": CM_TRAIN_K, "losses": tf[0]["losses"],
+                "shard_limbs": tf[0]["width"], "blocks": tf[0]["blocks"], "blocks_checked": tf[0]["blocks_checked"],
+                "host_bytes": tf[0]["host_bytes"], "snapshot_ms": {r: tf[r]["snapshot_ms"] for r in ranks},
+                "rank0_snapshot_memory": tf[0]["snapshot_memory"], "held_bytes": [tf[r]["held_bytes"] for r in ranks],
+                "peak_bytes": [tf[r]["peak_bytes"] for r in ranks], "seconds": tf[0]["seconds"]}
+    launcher_rec["rank0_snapshot_memory"] = lc["snapshot_memory"]
     check(phase_s <= CM_PHASE_S, f"coded_mesh: the phase took {phase_s:.1f} s, over {CM_PHASE_S} s")
-    return counted, {"serve": serve_rec, "launcher": launcher_rec, "train": train_rec, "launches": counted,
-                     "seconds": phase_s}
+    return counted, {"serve": serve_rec, "launcher": launcher_rec, "train": train_rec, "train_full": full_rec,
+                     "launches": counted, "seconds": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -5673,8 +5964,8 @@ def families_mesh_config() -> dict:
             ocfg = OptConfig(total_steps=2)
             St = -(-limb_count({"params": small.param_specs(), "opt": state_specs(ocfg, small.param_specs())})
                    // FM_TRAIN_K)
-            truns[FM_TRAIN_ENTRY.format(arch=arch)] = [("gf_matmul", (FM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m,
-                                                                      St))]
+            truns[FM_TRAIN_ENTRY.format(arch=arch)] = in_blocks(
+                lambda w: [("gf_matmul", (FM_TRAIN_K, tplan.ps_plan.n, tplan.ps_plan.m, w))], St, FM_TRAIN_K)
     return {"models": models, "launcher_extra": [], "train_extra": [], "small": [fm_small(a) for a, _ in FM_MODELS],
             "runs": runs, "train_runs": truns,
             "paths": [{"name": "families_mesh", "q": NTT, "runs": runs},
@@ -6175,6 +6466,47 @@ def families_mesh_phase(fcfg: dict, dev) -> tuple[dict, dict]:
     return counted, record
 
 
+# The device bytes each entry point added while its encodes ran the whole width at once (ROADMAP B1), on an NVIDIA
+# H100 80GB HBM3: phase 6's by tools/coded_snapshot_memory.py in that tree, the mesh launcher's guard as rank 0's
+# peak in this script's phase 16; the full-width train snapshot needed ~43x its 17.2 GB state and was not run
+MEMORY_BEFORE = {"CodedStateGuard.snapshot": "21.64 GB", "encode_parity_collective": "13.34 GB",
+                 "encode_parity_collective(4, 4)": "13.34 GB", "CodedServeGuard.snapshot": "17.54 GB",
+                 "CodedServeGuard.snapshot(collective=True)": "14.72 GB", "lcc_encode": "2.28 GB",
+                 CM_ENTRIES["launch"]: "27.48 GB peak on rank 0 at 28 layers", TRAIN_SNAPSHOT: "not run",
+                 CM_ENTRIES["train_full"]: "not run"}
+
+
+def memory_table(coded_cfgs: list[dict], coded: dict, trained: dict, meshed: dict) -> list[dict]:
+    """The device bytes of every entry point that encodes in column blocks,
+    from the records of phases 6, 8 and 16, each beside its bound and its
+    bytes before the blocks (``MEMORY_BEFORE``): a snapshot adds at most
+    SNAPSHOT_ADDED_MAX, an entry point that returns a tensor at most its
+    output and SNAPSHOT_ADDED_MAX, the guard on rank 0 of the mesh at most
+    the state it gathers and SNAPSHOT_ADDED_MAX. Fails the run when a row
+    passes its bound."""
+    cfg = {c["name"]: c for c in coded_cfgs}
+    out_bytes = {"encode_parity_collective": 4 * CKPT_K * cfg["coded_checkpoint"]["S"],
+                 "encode_parity_collective(4, 4)": 4 * CKPT_K * cfg["coded_checkpoint"]["S"],
+                 "lcc_encode": 4 * SQUARE_K * cfg["lcc_square"]["S"]}
+    rows = []
+
+    def row(phase, entry, mem, extra):
+        rows.append({"phase": phase, "entry": entry, **{k: mem[k] for k in ("held_bytes", "peak_bytes", "added_bytes")},
+                     "bound_bytes": extra + SNAPSHOT_ADDED_MAX, "before": MEMORY_BEFORE[entry]})
+        check(mem["added_bytes"] <= extra + SNAPSHOT_ADDED_MAX,
+              f"memory: {entry} added {mem['added_bytes']} device bytes, over {extra + SNAPSHOT_ADDED_MAX}")
+
+    for name in ("coded_checkpoint", "lcc_serve", "lcc_square"):
+        for entry, mem in coded[name]["memory"].items():
+            if entry in MEMORY_BEFORE:
+                row("coded", entry, mem, out_bytes.get(entry, 0))
+    row("train", TRAIN_SNAPSHOT, trained["full_width"]["snapshot"], 0)
+    for entry, part in ((CM_ENTRIES["launch"], "launcher"), (CM_ENTRIES["train_full"], "train_full")):
+        for mem in meshed[part]["rank0_snapshot_memory"]:
+            row("coded_mesh", entry, mem, mem["state_bytes"])
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run needs one CUDA device",
@@ -6187,7 +6519,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     say("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-        total_memory=torch.cuda.get_device_properties(0).total_memory)
+        total_memory=torch.cuda.get_device_properties(0).total_memory, mem_total=mem_total())
 
     _build.build_all()
     nvcc_version = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True,
@@ -6325,6 +6657,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     coded_mesh_launches, coded_meshed = coded_mesh_phase(cm_cfg, dev)
     say("coded_mesh", card=smi, **coded_meshed)
+    say("memory", card=smi, mem_total=mem_total(), rows=memory_table(coded_cfgs, coded, trained, coded_meshed))
 
     # phase 17: DeepSeek-V3 at full width on the 2x2 mesh, each rank drawing its own blocks, counted on the ranks
     gc.collect()

@@ -40,10 +40,10 @@ from ..core.draw_loose import encode_lagrange
 from ..core.field import NTT, Field
 from ..core.matrices import distinct_points, lagrange_matrix
 from ..core.prepare_shoot import encode_universal
-from ..core.schedule import plan_draw_loose
+from ..core.schedule import plan_constants, plan_draw_loose
 from ..dist.collectives import ps_encode
 from ..dist.ranks import ps_encode_ranks
-from .rs_checkpoint import as_residues
+from .rs_checkpoint import BlockedEncode, as_residues, encode_columns
 
 
 @dataclass(frozen=True)
@@ -126,10 +126,13 @@ def lcc_encode(plan: LCCPlan, X) -> torch.Tensor:
 
     N = K: one all-to-all encode of the Lagrange matrix via the Theorem 4
     draw-and-loose composite. N > K: one universal prepare-and-shoot encode
-    of the padded Lagrange generator over N processors."""
+    of the padded Lagrange generator over N processors. Either runs over
+    column blocks of the payload (``rs_checkpoint.encode_columns``)."""
+    X = as_residues(X)
     if plan.R == 0:
-        return encode_lagrange(as_residues(X), plan.plan_omega, plan.plan_alpha)
-    return encode_universal(lcc_pad(plan, X), lcc_generator(plan), p=plan.p, q=plan.q)
+        return encode_columns(lambda x: encode_lagrange(x, plan.plan_omega, plan.plan_alpha), X, plan.N)
+    A = plan_constants(plan, "generator", lambda: lcc_generator(plan))  # a guard encodes block by block
+    return encode_columns(lambda x: encode_universal(lcc_pad(plan, x), A, p=plan.p, q=plan.q), X, plan.N)
 
 
 def lcc_encode_collective(plan: LCCPlan, *, device=None, kernels: str | None = None):
@@ -138,9 +141,10 @@ def lcc_encode_collective(plan: LCCPlan, *, device=None, kernels: str | None = N
     schedule (``dist.collectives.ps_encode``) on one device (``None``: the
     card), the N hosts being the tensor's first axis. Input rows K..N−1 must
     be the zero padding (:func:`lcc_pad`). The multi-rank form, one host a
-    rank, is :func:`lcc_encode_ranks`."""
+    rank, is :func:`lcc_encode_ranks`. The callable runs the schedule over
+    column blocks (``rs_checkpoint.BlockedEncode``)."""
     fn, _ = ps_encode(lcc_generator(plan), p=plan.p, q=plan.q, device=device, kernels=kernels)
-    return fn
+    return BlockedEncode(fn)
 
 
 def lcc_encode_ranks(mesh, axis: str, plan: LCCPlan, *, kernels: str | None = None):

@@ -40,6 +40,7 @@ goes back to every rank whole (:func:`broadcast_state`).
 
 from __future__ import annotations
 
+import bisect
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -105,17 +106,25 @@ class LimbMeta:
     total: int
 
 
-def _leaf_limbs(arr: torch.Tensor, start: int = 0, stop: int | None = None) -> torch.Tensor:
-    """Limbs ``start:stop`` of one leaf as an ``int32`` tensor where ``arr``
-    lies: its bytes in little-endian pairs, a ``bool`` read as ``uint8``, an
-    odd byte count padded with one zero byte."""
-    if arr.dtype == torch.bool:  # a bool's byte is 0 or 1: read it as uint8
-        arr = arr.to(torch.uint8)
-    u8 = arr.contiguous().reshape(-1).view(torch.uint8)
-    u8 = u8[2 * start : None if stop is None else 2 * stop]
+def _leaf_bytes(arr: torch.Tensor) -> torch.Tensor:
+    """One leaf's bytes as a flat ``uint8`` view (a copy only when the leaf
+    is not contiguous); a ``bool``'s byte is 0 or 1, read as ``uint8``."""
+    return arr.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _pairs(u8: torch.Tensor) -> torch.Tensor:
+    """Bytes in little-endian pairs as ``int32`` limbs where they lie, an odd
+    count padded with one zero byte."""
     if u8.numel() % 2:
         u8 = torch.cat([u8, u8.new_zeros(1)])
     return u8[0::2].to(torch.int32) | (u8[1::2].to(torch.int32) << 8)
+
+
+def _leaf_limbs(arr: torch.Tensor) -> torch.Tensor:
+    """One leaf's limbs as an ``int32`` tensor where ``arr`` lies: its bytes
+    in little-endian pairs, a ``bool`` read as ``uint8``, an odd byte count
+    padded with one zero byte."""
+    return _pairs(_leaf_bytes(arr))
 
 
 def _limb_size(shape, dtype: torch.dtype) -> int:
@@ -203,11 +212,192 @@ def build_parity_plan(K: int, p: int = 1, q: int = M31) -> ParityPlan:
     return ParityPlan(K=K, p=p, q=q, A=A, ps_plan=plan_prepare_shoot(K, p))
 
 
+# ---------------------------------------------------------------------------
+# encodes in column blocks
+# ---------------------------------------------------------------------------
+
+#: Device bytes of one block's working set in a blocked encode
+#: (:func:`encode_blocks`). Every coded column depends on the same column of
+#: the input alone, so an encode run block by block gives the same result,
+#: bit for bit, and needs one block's working set beside its input and
+#: output instead of many times the whole input.
+BLOCK_BYTES = 1 << 30
+
+#: The most working-set bytes an encode of the port takes a column for each
+#: row it holds: 53-86 on the H100, 75-88 in the plain path (K = 8 to 48;
+#: ``tools/coded_snapshot_memory.py``, ``launch.op_cost.count_fn``).
+ROW_BYTES = 96
+
+
+def block_columns(rows: int) -> int:
+    """Columns of one block of an encode that holds ``rows`` rows (the more
+    of its input's and its output's): ``BLOCK_BYTES`` over ``rows`` ×
+    ``ROW_BYTES``, a multiple of 4, so that only the last block is
+    ragged."""
+    return max(4, BLOCK_BYTES // (max(rows, 1) * ROW_BYTES) // 4 * 4)
+
+
+def column_blocks(S: int, rows: int) -> list[tuple[int, int]]:
+    """``(lo, hi)`` of each column block of an S-column encode that holds
+    ``rows`` rows (one empty block when S is 0)."""
+    w = block_columns(rows)
+    return [(lo, min(lo + w, S)) for lo in range(0, S, w)] or [(0, 0)]
+
+
+def encode_blocks(encode, S: int, rows: int, read, sink) -> None:
+    """Run ``encode`` (holding ``rows`` rows) over the column blocks of an
+    S-column input: for each block ``[lo, hi)``, ``x = read(lo, hi)`` (its
+    input, its rows × (hi - lo)) and ``sink(lo, hi, x, encode(x))``, which
+    puts the block where it belongs. Nothing of a block outlives its turn
+    unless ``sink`` keeps it."""
+    for lo, hi in column_blocks(S, rows):
+        x = read(lo, hi)
+        sink(lo, hi, x, encode(x))
+        del x
+
+
+def encode_columns(encode, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """``encode(x)`` for an ``(n, *payload)`` tensor, run over column blocks
+    of its flattened payload (``rows``: the rows the encode holds, n when
+    ``None``), every block written into one output allocated once where
+    ``x`` lies. A block is handed over as a view of ``x`` (its rows lie a
+    whole row of ``x`` apart; nothing copies it first). An input of one
+    block is encoded as it is."""
+    flat = x.reshape(x.shape[0], -1)
+    S = flat.shape[1]
+    rows = flat.shape[0] if rows is None else rows
+    if S <= block_columns(rows):
+        return encode(x)
+    out = []
+
+    def sink(lo, hi, _x, y):
+        if not out:
+            out.append(y.new_empty((y.shape[0], S)))
+        out[0][:, lo:hi] = y
+
+    encode_blocks(encode, S, rows, lambda lo, hi: flat[:, lo:hi], sink)
+    return out[0].reshape((out[0].shape[0],) + tuple(x.shape[1:]))
+
+
+class BlockedEncode:
+    """An executor's ``(n, *payload)`` callable (``dist.collectives``) run
+    over column blocks (:func:`encode_columns`); its attributes (``ir``,
+    ``device``, ``kernels``, ``permutes_run``, ...) are the executor's."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, x):
+        return encode_columns(self.fn, to_tensor(x, self.fn.device))
+
+    def __getattr__(self, name):
+        if name == "fn":
+            raise AttributeError(name)
+        return getattr(self.fn, name)
+
+
+class LimbSource:
+    """The limbs of a state, read range by range from its leaves without
+    building them whole: ``read(a, b)`` is ``state_to_limbs(state)[0][a:b]``
+    (zeros past the last limb) on ``device``. Each leaf is read by its bytes
+    where it lies and only the bytes of a range move; a leaf that is not a
+    tensor is read as the reference reads it (:func:`leaf_tensor`), a
+    ``DTensor`` leaf by its full tensor (a collective call, made for every
+    leaf). With ``span=(a, b)`` only the leaves that overlap limbs ``[a, b)``
+    are kept, and only they can be read."""
+
+    def __init__(self, state, device, span: tuple[int, int] | None = None):
+        self.device = resolve_device(device)
+        self.starts = [0]
+        for size in state_meta(state).sizes_u16:
+            self.starts.append(self.starts[-1] + size)
+        self.total = self.starts[-1]
+        self.leaves = []
+        for i, leaf in enumerate(tree.leaves(state)):
+            u8 = _leaf_bytes(leaf_tensor(leaf))
+            keep = span is None or (self.starts[i] < span[1] and span[0] < self.starts[i + 1])
+            self.leaves.append(u8 if keep else None)
+
+    def read(self, a: int, b: int, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Limbs ``[a, b)`` into ``out`` ((b - a,) ``int32``, zeros where no
+        leaf lies; a new tensor when ``None``)."""
+        if out is None:
+            out = torch.zeros((b - a,), dtype=torch.int32, device=self.device)
+        i = max(bisect.bisect_right(self.starts, a) - 1, 0)
+        while i < len(self.leaves) and self.starts[i] < b:
+            lo, hi = max(a, self.starts[i]), min(b, self.starts[i + 1])
+            if lo < hi:
+                off = self.starts[i]
+                out[lo - a : hi - a] = _pairs(self.leaves[i][2 * (lo - off) : 2 * (hi - off)].to(self.device))
+            i += 1
+        return out
+
+    def block(self, K: int, S: int, lo: int, hi: int) -> torch.Tensor:
+        """Columns ``[lo, hi)`` of ``shard_state_limbs(state, K)[0]``: a
+        ``(K, hi - lo)`` ``int32`` tensor on the device."""
+        x = torch.zeros((K, hi - lo), dtype=torch.int32, device=self.device)
+        for j in range(K):
+            self.read(j * S + lo, j * S + hi, x[j])
+        return x
+
+
+class HostRows:
+    """Copies of blocks of ``int32`` device tensors into columns of host
+    ``uint32`` arrays. From a CUDA tensor a block goes through one pinned
+    staging buffer, allocated at the first copy and reused; into the array's
+    columns it is copied by PyTorch's threads (the array is written here
+    first, so its pages fault in across them)."""
+
+    def __init__(self):
+        self._stage = None
+
+    def put(self, t: torch.Tensor, dst: np.ndarray) -> None:
+        """``dst[...] = t`` (bit patterns as ``uint32``)."""
+        if t.is_cuda:
+            if self._stage is None or self._stage.numel() < t.numel():
+                self._stage = torch.empty(t.numel(), dtype=torch.int32, pin_memory=True)
+            stage = self._stage[: t.numel()].view(t.shape)
+            stage.copy_(t)
+            t = stage
+        torch.from_numpy(dst.view(np.int32)).copy_(t)
+
+
+def encode_state(state, K: int, device, encode, keep_limbs: bool,
+                 rows: int | None = None) -> tuple[np.ndarray | None, np.ndarray, LimbMeta]:
+    """A state's K limb shards (``shard_state_limbs(state, K)``) encoded
+    block by block on ``device`` into host arrays: ``(shards or None,
+    coded, meta)``. For each column block (of an encode that holds ``rows``
+    rows, K when ``None``) the limbs of its K rows are read from the leaves
+    that overlap it (:class:`LimbSource`) and encoded (``encode``: (K, w) →
+    (n, w)); the block's limbs (with ``keep_limbs``)
+    and its coded rows are copied into ``uint32`` host arrays of S columns.
+    Neither the whole limbs nor the whole coded rows ever lie on the
+    device."""
+    meta = state_meta(state)
+    src = LimbSource(state, device)
+    S = -(-meta.total // K)
+    shards = np.empty((K, S), dtype=np.uint32) if keep_limbs else None
+    coded = []
+    host = HostRows()
+
+    def sink(lo, hi, x, y):
+        if not coded:
+            coded.append(np.empty((y.shape[0], S), dtype=np.uint32))
+        if keep_limbs:
+            host.put(x, shards[:, lo:hi])
+        host.put(y, coded[0][:, lo:hi])
+
+    encode_blocks(encode, S, K if rows is None else rows, lambda lo, hi: src.block(K, S, lo, hi), sink)
+    return shards, coded[0], meta
+
+
 def encode_parity(x_limbs, plan: ParityPlan) -> torch.Tensor:
     """Single-program path: x_limbs (K, S) → (K, S) parity packets, via the
     universal algorithm (host-A Shoup path), on the device where the limbs
-    lie (a numpy array goes to the card)."""
-    return encode_universal(as_residues(x_limbs), plan.A, p=plan.p, q=plan.q, plan=plan.ps_plan)
+    lie (a numpy array goes to the card), over column blocks
+    (:func:`encode_columns`)."""
+    return encode_columns(lambda x: encode_universal(x, plan.A, p=plan.p, q=plan.q, plan=plan.ps_plan),
+                          as_residues(x_limbs))
 
 
 def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
@@ -221,7 +411,8 @@ def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
     (``ps_encode``), two sizes the two-level ``hierarchical_encode`` with
     ``k_intra = sizes[1]``, more the recursive ``multilevel_encode``. Every
     variant is bit-exact (same modular sums, reassociated). The multi-rank
-    form, one replica a rank, is :func:`encode_parity_ranks`."""
+    form, one replica a rank, is :func:`encode_parity_ranks`. The callable
+    runs the schedule over column blocks (:class:`BlockedEncode`)."""
     sizes = (plan.K,) if sizes is None else tuple(int(s) for s in sizes)
     if math.prod(sizes) != plan.K:
         raise ValueError(f"sizes {sizes} hold {math.prod(sizes)} replicas, the plan has K={plan.K}")
@@ -232,7 +423,7 @@ def encode_parity_collective(plan: ParityPlan, sizes=None, *, device=None):
         fn, _ = hierarchical_encode(plan.A, k_intra=sizes[1], **kw)
     else:
         fn, _ = multilevel_encode(plan.A, sizes, **kw)
-    return fn
+    return BlockedEncode(fn)
 
 
 def encode_parity_ranks(mesh, axes, plan: ParityPlan):
@@ -347,22 +538,12 @@ def gather_state(state, keep: bool):
 
 def state_limb_row(state, K: int, j: int, device=None) -> torch.Tensor:
     """Row ``j`` of ``shard_state_limbs(state, K)[0]`` ((S,) ``int32`` on
-    ``device``), built from the leaves that overlap it; a row past the K-th
-    is zeros (the LCC padding). Every ``DTensor`` leaf is gathered, so every
-    rank of the mesh calls it, each for its own row."""
-    dev = resolve_device(device)
-    meta = state_meta(state)
-    S = -(-meta.total // K)
-    lo, hi = j * S, (j + 1) * S
-    row = torch.zeros((S,), dtype=torch.int32, device=dev)
-    off = 0
-    for leaf, size in zip(tree.leaves(state), meta.sizes_u16):
-        t = leaf_tensor(leaf)
-        a, b = max(off, lo), min(off + size, hi)
-        if a < b:
-            row[a - lo : b - lo] = _leaf_limbs(t.to(dev), a - off, b - off)
-        off += size
-    return row
+    ``device``), read from the leaves that overlap it (:class:`LimbSource`);
+    a row past the K-th is zeros (the LCC padding). Every ``DTensor`` leaf is
+    gathered, so every rank of the mesh calls it, each for its own row."""
+    S = -(-state_meta(state).total // K)
+    span = (j * S, (j + 1) * S)
+    return LimbSource(state, device, span).read(*span)
 
 
 def on_root(fn, group, root: int):

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import functools
 import signal
 import subprocess
 import sys
@@ -63,10 +64,10 @@ from ..coded.lagrange_compute import (
 )
 from ..coded.rs_checkpoint import (
     broadcast_state,
+    encode_state,
     gather_state,
     mesh_group,
     on_root,
-    shard_state_limbs,
     state_limb_row,
     state_meta,
     unshard_state_limbs,
@@ -314,14 +315,15 @@ class CodedServeGuard:
     replay when a host died.
 
     The limbs and the encode run on ``device`` (``None``: the card;
-    ``"cpu"`` runs the plain path); the coded shards are copied to the host
-    and handed out from there. ``hosts=`` (a :class:`ProcessHostPool`)
-    stores each shard in its own OS process — the injector then delivers
-    real SIGKILLs, and externally killed hosts are detected at :meth:`poll`
-    too. ``collective=True`` runs the encode through the compiled round
-    schedule (``coded.lcc_encode_collective``) instead of the single-program
-    encode; ``kernels=`` picks that executor's LocalOp lowering, as in
-    ``dist.collectives``.
+    ``"cpu"`` runs the plain path) block of columns by block
+    (``coded.rs_checkpoint.encode_state``); the coded shards are copied to
+    the host block by block and handed out from there. ``hosts=`` (a
+    :class:`ProcessHostPool`) stores each shard in its own OS process — the
+    injector then delivers real SIGKILLs, and externally killed hosts are
+    detected at :meth:`poll` too. ``collective=True`` runs the encode through
+    the compiled round schedule (``coded.lcc_encode_collective``) instead of
+    the single-program encode; ``kernels=`` picks that executor's LocalOp
+    lowering, as in ``dist.collectives``.
 
     ``mesh=``/``axis=`` (a ``launch.mesh.RankMesh`` whose axis ``axis``
     holds N ranks over gloo) runs the encode on the ranks
@@ -414,13 +416,12 @@ class CodedServeGuard:
                 whole = gather_state(whole, keep=self._is_root())
             coded = None
             if whole is not None:
-                shards, meta = shard_state_limbs(whole, self.K, self.device)
                 if self._collective is None:
-                    coded = lcc_encode(self.plan, shards)
+                    encode = functools.partial(lcc_encode, self.plan)
                 else:  # the round schedule runs over all N hosts: pad to N rows
-                    coded = self._collective(lcc_pad(self.plan, shards))
-                coded = to_numpy(coded)
-                self._meta = meta
+                    encode = lambda x: self._collective(lcc_pad(self.plan, x))  # noqa: E731
+                _, coded, self._meta = encode_state(whole, self.K, self.device, encode, keep_limbs=False,
+                                                    rows=self.plan.N)
         self._tick = tick
         if coded is not None:
             self.group.store(coded)

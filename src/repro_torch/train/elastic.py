@@ -40,15 +40,15 @@ from ..coded.rs_checkpoint import (
     broadcast_state,
     build_parity_plan,
     encode_parity,
+    encode_state,
     gather_state,
     mesh_group,
     on_root,
     recover_lost,
-    shard_state_limbs,
     state_meta,
     unshard_state_limbs,
 )
-from ..core.field import resolve_device, to_numpy, to_tensor
+from ..core.field import resolve_device, to_tensor
 from .train_loop import place
 
 
@@ -56,7 +56,9 @@ from .train_loop import place
 class CodedStateGuard:
     """Parity of a state pytree across K replicas. The limbs and the parity
     are computed on ``device`` (``None``: the card; ``"cpu"`` runs the plain
-    path) and copied to the host, where recovery runs in numpy. On a state
+    path) block of columns by block (``coded.rs_checkpoint.encode_state``)
+    and each block copied to the host, where recovery runs in numpy: a
+    snapshot adds one block's working set on the device. On a state
     on a mesh of ranks, ``_shards`` and ``_parity`` are held by the mesh's
     first rank alone (see the module's docstring)."""
 
@@ -78,21 +80,22 @@ class CodedStateGuard:
 
     def snapshot(self, state, step: int):
         """Encode parity of the current state (call every coded_every steps).
-        On a state on a mesh of ranks every rank of the mesh calls it."""
+        On a state on a mesh of ranks every rank of the mesh calls it. The
+        last snapshot's host copies go before the new ones are made (two
+        copies of a full-width state need not fit in host memory): a snapshot
+        that raises leaves no recovery point (``step`` -1)."""
+        self._shards = self._parity = None
+        self.step = -1
         self._mesh = mesh_group(state)
         if self._mesh is not None:
             root = self._mesh[1]
             self._meta = state_meta(state)
             state = gather_state(state, keep=dist.get_rank() == root)
-            self.step = step
             if state is None:
-                self._shards = self._parity = None
+                self.step = step
                 return
-        shards, meta = shard_state_limbs(state, self.K, self.device)
-        parity = encode_parity(shards, self.plan)
-        self._shards = to_numpy(shards)
-        self._parity = to_numpy(parity)
-        self._meta = meta
+        self._shards, self._parity, self._meta = encode_state(
+            state, self.K, self.device, lambda x: encode_parity(x, self.plan), keep_limbs=True)
         self.step = step
 
     def fail_and_recover(self, lost: list[int]):

@@ -10,8 +10,11 @@ reading the reference's bf16 weights from one ``--ckpt``; and its
 ``CodedStateGuard(K=8)`` snapshot of a train state. One 4-rank world runs the
 port's cases (``port_main``, deadline 300 s); one 8-rank world the port of
 the reference's ``test_coded_serve_mesh_8_host_devices_sigkill``
-(``port_hosts``), whose first coded rows a second JAX child encodes with the
-reference's ``lcc_encode_collective`` on an 8-wide host mesh.
+(``port_hosts``, deadline 300 s), whose first coded rows a second JAX child
+encodes with the reference's ``lcc_encode_collective`` on an 8-wide host
+mesh. Alone on an 8-core CPU machine with no other load (the reference child
+run first) the 4-rank world took 44.6 s and the 8-rank world 6.9 s: each
+deadline is 6.7x and 43x its time.
 
 Tolerances: tokens equal; coded shards, parity and recovered states bit for
 bit. The one comparison that is not exact is the first snapshot's float32

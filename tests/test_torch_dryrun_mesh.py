@@ -4,7 +4,10 @@
 
 Each world runs in a process of its own (``torch_dryrun_mesh_harness``),
 side by side: four gloo ranks on CPU tensors, a fake world of four on
-``meta`` blocks, and fake worlds of 256 and 512 ranks at full width.
+``meta`` blocks, and fake worlds of 256 and 512 ranks at full width. Each
+waits under ``DEADLINE_S`` (300 s); alone on an 8-core CPU machine with no
+other load they took, in seconds: the gloo ranks 46.1, the fake world's
+families 31.0 and cases 41.3, the 256-rank world 7.6, the 512-rank 24.6.
 
 * (a) The fake count equals the real one: the float32 smoke config of each
   family (dense, MoE, MLA, Mamba, RWKV6, Whisper, InternVL2), one decode

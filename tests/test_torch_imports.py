@@ -3,9 +3,10 @@ JAX nor the JAX package, and the port's entry points refuse to run when there
 is no CUDA device instead of carrying on on the CPU.
 
 Each check runs in a fresh interpreter (this test process itself has JAX
-loaded by the other test files).
+loaded by the other test files); the entry points all run in one.
 """
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -234,13 +235,14 @@ ENTRY_POINTS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
-def test_entry_point_with_device_none_raises_without_a_card(name):
-    """``device=None`` means the card. On a machine without one the call
-    raises; it does not quietly run on the CPU. (On a machine with a card the
-    same call succeeds, and the check is that it ran there.)"""
+@pytest.fixture(scope="module")
+def entry_point_outcomes():
+    """Every entry point of :data:`ENTRY_POINTS` called with ``device=None``
+    in one fresh interpreter, one after the other, each in a namespace of its
+    own: ``{name: "raised" | "ran on the card" | the traceback of anything
+    else}``."""
     r = run_fresh(f"""
-        import tempfile
+        import json, tempfile, traceback
         import numpy as np, torch
         from repro_torch import a2a_encode, plan_for, ir_encode, ps_encode, butterfly, M31
         from repro_torch.dist import allgather_encode, hierarchical_encode, multilevel_encode
@@ -258,18 +260,35 @@ def test_entry_point_with_device_none_raises_without_a_card(name):
         from repro_torch.train import OptConfig, Prefetcher, SyntheticLM, state_specs
         A = np.arange(64, dtype=np.uint32).reshape(8, 8)
         x = np.arange(24, dtype=np.uint32).reshape(8, 3)
-        try:
-            out = {ENTRY_POINTS[name]}
-        except RuntimeError as e:
-            assert not torch.cuda.is_available(), e
-            assert "cuda" in str(e).lower(), e
-            print("raised")
-        else:
-            assert torch.cuda.is_available(), "ran without a card"
-            print("ran on the card")
+        names = dict(globals())
+        outcomes = {{}}
+        for name, call in {ENTRY_POINTS!r}.items():
+            try:
+                try:
+                    exec("out = " + call, dict(names))
+                except RuntimeError as e:
+                    assert not torch.cuda.is_available(), e
+                    assert "cuda" in str(e).lower(), e
+                    outcomes[name] = "raised"
+                else:
+                    assert torch.cuda.is_available(), "ran without a card"
+                    outcomes[name] = "ran on the card"
+            except BaseException:
+                outcomes[name] = traceback.format_exc()
+        print(json.dumps(outcomes))
     """)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert ("raised" in r.stdout) or ("ran on the card" in r.stdout)
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_with_device_none_raises_without_a_card(entry_point_outcomes, name):
+    """``device=None`` means the card. On a machine without one the call
+    raises; it does not quietly run on the CPU. (On a machine with a card the
+    same call succeeds, and the check is that it ran there.) Every entry point
+    runs in one child process (:func:`entry_point_outcomes`); each case reads
+    its own outcome."""
+    assert entry_point_outcomes[name] in ("raised", "ran on the card"), entry_point_outcomes[name]
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

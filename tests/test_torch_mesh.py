@@ -3,8 +3,9 @@
 
 One JAX child with 8 forced host devices writes the reference's outputs
 (``torch_mesh_harness.reference_outputs``); one 4-rank world runs every port
-case at once (``torch_mesh_harness.port_main``, deadline 120 s); the tests
-below assert on the results. The sharding specs are compared on a mesh made
+case at once (``torch_mesh_harness.port_main``, deadline 120 s: 4.9x the
+24.3 s it took alone on an 8-core CPU machine with no other load, the
+reference child run first); the tests below assert on the results. The sharding specs are compared on a mesh made
 by hand (only its axis names and sizes are read).
 
 Tolerances: the engine's greedy tokens are equal at float32, as the

@@ -2,9 +2,17 @@
 (data=2, model=2) mesh of four gloo ranks on the CPU.
 
 One JAX child with 8 forced host devices writes the reference's outputs
-(``torch_mesh_moe_harness.reference_outputs``); one 4-rank world runs every
-port case at once (``torch_mesh_moe_harness.port_main``, deadline
-``DEADLINE_S``); the tests below assert on the results. The sharding specs
+(``torch_mesh_moe_harness.reference_outputs``); the port's cases run in six
+groups (``torch_mesh_moe_harness.PORT_GROUPS``), each in a 4-rank world of
+its own under a deadline of its own (``DEADLINE_S``), so that a slow world
+fails only its own tests; the tests below assert on the results. Each
+deadline is at least 3x the group's world alone on an 8-core CPU machine
+with no other load (seconds, measured with ``run_ranks``, the reference child
+run first): the sharded draw 10.1 (deadline 90), ``moe_block`` 11.9 (90),
+the MLA decode 15.2 (90), the engines with the guard 37.9 (240), the train
+steps 68.2 (300), the launcher 20.5 (150); the reference child took 145.4.
+All six worlds in one, as before, took 134.7 s alone there. Under the whole
+suite in six workers they took 10.6, 10.3, 15.0, 67.8, 88.1 and 37.9 s. The sharding specs
 of Arctic and DeepSeek-V3 at full width are compared leaf by leaf on a mesh
 made by hand (only its axis names and sizes are read), under ``train_4k``,
 ``decode_32k`` and ``long_500k`` with the baseline, ``opt`` and
@@ -58,7 +66,7 @@ from torch_ranks_harness import run_ranks
 MOE_RTOL, MOE_ATOL, AUX_ATOL = 1e-5, 1e-6, 1e-6
 LOSS_ATOL, NORM_RTOL = 1e-5, 1e-5
 STEP_SLACK, STEP_TIGHT, STEP_FRACTION = 1.05, 1e-6, 0.02
-DEADLINE_S = 180.0
+DEADLINE_S = {"init": 90.0, "moe": 90.0, "mla": 90.0, "engines": 240.0, "train": 300.0, "launch": 150.0}
 
 PROFILES = {"baseline": BASELINE, "opt": OPT, "resident": profile_with("resident", moe_resident=True)}
 CASES = [f"{a}/{s}/{p}" for a, s, p in H.SPEC_CASES]
@@ -72,9 +80,40 @@ def ref(tmp_path_factory):
     return {"path": path, "dir": d, "data": data, "specs": json.loads(str(data["specs"]))}
 
 
+def world(ref, group):
+    """The results of ``group``'s own 4-rank world, under its own deadline."""
+    return run_ranks(4, "torch_mesh_moe_harness:port_main", ref["path"], ref["dir"], group,
+                     deadline=DEADLINE_S[group])
+
+
 @pytest.fixture(scope="module")
-def port(ref):
-    return run_ranks(4, "torch_mesh_moe_harness:port_main", ref["path"], ref["dir"], deadline=DEADLINE_S)
+def port_init(ref):
+    return world(ref, "init")
+
+
+@pytest.fixture(scope="module")
+def port_moe(ref):
+    return world(ref, "moe")
+
+
+@pytest.fixture(scope="module")
+def port_mla(ref):
+    return world(ref, "mla")
+
+
+@pytest.fixture(scope="module")
+def port_engines(ref):
+    return world(ref, "engines")
+
+
+@pytest.fixture(scope="module")
+def port_train(ref):
+    return world(ref, "train")
+
+
+@pytest.fixture(scope="module")
+def port_launch(ref):
+    return world(ref, "launch")
 
 
 def hand_mesh():
@@ -157,14 +196,14 @@ def test_the_expert_leaves_are_split_as_the_profiles_say(ref):
 @pytest.mark.parametrize("arch", H.ARCHS)
 @pytest.mark.parametrize("prof", ["baseline", "opt"])
 @pytest.mark.parametrize("slabs", [False, True], ids=["whole", "slabs"])
-def test_sharded_init_equals_placing_the_whole_draw(port, arch, prof, slabs):
+def test_sharded_init_equals_placing_the_whole_draw(port_init, arch, prof, slabs):
     """Each rank draws every slab and keeps its block: the same bits as the
     whole draw placed, under the default slab size and under one small
     enough that every expert leaf and the vocabulary are drawn in slabs."""
     from repro_torch.models import layers as L
 
     slab = 64 * 32 if slabs else L.SLAB_ELEMENTS
-    assert port[0]["init"][f"{arch}/{prof}/{slab}"]
+    assert port_init[0]["init"][f"{arch}/{prof}/{slab}"]
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +214,8 @@ def test_sharded_init_equals_placing_the_whole_draw(port, arch, prof, slabs):
 @pytest.mark.parametrize("arch", H.ARCHS)
 @pytest.mark.parametrize("prof", H.PROFILES)
 @pytest.mark.parametrize("form", H.FORMS)
-def test_meshed_moe_block_equals_the_reference(ref, port, arch, prof, form):
-    got, d = port[0]["moe"][f"{arch}/{prof}/{form}"], ref["data"]
+def test_meshed_moe_block_equals_the_reference(ref, port_moe, arch, prof, form):
+    got, d = port_moe[0]["moe"][f"{arch}/{prof}/{form}"], ref["data"]
     assert got["dropped"] > 0 and got["dropped"] == int(d[f"moe/{arch}/dropped"])
     assert got["placed"]
     np.testing.assert_allclose(got["y"], d[f"moe/{arch}/{form}/y"], rtol=MOE_RTOL, atol=MOE_ATOL)
@@ -184,8 +223,8 @@ def test_meshed_moe_block_equals_the_reference(ref, port, arch, prof, form):
 
 
 @pytest.mark.parametrize("prof", ["baseline", "opt"])
-def test_meshed_mla_decode_equals_the_reference_across_a_kv_block(ref, port, prof):
-    got, d = port[0]["mla"][prof], ref["data"]
+def test_meshed_mla_decode_equals_the_reference_across_a_kv_block(ref, port_mla, prof):
+    got, d = port_mla[0]["mla"][prof], ref["data"]
     assert got["split"][1] == "S(1)"  # positions over the model axis: blocks of 4, crossed at step 4
     for t in range(H.MLA_STEPS):
         np.testing.assert_allclose(got["y"][t], d[f"mla/y/{t}"], rtol=MOE_RTOL, atol=MOE_ATOL)
@@ -203,24 +242,24 @@ def test_meshed_mla_decode_equals_the_reference_across_a_kv_block(ref, port, pro
 
 @pytest.mark.parametrize("arch", H.ARCHS)
 @pytest.mark.parametrize("prof", ["baseline", "opt"])
-def test_continuous_engine_2x2_tokens_equal_the_reference(ref, port, arch, prof):
+def test_continuous_engine_2x2_tokens_equal_the_reference(ref, port_engines, arch, prof):
     want = [ref["data"][f"tokens/{arch}/{i}"].tolist() for i in range(len(H.PROMPTS))]
-    assert port[0]["engine"][f"{arch}/{prof}"] == want
-    assert all(r["engine"] == port[0]["engine"] for r in port)
+    assert port_engines[0]["engine"][f"{arch}/{prof}"] == want
+    assert all(r["engine"] == port_engines[0]["engine"] for r in port_engines)
 
 
-def test_guarded_meshed_deepseek_engine_tokens_equal_the_unguarded(ref, port):
-    g = port[0]["guarded"]
-    assert g["tokens"] == port[0]["engine"]["deepseek-v3-671b/opt"]
+def test_guarded_meshed_deepseek_engine_tokens_equal_the_unguarded(ref, port_engines):
+    g = port_engines[0]["guarded"]
+    assert g["tokens"] == port_engines[0]["engine"]["deepseek-v3-671b/opt"]
     assert g["stats"]["injected_faults"] == 1 and g["stats"]["recoveries"] >= 1
     assert 3 not in g["alive"]
-    assert all(r["guarded"]["tokens"] == g["tokens"] for r in port)
+    assert all(r["guarded"]["tokens"] == g["tokens"] for r in port_engines)
 
 
 @pytest.mark.parametrize("key", [f"{a}/{p}/{m}" for a, p, m in H.TRAIN_CASES])
-def test_train_step_on_the_mesh_equals_the_reference(ref, port, key):
+def test_train_step_on_the_mesh_equals_the_reference(ref, port_train, key):
     arch, _, mdt = key.split("/")
-    st, d, pre = port[0]["train"][key], ref["data"], f"step/{arch}/{mdt}"
+    st, d, pre = port_train[0]["train"][key], ref["data"], f"step/{arch}/{mdt}"
     assert st["kept"] and st["moments"] == {f"torch.{mdt}"}
     for k in ("loss", "ce", "aux", "mtp_ce"):
         if f"{pre}/{k}" in d:
@@ -236,7 +275,7 @@ def test_train_step_on_the_mesh_equals_the_reference(ref, port, key):
 
 
 @pytest.mark.parametrize("arch", H.ARCHS)
-def test_serve_launcher_2x2_prints_the_reference_token_lines(ref, port, arch):
+def test_serve_launcher_2x2_prints_the_reference_token_lines(ref, port_launch, arch):
     want = [s for s in json.loads(str(ref["data"][f"launch/{arch}"])) if s.startswith("cli-")]
-    got = [s for s in port[0]["launch"][arch] if s.startswith("cli-")]
+    got = [s for s in port_launch[0]["launch"][arch] if s.startswith("cli-")]
     assert len(want) == 2 and got == want

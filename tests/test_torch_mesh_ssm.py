@@ -7,7 +7,9 @@ weights from seed 0, a seeded batch); then one JAX child with 8 forced host
 devices writes the launchers' checkpoints and the reference's outputs
 (``torch_mesh_ssm_harness.reference_main``) while one 4-rank world runs
 every port case beside it (``torch_mesh_ssm_harness.port_main``, deadline
-``DEADLINE_S``); the tests below assert on the results. The sharding specs
+``DEADLINE_S``: 5.3x the 113.5 s the world took alone on an 8-core CPU
+machine with no other load, the child run first, 172.7 s); the tests below
+assert on the results. The sharding specs
 of the four models at full width are compared leaf by leaf on a mesh made by
 hand (only its axis names and sizes are read), under ``train_4k``,
 ``decode_32k`` and ``long_500k`` with the baseline and ``opt`` profiles.

@@ -10,9 +10,9 @@ one-process continuous engine and one train step of each float32 smoke
 config, and its serving launcher with ``--mesh 2x2`` on a checkpoint of the
 reference's bf16 smoke weights, which the child writes. Inputs and outputs
 go to an ``.npz``, the specs as JSON. :func:`port_main` is the port's side,
-run on every rank of one 4-rank gloo world
-(``torch_ranks_harness.run_ranks``) over the same inputs. Nothing here
-imports JAX outside the child.
+one group of cases (:data:`PORT_GROUPS`) at a time, run on every rank of a
+4-rank gloo world of the group's own (``torch_ranks_harness.run_ranks``) over
+the same inputs. Nothing here imports JAX outside the child.
 """
 
 from __future__ import annotations
@@ -240,44 +240,78 @@ def _dropped(moe_route, moe_capacity, router, x, cfg) -> int:
     return int(torch.clamp_min(load - moe_capacity(T, cfg), 0).sum())
 
 
-def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
-    """Every port case on this rank; rank 0 returns the whole results, the
-    others what every rank must agree on."""
-    import torch
+#: the port's cases in groups, each run in a 4-rank world of its own (``port_main``'s ``group``)
+PORT_GROUPS = ("init", "moe", "mla", "engines", "train", "launch")
+
+
+def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str, group: str) -> dict:
+    """The port cases of ``group`` (one of :data:`PORT_GROUPS`) on this
+    rank; rank 0 returns the whole results, the others what every rank must
+    agree on (the engines' tokens)."""
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    ref = dict(np.load(ref_path))
+    mesh = make_mesh(*MESH, device="cpu")
+    res = {"init": _port_init, "moe": _port_moe, "mla": _port_mla, "engines": _port_engines,
+           "train": _port_train, "launch": _port_launch}[group](rank, world, ref, mesh, ckpt_dir)
+    dist.barrier()
+    agreed = {k: res[k] for k in ("engine", "guarded") if k in res}
+    return _numpy(res) if rank == 0 else _numpy(agreed)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _profiles() -> dict:
+    from repro_torch.launch.profiles import BASELINE, OPT, profile_with
+
+    return {"baseline": BASELINE, "opt": OPT, "resident": profile_with("resident", moe_resident=True)}
+
+
+def _serve_rules(cfg, prof: str):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.profiles import rules_for
+
+    return rules_for(cfg, ShapeSpec(*SERVE_SHAPE), _profiles()[prof])
+
+
+def _requests():
+    from repro_torch.serve import Request
+
+    return [Request(id=f"r{i}", prompt=p, max_new_tokens=MAX_NEW) for i, p in enumerate(PROMPTS)]
+
+
+def _params_of(ref, arch: str):
+    """(model, the reference's float32 smoke weights) of ``arch``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    model = build_model(smoke_config(arch).replace(dtype="float32"))
+    return model, _leaves_from(ref, f"params/{arch}/", model.param_specs())
+
+
+def _port_init(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """``Model.init(shardings=)`` against ``place(init)``, whole leaves and in slabs."""
+    import torch
     from torch.distributed.tensor import DTensor
 
     from repro_torch import tree
     from repro_torch.configs import smoke_config
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.dist.sharding import named_sharding
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.profiles import BASELINE, OPT, profile_with, rules_for
-    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
-    from repro_torch.models import mla as MLA
-    from repro_torch.obs.metrics import MetricsRegistry
-    from repro_torch.serve import CodedServeGuard, ContinuousEngine, FaultInjector, Request
-    from repro_torch.train import OptConfig, init_state, make_train_step
-    from repro_torch.train.data import to_device
-    from repro_torch.train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
+    from repro_torch.train.train_loop import param_shardings, place
 
-    ref = dict(np.load(ref_path))
-    res: dict = {}
-    mesh = make_mesh(*MESH, device="cpu")
-    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t  # noqa: E731
-    profiles = {"baseline": BASELINE, "opt": OPT, "resident": profile_with("resident", moe_resident=True)}
-    reqs = lambda: [Request(id=f"r{i}", prompt=p, max_new_tokens=MAX_NEW) for i, p in enumerate(PROMPTS)]  # noqa: E731
-    serve_rules = lambda cfg, prof: rules_for(cfg, ShapeSpec(*SERVE_SHAPE), profiles[prof])  # noqa: E731
-
-    # Model.init(shardings=) against place(init), whole leaves and in slabs
     init = {}
     for arch in ARCHS:
         cfg = smoke_config(arch)
         model = build_model(cfg)
         for prof in ("baseline", "opt"):
-            ps = param_shardings(model, mesh, serve_rules(cfg, prof))
+            ps = param_shardings(model, mesh, _serve_rules(cfg, prof))
             for slab in (L.SLAB_ELEMENTS, 64 * 32):
                 saved, L.SLAB_ELEMENTS = L.SLAB_ELEMENTS, slab
                 try:
@@ -289,9 +323,21 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
                     isinstance(x, DTensor) and tuple(x.placements) == tuple(y.placements) and x.shape == y.shape
                     and x.to_local().is_contiguous() and torch.equal(x.to_local(), y.to_local())
                     for x, y in zip(tree.leaves(a), tree.leaves(b), strict=True))
-    res["init"] = init
+    return {"init": init}
 
-    # moe_block on the mesh, both forms, three profiles
+
+def _port_moe(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """``moe_block`` on the mesh, both forms, three profiles."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import named_sharding
+    from repro_torch.launch.profiles import rules_for
+    from repro_torch.models import layers as L
+    from repro_torch.train.train_loop import place
+
     moe = {}
     for arch in ARCHS:
         cfg = smoke_config(arch).replace(dtype="float32")
@@ -302,19 +348,31 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
         x = torch.from_numpy(ref[f"moe/{arch}/x"])
         for prof in PROFILES:
             for form in FORMS:
-                rules = rules_for(cfg, ShapeSpec("t", "train", x.shape[1], x.shape[0]), profiles[prof])
+                rules = rules_for(cfg, ShapeSpec("t", "train", x.shape[1], x.shape[0]), _profiles()[prof])
                 if form == "gather":
                     rules = rules.with_flags(["moe_gather"])
                 specs = L.moe_specs(cfg)
                 p = place(mp, _shardings(named_sharding, mesh, rules, specs, mp))
                 xd = named_sharding(mesh, rules, ("batch", "seq", "d_model"), tuple(x.shape)).place(x)
                 y, aux = L.moe_block(p, xd, cfg, L.Ctx(mesh, rules))
-                moe[f"{arch}/{prof}/{form}"] = dict(y=whole(y), aux=float(whole(aux)),
+                moe[f"{arch}/{prof}/{form}"] = dict(y=_whole(y), aux=float(_whole(aux)),
                                                     dropped=_dropped(L.moe_route, L.moe_capacity, mp["router"], x, cfg),
                                                     placed=isinstance(y, DTensor))
-    res["moe"] = moe
+    return {"moe": moe}
 
-    # the absorbed MLA decode over 8 steps, the cache split over kv_seq
+
+def _port_mla(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """The absorbed MLA decode over 8 steps, the cache split over kv_seq."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import named_sharding
+    from repro_torch.launch.profiles import rules_for
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
+    from repro_torch.train.train_loop import place
+
     mla = {}
     cfg = smoke_config(ARCHS[0]).replace(dtype="float32")
     pre = "mla/p/"
@@ -326,7 +384,7 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
         else:
             mp[k] = v
     for prof in ("baseline", "opt"):
-        rules = rules_for(cfg, ShapeSpec("d", "decode", MLA_SMAX, MLA_B), profiles[prof])
+        rules = rules_for(cfg, ShapeSpec("d", "decode", MLA_SMAX, MLA_B), _profiles()[prof])
         p = place(mp, _shardings(named_sharding, mesh, rules, MLA.mla_specs(cfg), mp))
         c0 = MLA.mla_cache_init(cfg, MLA_B, MLA_SMAX, torch.float32, "cpu")
         cache = place(c0, _shardings(named_sharding, mesh, rules, MLA.mla_cache_dims(), c0))
@@ -336,67 +394,83 @@ def port_main(rank: int, world: int, ref_path: str, ckpt_dir: str) -> dict:
                 torch.from_numpy(ref[f"mla/x/{t}"]))
             y, out = MLA.mla_decode(p, x, cfg, cache, torch.from_numpy(mla_positions(t)), L.Ctx(mesh, rules))
             assert out is cache
-            ys.append(whole(y))
-        mla[prof] = dict(y=ys, c_kv=whole(cache["c_kv"]), k_rope=whole(cache["k_rope"]),
+            ys.append(_whole(y))
+        mla[prof] = dict(y=ys, c_kv=_whole(cache["c_kv"]), k_rope=_whole(cache["k_rope"]),
                          split=[str(pl) for pl in cache["c_kv"].placements])
         # the same steps in one process, on the same values
         c1 = MLA.mla_cache_init(cfg, MLA_B, MLA_SMAX, torch.float32, "cpu")
         for t in range(MLA_STEPS):
             MLA.mla_decode(mp, torch.from_numpy(ref[f"mla/x/{t}"]), cfg, c1, torch.from_numpy(mla_positions(t)))
         mla[prof]["one"] = dict(c_kv=c1["c_kv"], k_rope=c1["k_rope"])
-    res["mla"] = mla
+    return {"mla": mla}
 
-    # the 2x2 continuous engine, float32, on the reference's weights
-    engine, params_of = {}, {}
+
+def _port_engines(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """The 2x2 continuous engine, float32, on the reference's weights; then
+    the rank form of the guard on the meshed DeepSeek-V3 engine, host 3
+    killed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import CodedServeGuard, ContinuousEngine, FaultInjector
+
+    engine = {}
     for arch in ARCHS:
-        cfg = smoke_config(arch).replace(dtype="float32")
-        model = build_model(cfg)
-        params_of[arch] = (model, _leaves_from(ref, f"params/{arch}/", model.param_specs()))
+        model, params = _params_of(ref, arch)
         for prof in ("baseline", "opt"):
-            eng = ContinuousEngine(model, params_of[arch][1], **ENGINE, mesh=mesh, rules=serve_rules(cfg, prof),
+            eng = ContinuousEngine(model, params, **ENGINE, mesh=mesh, rules=_serve_rules(model.cfg, prof),
                                    metrics=MetricsRegistry())
-            engine[f"{arch}/{prof}"] = [r.tokens for r in eng.serve(reqs(), greedy=True, sync_every=SYNC).results]
-    res["engine"] = engine
+            engine[f"{arch}/{prof}"] = [r.tokens for r in eng.serve(_requests(), greedy=True, sync_every=SYNC).results]
 
-    # the rank form of the guard on the meshed DeepSeek-V3 engine, host 3 killed
-    model, params = params_of[ARCHS[0]]
+    model, params = _params_of(ref, ARCHS[0])
     hosts = make_mesh((world,), ("hosts",), group=dist.new_group(backend="gloo"), device="cpu")
     guard = CodedServeGuard(K=RANK_K, R=RANK_R, injector=FaultInjector(kills=RANK_KILLS), mesh=hosts, axis="hosts")
-    rep = ContinuousEngine(model, params, **ENGINE, mesh=mesh, rules=serve_rules(model.cfg, "opt"),
-                           metrics=MetricsRegistry()).serve(reqs(), greedy=True, sync_every=SYNC, guard=guard)
-    res["guarded"] = dict(tokens=[r.tokens for r in rep.results], stats=rep.coded, alive=sorted(guard.alive))
+    rep = ContinuousEngine(model, params, **ENGINE, mesh=mesh, rules=_serve_rules(model.cfg, "opt"),
+                           metrics=MetricsRegistry()).serve(_requests(), greedy=True, sync_every=SYNC, guard=guard)
+    guarded = dict(tokens=[r.tokens for r in rep.results], stats=rep.coded, alive=sorted(guard.alive))
+    return {"engine": engine, "guarded": guarded}
 
-    # one train step of each smoke config on the mesh
+
+def _port_train(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """One train step of each smoke config on the mesh."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.profiles import rules_for
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.train.data import to_device
+    from repro_torch.train.train_loop import batch_shardings, opt_state_shardings, param_shardings, place
+
     steps = {}
     batch = to_device({k[len("batch/"):]: ref[k] for k in ref if k.startswith("batch/")}, "cpu")
     for arch, prof, mdt in TRAIN_CASES:
-        model, params = params_of[arch]
+        model, params = _params_of(ref, arch)
         ocfg = OptConfig(**OPT_CFG, moment_dtype=mdt)
-        rules = rules_for(model.cfg, ShapeSpec("t", "train", TRAIN_BATCH[1], TRAIN_BATCH[0]), profiles[prof])
+        rules = rules_for(model.cfg, ShapeSpec("t", "train", TRAIN_BATCH[1], TRAIN_BATCH[0]), _profiles()[prof])
         psh, osh = param_shardings(model, mesh, rules), opt_state_shardings(ocfg, model, mesh, rules)
         bsh = batch_shardings(model, mesh, rules)
         p0, s0 = place(params, psh), place(init_state(ocfg, params), osh)
         newp, news, met = make_train_step(model, ocfg, rules=rules, mesh=mesh)(
             p0, s0, place(batch, {k: bsh[k] for k in batch}))
         steps[f"{arch}/{prof}/{mdt}"] = dict(
-            params=[whole(t) for t in tree.leaves(newp)], metrics={k: float(whole(v)) for k, v in met.items()},
+            params=[_whole(t) for t in tree.leaves(newp)], metrics={k: float(_whole(v)) for k, v in met.items()},
             kept=all(tuple(a.placements) == tuple(b.placements)
                      for a, b in zip(tree.leaves((newp, news["m"], news["v"])), tree.leaves((p0, s0["m"], s0["v"])))),
             moments={str(t.dtype) for t in tree.leaves((news["m"], news["v"]))})
-    res["train"] = steps
+    return {"train": steps}
 
-    # the serving launcher with --mesh 2x2 on the reference's checkpoints (rank 0 prints)
+
+def _port_launch(rank, world, ref, mesh, ckpt_dir) -> dict:
+    """The serving launcher with --mesh 2x2 on the reference's checkpoints (rank 0 prints)."""
+    from repro_torch.launch.serve import main as serve_main
+
     launch = {}
     for arch in ARCHS:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             serve_main([*launch_argv(arch, os.path.join(ckpt_dir, arch)), "--device", "cpu"])
         launch[arch] = buf.getvalue().splitlines()
-    res["launch"] = launch
-
-    dist.barrier()
-    agreed = {k: res[k] for k in ("engine", "guarded")}
-    return _numpy(res) if rank == 0 else _numpy(agreed)
+    return {"launch": launch}
 
 
 def _shardings(named_sharding, mesh, rules, dims, values):
