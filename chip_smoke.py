@@ -1133,11 +1133,12 @@ def butterfly_table(radix: int, B: int) -> np.ndarray:
     return np.stack([b - b % radix + r for r in range(radix)]).astype(np.int32)
 
 
-def row_paths(sources, idx_np, B: int, P: int, out_ptr: int) -> set:
+def row_paths(sources, idx_np, B: int, P: int, out_ptr: int, out_stride: int | None = None) -> set:
     """The paths through the kernel that a launch's rows take: each (source
     phase, output phase) pair of 16-byte alignment (in words) that some part
-    reads at, and "head", "tail" and "body" where some row has one."""
-    out_phase = (out_ptr // 4 + np.arange(B, dtype=np.int64) * P) % 4
+    reads at, and "head", "tail" and "body" where some row has one. Output
+    rows lie ``out_stride`` words apart (P when ``None``: a dense output)."""
+    out_phase = (out_ptr // 4 + np.arange(B, dtype=np.int64) * (P if out_stride is None else out_stride)) % 4
     radix = len(sources) if idx_np is None else idx_np.shape[0]
     codes = set()
     for r in range(radix):
@@ -1183,6 +1184,31 @@ def hold_rows(sources, tw_np: np.ndarray, q: int, idx_np, what: str, reached: se
     return worst
 
 
+OUT_SENTINEL = -7  # never a residue: the words around a strided output, which no launch may write
+
+
+def hold_rows_into(sources, tw_np: np.ndarray, q: int, idx_np, what: str, reached: set, off: int, extra: int) -> int:
+    """As :func:`hold_rows`, with the output a block of columns of a wider
+    buffer filled with ``OUT_SENTINEL``: its rows ``off + P + extra`` words
+    apart, starting at word ``off``. The kernel's buffer must equal the plain
+    version's, word for word (the view and every word around it), and the
+    view the dense result."""
+    dev = sources[0].device
+    B, radix = tw_np.shape
+    P = sources[0].shape[1]
+    tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, q), dev)
+    idx = None if idx_np is None else torch.as_tensor(idx_np, device=dev)
+    bufs = [torch.full((B, off + P + extra), OUT_SENTINEL, dtype=torch.int32, device=dev) for _ in range(2)]
+    want = butterfly_mac_rows_plain(sources, tw, tw_sh, q, idx=idx, out=bufs[0][:, off : off + P])
+    got = butterfly_mac_rows_cuda(sources, tw, tw_sh, q, idx=idx, out=bufs[1][:, off : off + P])
+    dense = butterfly_mac_rows_plain(sources, tw, tw_sh, q, idx=idx)
+    around = torch.cat([bufs[0][:, :off], bufs[0][:, off + P :]], dim=1)
+    equal = same(bufs[1], bufs[0]) and same(want, dense) and bool((around == OUT_SENTINEL).all())
+    check(equal, f"butterfly_mac_rows into a strided output != plain at {what}, q={q}")
+    reached |= row_paths(sources, idx_np, B, P, got.data_ptr(), got.stride(0) if B > 1 else None)
+    return 0 if equal else max_abs_err(got, dense)
+
+
 def check_butterfly_rows(dev) -> tuple[int, int, set]:
     """The row form at every path it has: every (source, output) pair of
     16-byte phases (sources that are views at word offsets 0-3 with rows P +
@@ -1226,6 +1252,16 @@ def check_butterfly_rows(dev) -> tuple[int, int, set]:
     worst = max(worst, hold_rows(srcs, twiddles(3, MAX_SOURCES, NTT), NTT, None, "radix at the cap", reached,
                                  host=True))
     cases += 1
+    for P in (4100, 4097):  # outputs written through a row stride: every output phase by offset and stride
+        q = M31 if P % 2 else NTT
+        shared = rand_residues((12, P), q, dev, seed=7050 + P)
+        for off in range(4):
+            for extra in (1, 2, 3):
+                idx = rng.integers(0, 12, size=(2, 9)).astype(np.int32)
+                worst = max(worst, hold_rows_into([shared], twiddles(9, 2, q), q, idx,
+                                                  f"output rows {off + P + extra} apart from word {off}, P={P}",
+                                                  reached, off, extra))
+                cases += 1
     for P in (1, 2, 3, 5, 6, 7):  # rows of head and tail, with a body of at most one chunk
         x = rand_residues((6, P), M31, dev, seed=7400 + P)
         worst = max(worst, hold_rows([x], twiddles(5, 2, M31), M31, rng.integers(0, 6, size=(2, 5)).astype(np.int32),
@@ -1243,8 +1279,18 @@ def check_butterfly_rows(dev) -> tuple[int, int, set]:
                                  np.array([[2, 0, 1], [1, 2, 2]], dtype=np.int32),
                                  "source rows 2^30 + 1 words apart", reached))
     worst = max(worst, hold_rows([X], twiddles(3, 1, M31), M31, None, "output of 3 x (2^30 + 1)", reached))
-    cases += 2
-    del X
+    # and an output whose rows lie 2^30 + 1 words apart: columns of X's rows
+    small = rand_residues((3, 4099), M31, dev, seed=7601)
+    tw_np = twiddles(3, 1, M31)
+    tw, tw_sh = to_tensor(tw_np, dev), to_tensor(shoup_precompute(tw_np, M31), dev)
+    X[:, 4099:4115] = OUT_SENTINEL
+    butterfly_mac_rows_cuda([small], tw, tw_sh, M31, out=X[:, :4099])
+    want = butterfly_mac_rows_plain([small], tw, tw_sh, M31)
+    equal = same(X[:, :4099], want) and bool((X[:, 4099:4115] == OUT_SENTINEL).all())
+    check(equal, "butterfly_mac_rows into output rows 2^30 + 1 words apart != plain")
+    worst = max(worst, 0 if equal else max_abs_err(X[:, :4099], want))
+    cases += 3
+    del X, small, want
     torch.cuda.empty_cache()
     want = {(sp, op) for sp in range(4) for op in range(4)} | {"head", "body", "tail"}
     check(want <= reached, f"butterfly_mac_rows' checks missed the paths {sorted(want - reached, key=str)}")
@@ -1312,6 +1358,13 @@ def check_butterfly_mac(dev, shapes: list) -> dict:
         got = butterfly_mac_rows_cuda(srcs, tw, tw_sh, q, idx=idx)
         err = max_abs_err(got, want)
         check(same(got, want), f"butterfly_mac_rows != plain at the main-path shape {(radix, B, Pn, rows)}, q={q}")
+        wide = None
+        if any(w.startswith("lcc_square") for w in who):  # a column block's last round: into the output's columns
+            wide = torch.full((B, 3 * Pn + 6), OUT_SENTINEL, dtype=torch.int32, device=dev)
+            view = wide[:, Pn + 2 : 2 * Pn + 2]
+            butterfly_mac_rows_cuda(srcs, tw, tw_sh, q, idx=idx, out=view)
+            check(same(view, want) and int((wide != OUT_SENTINEL).sum()) <= B * Pn,
+                  f"butterfly_mac_rows into the output's columns != plain at {(radix, B, Pn, rows)}, q={q}")
         del got, want
         # the bound reads each input once: the rows the table names (a DFT
         # round reads each of its B rows for radix outputs), the twiddles and
@@ -1328,6 +1381,11 @@ def check_butterfly_mac(dev, shapes: list) -> dict:
             **bound(nbytes, 2 * radix * B * Pn),
         }
         record["share_of_bound"] = record["bound_ms"] / record["ms"]
+        if wide is not None:
+            record["into_columns_ms"] = kernel_ms(
+                [butterfly_mac_rows_launcher(x, tw, tw_sh, q, idx=idx, out=view)[0] for x in inputs])
+            record["into_columns_row_stride"] = int(view.stride(0))
+            del wide, view
         at_shapes.append(record)
         del launchers
         del srcs, inputs
@@ -1571,21 +1629,17 @@ def is_narrowing(name: str) -> bool:
     return "direct_copy_kernel_cuda" in name and "LoadWithCast" in name and "lambda(int)" in name
 
 
-def check_not_fed(what: str, profile: dict, scales: int, blocks: int = 1):
+def check_not_fed(what: str, profile: dict, scales: int):
     """The encode's ``butterfly_mac`` launches read their parts where they
     lie: on the device timeline no gather and no copy runs just before one
-    (the row form's callers build no ``(radix, B, P)`` stack), but for the
-    int64 -> int32 narrowing (``is_narrowing``) that ends each of the
-    encode's ``scales`` local scales a run, just before a loose step: it is
-    the scale's own output. An encode in ``blocks`` column blocks stores
-    each block's output into its columns of the result (a copy) just before
-    the next block's first ``butterfly_mac``, and the last block's just
-    before the next run's: ``blocks x ENCODE_REPS - 1`` such copies, and no
-    other."""
+    (the row form's callers build no ``(radix, B, P)`` stack, and a blocked
+    encode's last round writes its block's columns of the output, so no
+    store follows it), but for the int64 -> int32 narrowing
+    (``is_narrowing``) that ends each of the encode's ``scales`` local scales
+    a run, just before a loose step: it is the scale's own output."""
     fed = profile["butterfly_mac_fed_by"]
-    stores = blocks * ENCODE_REPS - 1 if blocks > 1 else 0
     check(sum(fed.values()) > 0, f"{what}: the profile saw no butterfly_mac launch")
-    check(not fed.get("gathers") and fed.get("copies", 0) <= stores and fed.get("narrowing", 0) <= scales * ENCODE_REPS,
+    check(not fed.get("gathers") and not fed.get("copies") and fed.get("narrowing", 0) <= scales * ENCODE_REPS,
           f"{what}: a gather or a copy feeds butterfly_mac ({fed}; {profile['butterfly_mac_fed_by_names']})")
 
 
@@ -1658,6 +1712,7 @@ def traced_phase(cfg: dict, dev, P: int) -> dict:
 D_MODEL, N_HEADS, N_KV_HEADS, HEAD_DIM, D_FF, N_LAYERS = 2048, 16, 8, 128, 6144, 28
 SERVE_SLOTS, SERVE_POSITIONS = 4, 1024  # the KV cache the serving guard protects
 CKPT_K, CKPT_LOST = 16, [1, 4, 6]  # K of benchmarks/bench_coded_ckpt.py
+CKPT_STEP, CKPT_RAISE_AT = 3, 3  # the snapshot's step; the column block a second snapshot raises at
 SERVE_K, SERVE_R, SERVE_KILLS = 6, 2, ((1, 3), (2, 0))  # tests/test_coded_serve.py:278, (tick, host) kills
 SQUARE_K = 48  # 3 x 16: draw-and-loose with both a draw and a loose phase
 # lcc_square's cache is cut to this many layers, for time: its host numpy lcc_decode from 48 took
@@ -1824,6 +1879,49 @@ def timed(module, name: str, sink: list):
         setattr(module, name, fn)
 
 
+def snapshot_that_raises(name: str, guard, cfg: dict, dev) -> dict:
+    """A second snapshot, of another state, made to raise at its
+    CKPT_RAISE_AT-th column block (``elastic.encode_parity`` wrapped here):
+    the guard must keep its step and arrays (the host holds both,
+    ``elastic.host_holds_both``), so that the recovery that follows is of the
+    last snapshot. Its launches are a check's, not the main path's: the
+    counts are put back."""
+    other = make_state(cfg["spec"], dev, cfg["seed"] + 1)
+    blocks = len(column_blocks(cfg["S"], cfg["K"]))
+    need = 2 * guard._shards.nbytes
+    keep, available = elastic.host_holds_both(need)
+    check(keep, f"{name}: the host cannot hold two snapshots of {need:,} bytes (MemAvailable {available})")
+    real, calls = elastic.encode_parity, [0]
+
+    def encode_parity(x, plan):
+        calls[0] += 1
+        if calls[0] == CKPT_RAISE_AT:
+            raise MemoryError(f"block {CKPT_RAISE_AT} of {blocks}, made to raise")
+        return real(x, plan)
+
+    counts = launches()
+    shards, parity = guard._shards, guard._parity
+    elastic.encode_parity = encode_parity
+    t0 = time.perf_counter()
+    try:
+        guard.snapshot(other, step=CKPT_STEP + 1)
+        raised = None
+    except MemoryError as e:
+        raised = str(e)
+    finally:
+        elastic.encode_parity = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gf_matmul_cuda.launches, butterfly_mac_rows_cuda.launches = counts
+    check(raised is not None and calls[0] == CKPT_RAISE_AT and blocks > CKPT_RAISE_AT,
+          f"{name}: the second snapshot did not raise at block {CKPT_RAISE_AT} of {blocks} ({calls[0]} calls)")
+    check(guard.step == CKPT_STEP and guard._shards is shards and guard._parity is parity,
+          f"{name}: a snapshot that raised did not keep the last one (step {guard.step})")
+    del other
+    return {"raised_at_block": CKPT_RAISE_AT, "blocks": blocks, "kept_step": guard.step, "new_bytes": need,
+            "mem_available": available, "seconds": seconds}
+
+
 def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
     """``CodedStateGuard(K=16)``: snapshot, the parity through the three
     entry points, the plain and host-oracle checks, and the recovery of three
@@ -1834,8 +1932,9 @@ def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
     guard = CodedStateGuard(K=K, device=dev)
     before = launches()
     with peak_of(peaks, "CodedStateGuard.snapshot"):
-        guard.snapshot(state, step=1)
+        guard.snapshot(state, step=CKPT_STEP)
     counted = {"CodedStateGuard.snapshot": check_launches(name, "snapshot", before, runs["CodedStateGuard.snapshot"])}
+    raised = snapshot_that_raises(name, guard, cfg, dev)
     shards, _ = shard_state_limbs(state, K, dev)
     check(shards.is_cuda and tuple(shards.shape) == (K, cfg["S"]), f"{name}: shards {tuple(shards.shape)}")
     check(np.array_equal(to_numpy(shards), guard._shards), f"{name}: the guard's shards differ from the limbs")
@@ -1859,7 +1958,9 @@ def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
         recovered, step = guard.fail_and_recover(CKPT_LOST)
         torch.cuda.synchronize()
         recover_ms = (time.perf_counter() - t0) * 1e3
-    check(step == 1 and same_bits(recovered, state), f"{name}: fail_and_recover({CKPT_LOST}) is not bit-exact")
+    check(step == CKPT_STEP and same_bits(recovered, state),
+          f"{name}: fail_and_recover({CKPT_LOST}) after a snapshot that raised is not the step-{CKPT_STEP} state, "
+          f"bit for bit (step {step})")
     del recovered, parity
     record = {
         "K": K, "q": M31, "c1": plan.c1, "c2": plan.c2, "state_bytes": spec_bytes(cfg["spec"]),
@@ -1867,7 +1968,7 @@ def drive_coded_checkpoint(cfg: dict, dev) -> tuple[dict, dict]:
         "launches": counted, "memory": peaks,
         "checked_columns": {"plain_on_card": cfg["S"], "host_oracle": n_cols},
         "lost": CKPT_LOST, "recover_ms": recover_ms, "recover_lost_host_numpy_ms": host_ms[0],
-        "overhead_elements": guard.overhead_elements,
+        "overhead_elements": guard.overhead_elements, "snapshot_that_raises": raised,
     }
     flat = encode_parity_collective(plan, device=dev)
     timers = {"CodedStateGuard.snapshot": lambda: guard.snapshot(state, step=1),
@@ -2019,7 +2120,7 @@ def coded_phase(cfgs: list[dict], dev) -> tuple[dict, dict]:
                              for entry, run in entries.items()}
         if name == "lcc_square":  # the forward encode's scale, once a column block
             nb = len(column_blocks(S_of[name], SQUARE_K))
-            check_not_fed(f"{name}/lcc_encode", record["profile"]["lcc_encode"], nb, blocks=nb)
+            check_not_fed(f"{name}/lcc_encode", record["profile"]["lcc_encode"], nb)
         timers[name] = None
         torch.cuda.empty_cache()
     return counted, records
@@ -2522,6 +2623,14 @@ def train_full_width(tcfg: dict, dev) -> dict:
           f"train: the snapshot added {snap.get('added_bytes')} device bytes, over {SNAPSHOT_ADDED_MAX}")
     snap.update(check_snapshot("train/snapshot", guard, state, tcfg["full"], dev, every=TRAIN_SHARD_EVERY),
                 host_bytes=guard._shards.nbytes + guard._parity.nbytes, mem_total=mem_total())
+    # what a second snapshot would decide: keep this one while it makes its
+    # arrays, or drop it first (no second full-width snapshot is run)
+    keep, available = elastic.host_holds_both(snap["host_bytes"])
+    snap["next_snapshot"] = {"new_bytes": snap["host_bytes"], "mem_available": available,
+                             "margin": elastic.HOST_MARGIN, "keeps_the_last": keep}
+    print(f"train: a second full-width snapshot needs {snap['host_bytes']:,} new host bytes beside "
+          f"MemAvailable {available if available is None else f'{available:,}'} (margin {elastic.HOST_MARGIN:,}): "
+          f"{'keeps' if keep else 'drops'} the last one first", flush=True)
     del guard
     run["guard"] = None
     cfg = model.cfg
@@ -5160,7 +5269,37 @@ def cm_train(rank: int, dev, mcfg: dict) -> dict:
         and a.to_local().shape == b.to_local().shape
         and same(a.to_local().reshape(-1).view(torch.uint8), b.to_local().reshape(-1).view(torch.uint8))
         for a, b in zip(tree.leaves(placed), tree.leaves(final)))
+    rec["raise"] = cm_train_raise(rank, g, final, back)
     return rec
+
+
+def cm_train_raise(rank: int, g, state, back) -> dict:
+    """(d), a raise on the root: one more snapshot of ``state`` with rank
+    0's encode made to raise (``elastic.encode_parity`` wrapped on rank 0
+    alone). Every rank must raise, keep the last snapshot's step and recover
+    ``back`` (the last snapshot's recovery) bit for bit: this rank's error,
+    step, recovered step and whether its recovery equals ``back``."""
+    real = elastic.encode_parity
+
+    def fail(*args, **kwargs):
+        raise MemoryError("the root's encode, made to raise")
+
+    t0 = time.perf_counter()
+    if rank == 0:
+        elastic.encode_parity = fail
+    try:
+        g.snapshot(state, g.step + 1)
+        raised = None
+    except Exception as e:  # every rank's error, checked by the parent
+        raised = f"{type(e).__name__}: {e}"
+    finally:
+        elastic.encode_parity = real
+    again, step = g.fail_and_recover(CM_TRAIN_LOST)
+    equal = all(a.dtype == b.dtype and a.shape == b.shape
+                and same(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                for a, b in zip(tree.leaves(again), tree.leaves(back)))
+    return {"raised": raised, "step": g.step, "recovered_step": step, "recovered_equal": equal,
+            "seconds": time.perf_counter() - t0}
 
 
 def cm_train_full(rank: int, dev, mcfg: dict) -> dict:
@@ -5395,6 +5534,12 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
           "coded_mesh/train: fail_and_recover + reshard_state is not bit-exact on every rank")
     check(tr[0]["holds"] and not any(tr[r]["holds"] for r in ranks if r),
           "coded_mesh/train: rank 0 alone must hold the shards")
+    raised = [tr[r]["raise"] for r in ranks]
+    check(raised[0]["raised"] == "MemoryError: the root's encode, made to raise"
+          and all(x["raised"] == "RuntimeError: the coded snapshot failed on rank 0" for x in raised[1:]),
+          f"coded_mesh/train: a raise in rank 0's encode was not told to every rank: {[x['raised'] for x in raised]}")
+    check(all(x["step"] == x["recovered_step"] == CM_TRAIN_STEPS - 1 and x["recovered_equal"] for x in raised),
+          f"coded_mesh/train: after the raise a rank lost the last snapshot or recovered another state: {raised}")
     check(tr[0]["width"] == mcfg["S"]["train"],
           f"coded_mesh/train: shards {tr[0]['width']} limbs wide, not {mcfg['S']['train']}")
     want = count_calls(mcfg["runs"]["train"])
@@ -5410,7 +5555,8 @@ def coded_mesh_phase(mcfg: dict, dev) -> tuple[dict, dict]:
                  "shard_limbs": tr[0]["width"], "one_process_equal": True, "reshard_bit_equal": True,
                  "snapshot_ms": {r: tr[r]["snapshot_ms"] for r in ranks}, "recover_ms": [tr[r]["recover_ms"] for r in ranks],
                  "held_bytes": [tr[r]["held_bytes"] for r in ranks], "peak_bytes": [tr[r]["peak_bytes"] for r in ranks],
-                 "seconds": tr[0]["seconds"]}
+                 "seconds": tr[0]["seconds"], "raise_on_root": {"kept_step": raised[0]["step"], "recovered_equal": True,
+                                                               "seconds": [x["seconds"] for x in raised]}}
 
     # (d') the train guard over the meshed full-width state, one layer
     tf = results["train_full"]

@@ -127,12 +127,14 @@ def lcc_encode(plan: LCCPlan, X) -> torch.Tensor:
     N = K: one all-to-all encode of the Lagrange matrix via the Theorem 4
     draw-and-loose composite. N > K: one universal prepare-and-shoot encode
     of the padded Lagrange generator over N processors. Either runs over
-    column blocks of the payload (``rs_checkpoint.encode_columns``)."""
+    column blocks of the payload (``rs_checkpoint.encode_columns``), each
+    block's last step writing into its columns of the output."""
     X = as_residues(X)
     if plan.R == 0:
-        return encode_columns(lambda x: encode_lagrange(x, plan.plan_omega, plan.plan_alpha), X, plan.N)
+        return encode_columns(lambda x, out: encode_lagrange(x, plan.plan_omega, plan.plan_alpha, out=out), X)
     A = plan_constants(plan, "generator", lambda: lcc_generator(plan))  # a guard encodes block by block
-    return encode_columns(lambda x: encode_universal(lcc_pad(plan, x), A, p=plan.p, q=plan.q), X, plan.N)
+    return encode_columns(lambda x, out: encode_universal(lcc_pad(plan, x), A, p=plan.p, q=plan.q, out=out), X,
+                          plan.N)
 
 
 def lcc_encode_collective(plan: LCCPlan, *, device=None, kernels: str | None = None):

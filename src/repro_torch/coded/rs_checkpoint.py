@@ -256,39 +256,46 @@ def encode_blocks(encode, S: int, rows: int, read, sink) -> None:
         del x
 
 
-def encode_columns(encode, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
-    """``encode(x)`` for an ``(n, *payload)`` tensor, run over column blocks
-    of its flattened payload (``rows``: the rows the encode holds, n when
-    ``None``), every block written into one output allocated once where
-    ``x`` lies. A block is handed over as a view of ``x`` (its rows lie a
-    whole row of ``x`` apart; nothing copies it first). An input of one
-    block is encoded as it is."""
+def encode_columns(encode, x: torch.Tensor, n_out: int | None = None) -> torch.Tensor:
+    """``encode(x)`` for an ``(n, *payload)`` tensor with an ``(n_out,
+    *payload)`` result (``n_out``: n when ``None``), run over column blocks
+    of its flattened payload (of an encode that holds max(n, n_out) rows),
+    every block written into one output allocated once where ``x`` lies.
+    ``encode(block, out)`` gets each block as a view of ``x`` (its rows lie a
+    whole row of ``x`` apart; nothing copies it first) and ``out``, the
+    block's columns of the output (its rows a whole output row apart), and
+    writes its result there; a result it returns that is not ``out`` is
+    stored into it. An input of one block is encoded as it is, with ``out``
+    ``None``."""
     flat = x.reshape(x.shape[0], -1)
     S = flat.shape[1]
-    rows = flat.shape[0] if rows is None else rows
-    if S <= block_columns(rows):
-        return encode(x)
-    out = []
-
-    def sink(lo, hi, _x, y):
-        if not out:
-            out.append(y.new_empty((y.shape[0], S)))
-        out[0][:, lo:hi] = y
-
-    encode_blocks(encode, S, rows, lambda lo, hi: flat[:, lo:hi], sink)
-    return out[0].reshape((out[0].shape[0],) + tuple(x.shape[1:]))
+    n_out = flat.shape[0] if n_out is None else n_out
+    blocks = column_blocks(S, max(flat.shape[0], n_out))
+    if len(blocks) == 1:
+        return encode(x, None)
+    out = flat.new_empty((n_out, S))
+    for lo, hi in blocks:
+        dst = out[:, lo:hi]
+        y = encode(flat[:, lo:hi], dst)
+        if y is not dst:
+            dst.copy_(y)
+        del y  # not held through the next block's encode
+    return out.reshape((n_out,) + tuple(x.shape[1:]))
 
 
 class BlockedEncode:
     """An executor's ``(n, *payload)`` callable (``dist.collectives``) run
     over column blocks (:func:`encode_columns`); its attributes (``ir``,
-    ``device``, ``kernels``, ``permutes_run``, ...) are the executor's."""
+    ``device``, ``kernels``, ``permutes_run``, ...) are the executor's. Each
+    block's result is stored into its columns of the output: no step of the
+    executor writes into a tensor that exists before it (what keeps its
+    overlap stream safe, ``dist.collectives.ir_encode``)."""
 
     def __init__(self, fn):
         self.fn = fn
 
     def __call__(self, x):
-        return encode_columns(self.fn, to_tensor(x, self.fn.device))
+        return encode_columns(lambda block, _out: self.fn(block), to_tensor(x, self.fn.device))
 
     def __getattr__(self, name):
         if name == "fn":
@@ -395,8 +402,9 @@ def encode_parity(x_limbs, plan: ParityPlan) -> torch.Tensor:
     """Single-program path: x_limbs (K, S) → (K, S) parity packets, via the
     universal algorithm (host-A Shoup path), on the device where the limbs
     lie (a numpy array goes to the card), over column blocks
-    (:func:`encode_columns`)."""
-    return encode_columns(lambda x: encode_universal(x, plan.A, p=plan.p, q=plan.q, plan=plan.ps_plan),
+    (:func:`encode_columns`), each block's last shoot round summing into its
+    columns of the output."""
+    return encode_columns(lambda x, out: encode_universal(x, plan.A, p=plan.p, q=plan.q, plan=plan.ps_plan, out=out),
                           as_residues(x_limbs))
 
 
@@ -546,11 +554,12 @@ def state_limb_row(state, K: int, j: int, device=None) -> torch.Tensor:
     return LimbSource(state, device, span).read(*span)
 
 
-def on_root(fn, group, root: int):
+def on_root(fn, group, root: int, what: str = "the coded state's recovery"):
     """``fn()`` on the rank ``root`` of ``group`` alone, its outcome told to
     every rank (a collective call): root gets what ``fn`` returned and
     every other rank ``None``; when ``fn`` raises, root raises its error and
-    every other rank a ``RuntimeError`` naming root."""
+    every other rank a ``RuntimeError`` saying that ``what`` failed on
+    root."""
     out, err = None, None
     if dist.get_rank() == root:
         try:
@@ -562,7 +571,7 @@ def on_root(fn, group, root: int):
     if err is not None:
         raise err
     if int(failed[0]):
-        raise RuntimeError(f"the coded state's recovery failed on rank {root}")
+        raise RuntimeError(f"{what} failed on rank {root}")
     return out
 
 

@@ -72,19 +72,23 @@ def _butterfly_constants(plan: ButterflyPlan, inverse: bool, dev: torch.device, 
     return plan_constants(plan, ("butterfly", inverse, dev, groups), make)
 
 
-def _butterfly_rows(rows: torch.Tensor, plan: ButterflyPlan, inverse: bool, groups: int = 1) -> torch.Tensor:
+def _butterfly_rows(rows: torch.Tensor, plan: ButterflyPlan, inverse: bool, groups: int = 1,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """``groups`` butterflies over the ``(groups·K, P)`` rows, group-major:
     one ``butterfly_mac_rows`` a round, reading the last round's rows through
-    the round's table. Returns a new ``(groups·K, P)`` tensor."""
+    the round's table. The last round writes into ``out`` (a ``(groups·K,
+    P)`` tensor, columns contiguous, rows any stride apart), or a new tensor
+    when ``None``; returns it."""
     # imported here: the kernel package itself imports core.field
     from ..kernels.butterfly.ops import butterfly_mac_rows
 
     if rows.numel() == 0:
-        return rows.clone()
+        return rows.clone() if out is None else out
     consts = _butterfly_constants(plan, inverse, rows.device, groups)
-    for t in range(plan.H - 1, -1, -1) if inverse else range(plan.H):
+    order = list(range(plan.H - 1, -1, -1) if inverse else range(plan.H))
+    for t in order:
         tw, tw_sh, idx = consts[t]
-        rows = butterfly_mac_rows((rows,), tw, tw_sh, q=plan.q, idx=idx)
+        rows = butterfly_mac_rows((rows,), tw, tw_sh, q=plan.q, idx=idx, out=out if t == order[-1] else None)
     return rows
 
 
@@ -109,10 +113,10 @@ def decode_dft(y: torch.Tensor, plan: ButterflyPlan) -> torch.Tensor:
     return butterfly_apply(y, plan, inverse=True)
 
 
-def _scale(v: torch.Tensor, plan: DrawLoosePlan, inverse: bool = False) -> torch.Tensor:
+def _scale(v: torch.Tensor, plan: DrawLoosePlan, inverse: bool = False, out=None) -> torch.Tensor:
     """v[i, j] · local_scale[i, j] (or its inverse): a (K,) host constant laid
     out as (M, Z), uploaded with its Shoup dual once for each (plan,
-    direction, device)."""
+    direction, device). Written into ``out`` (``v``'s shape) when given."""
     q = plan.q
 
     def make():
@@ -124,14 +128,20 @@ def _scale(v: torch.Tensor, plan: DrawLoosePlan, inverse: bool = False) -> torch
 
     c, c_sh = plan_constants(plan, ("scale", inverse, v.device), make)
     npay = v.ndim - 2
-    return shoup_mul(v, _bcast(c, npay), _bcast(c_sh, npay), q)
+    return shoup_mul(v, _bcast(c, npay), _bcast(c_sh, npay), q, out=out)
 
 
-def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
+def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan, out: torch.Tensor | None = None) -> torch.Tensor:
     """Computes x @ G with G = Vandermonde(points)[source_perm, :]
-    (draw_loose_target_matrix). x: (K, *payload)."""
+    (draw_loose_target_matrix). x: (K, *payload). The last step (the loose
+    step's last round, or the local scale where there is no loose step)
+    writes into ``out`` when given: a ``(K, *payload)`` tensor whose payload
+    lies contiguous within a row and whose rows may be any stride apart (a
+    block of columns of a wider output). Returns the result (``out`` when
+    given)."""
     K, M, Z, q = plan.K, plan.M, plan.Z, plan.q
     payload = x.shape[1:]
+    P = math.prod(payload)
     v = x.reshape(M, Z, *payload)  # processor j + Z*i → [i, j]
 
     # ---- draw: Z parallel M×M prepare-and-shoots (batched over j) ---------
@@ -141,12 +151,16 @@ def encode_draw_loose(x: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
     else:
         F = v
     # local scale α_i^{rev(j)} (no communication)
+    if plan.loose_plan is None:
+        F = _scale(F, plan, out=None if out is None else out.view(M, Z, *payload))
+        return F.reshape(K, *payload) if out is None else out
     F = _scale(F, plan)
 
     # ---- loose: M parallel Z-point butterflies (batched over i) -----------
-    if plan.loose_plan is not None:  # the rows j + Z*i of F, in their own order
-        F = _butterfly_rows(F.reshape(K, math.prod(payload)), plan.loose_plan, False, groups=M)
-    return F.reshape(K, *payload)
+    # the rows j + Z*i of F, in their own order
+    F = _butterfly_rows(F.reshape(K, P), plan.loose_plan, False, groups=M,
+                        out=None if out is None else out.view(K, P))
+    return F.reshape(K, *payload) if out is None else out
 
 
 def decode_draw_loose(y: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
@@ -168,13 +182,15 @@ def decode_draw_loose(y: torch.Tensor, plan: DrawLoosePlan) -> torch.Tensor:
 
 
 def encode_lagrange(
-    x: torch.Tensor, plan_omega: DrawLoosePlan, plan_alpha: DrawLoosePlan
+    x: torch.Tensor, plan_omega: DrawLoosePlan, plan_alpha: DrawLoosePlan, out: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Theorem 4: processors hold point-values f(ω'_k) of an implicit degree-
     (K-1) polynomial (ω' = plan_omega.points); each obtains f(α'_k)
     (α' = plan_alpha.points). The source permutations of the two plans cancel
     (same K, p, q ⇒ same digit-reversal), so the composite computes the TRUE
     Lagrange matrix lagrange_matrix(field, plan_alpha.points, plan_omega.points).
+    The forward encode's last step writes into ``out`` when given (see
+    :func:`encode_draw_loose`).
     """
     if (plan_omega.K, plan_omega.p, plan_omega.q) != (
         plan_alpha.K,
@@ -183,7 +199,7 @@ def encode_lagrange(
     ):
         raise ValueError("plans must share (K, p, q)")
     coeffs = decode_draw_loose(x, plan_omega)
-    return encode_draw_loose(coeffs, plan_alpha)
+    return encode_draw_loose(coeffs, plan_alpha, out=out)
 
 
 __all__ = [

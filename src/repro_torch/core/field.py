@@ -275,10 +275,15 @@ def _wide(x):
     return int(x) & _MASK32
 
 
-def _narrow(v):
-    """An ``int64`` value in ``[0, 2**32)`` as its ``int32`` bit pattern."""
+def _narrow(v, out=None):
+    """An ``int64`` value in ``[0, 2**32)`` as its ``int32`` bit pattern,
+    written into ``out`` (an ``int32`` tensor of its shape, any strides) when
+    given: the subtraction's result is cast as it is stored, with no copy
+    after it."""
     if not isinstance(v, torch.Tensor):
         v = torch.as_tensor(v, dtype=torch.int64)
+    if out is not None:
+        return torch.sub(v ^ 0x80000000, 0x80000000, out=out)
     return ((v ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
@@ -331,15 +336,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return _word(t).detach().cpu().contiguous().numpy().view(np.uint32)
 
 
-def _csub(s, q: int):
-    """``s - q`` where the unsigned value of ``s`` is ``>= q`` (q < 2**31)."""
-    return torch.where((s < 0) | (s >= q), s - q, s)
+def _csub(s, q: int, out=None):
+    """``s - q`` where the unsigned value of ``s`` is ``>= q`` (q < 2**31),
+    into ``out`` when given."""
+    return torch.where((s < 0) | (s >= q), s - q, s, out=out)
 
 
-def madd(a, b, q: int):
-    """(a + b) mod q for canonical a, b < q < 2^31. Sum < 2^32: no overflow."""
+def madd(a, b, q: int, out=None):
+    """(a + b) mod q for canonical a, b < q < 2^31. Sum < 2^32: no overflow.
+    Written into ``out`` (an ``int32`` tensor of the result's shape, any
+    strides; it may be ``a``) when given."""
     a, b = _words(a, b)
-    return _csub(a + b, q)
+    return _csub(a + b, q, out)
 
 
 def msub(a, b, q: int):
@@ -434,14 +442,16 @@ def _shoup_wide(a, c, c_pre, q: int):
     return _csub_wide(r, q)
 
 
-def shoup_mul(a, c, c_pre, q: int):
+def shoup_mul(a, c, c_pre, q: int, out=None):
     """(a * c) mod q with Shoup-precomputed c' = floor(c*2^32/q).
 
     t = floor(a * c' / 2^32) satisfies floor(a*c/q) - 1 <= t <= floor(a*c/q),
     so r = a*c - t*q ∈ [0, 2q), taken mod 2^32 (exact because the true
-    r < 2q < 2^32) and reduced by one conditional subtraction.
+    r < 2q < 2^32) and reduced by one conditional subtraction. Written into
+    ``out`` (an ``int32`` tensor of the result's shape, any strides) when
+    given.
     """
-    return _narrow(_shoup_wide(_wide(a), _wide(c), _wide(c_pre), q))
+    return _narrow(_shoup_wide(_wide(a), _wide(c), _wide(c_pre), q), out)
 
 
 @functools.lru_cache(maxsize=None)

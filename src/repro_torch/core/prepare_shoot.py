@@ -144,7 +144,7 @@ def shoot_init(
     return torch.stack(cols_out, dim=1)
 
 
-def shoot_rounds(w: torch.Tensor, plan: PrepareShootPlan, q: int) -> torch.Tensor:
+def shoot_rounds(w: torch.Tensor, plan: PrepareShootPlan, q: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Tree-reduce toward w[:, 0] (Algorithm 1 lines 2-10).
 
     Round t, port ρ: the live targets l (digit_t = 0, lower digits 0) absorb
@@ -153,12 +153,23 @@ def shoot_rounds(w: torch.Tensor, plan: PrepareShootPlan, q: int) -> torch.Tenso
     so both are strided slices of dim 1 and no index tensor is needed. Only
     the target columns are touched; every other column would add a zero,
     which leaves a canonical residue as it is. ``w`` itself is not modified.
+
+    With ``out`` (a ``(K, *payload)`` tensor, any strides) the last round's
+    one live target, column 0, is summed straight into ``out``, which is
+    returned; a plan with no shoot round copies ``w[:, 0]`` into it.
     """
     K, p = plan.K, plan.p
     radix = p + 1
     n = plan.n
+    last = len(plan.shoot_shifts)
     for t, shifts in enumerate(plan.shoot_shifts, start=1):
         stride = radix ** (t - 1)
+        if t == last and out is not None:  # (p+1)^t ≥ n > (p+1)^(t-1): column 0 is the only target, port 1 feeds it
+            tgt = w[:, 0]
+            for rho, s in enumerate(shifts, start=1):
+                if rho * stride < n:
+                    tgt = madd(tgt, torch.roll(w[:, rho * stride], s % K, dims=0), q, out=out)
+            return out
         acc = w.clone()
         for rho, s in enumerate(shifts, start=1):
             src = w[:, rho * stride : n : stride * radix]
@@ -167,6 +178,9 @@ def shoot_rounds(w: torch.Tensor, plan: PrepareShootPlan, q: int) -> torch.Tenso
             tgt = acc[:, 0 : n : stride * radix][:, : src.shape[1]]
             tgt.copy_(madd(tgt, torch.roll(src, s % K, dims=0), q))  # from k - s
         w = acc
+    if out is not None:  # no shoot round: the result is w[:, 0] as it stands
+        out.copy_(w[:, 0])
+        return out
     return w
 
 
@@ -177,17 +191,23 @@ def encode_universal(
     p: int = 1,
     q: int = M31,
     plan: PrepareShootPlan | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """All-to-all encode of ANY K×K matrix A: out[k] = (x @ A)[k] over GF(q).
 
     x: (K, *payload) ``int32`` canonical residues; A: (K, K) numpy array or
-    tensor. Runs on the device where ``x`` lies.
+    tensor. Runs on the device where ``x`` lies. With ``out`` (a ``(K,
+    *payload)`` ``int32`` tensor, any strides: a block of columns of a wider
+    output) the last shoot round sums into it (see :func:`shoot_rounds`)
+    and it is returned.
     """
     K = x.shape[0]
     if plan is None:
         plan = plan_prepare_shoot(K, p)
     buf = prepare_phase(x, plan)
     w = shoot_init(buf, plan, A, q)
+    if out is not None:
+        return shoot_rounds(w, plan, q, out=out)
     w = shoot_rounds(w, plan, q)
     return w[:, 0]
 

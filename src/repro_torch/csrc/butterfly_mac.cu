@@ -8,9 +8,11 @@
 // X_r (n_sources = radix) or all share X_0 (n_sources = 1, a DFT round over
 // one vector). idx is an optional (radix, B) int32 table of row indices on
 // the device; without it the row is b. tw and tw_sh are (B, radix) with
-// tw_sh[b, r] = floor(tw[b, r] * 2^32 / q) (the Shoup dual); out is a dense
-// (B, P). Residues are canonical (< q < 2^31). Offsets are 64-bit: b * P and
-// idx * stride pass 2^31 at the coded widths.
+// tw_sh[b, r] = floor(tw[b, r] * 2^32 / q) (the Shoup dual); out is a
+// (B, P) whose rows are `out_stride` elements apart (columns contiguous: a
+// block of columns of a wider output is written where it lies). Residues are
+// canonical (< q < 2^31). Offsets are 64-bit: b * out_stride and idx * stride
+// pass 2^31 at the coded widths.
 //
 // Replaces the TPU kernel `butterfly_mac_pallas` (body `_butterfly_kernel`) of
 // src/repro/kernels/butterfly/kernel.py, which takes the dense (radix, B, P)
@@ -145,15 +147,15 @@ constexpr int kTileChunks = kThreads * kGroups;  // 16 KB of a part a tile
 
 __global__ void __launch_bounds__(kThreads, 4)
 butterfly_mac_rows_kernel(Sources src, int n_sources, const int* __restrict__ idx, const uint32_t* __restrict__ tw,
-                          const uint32_t* __restrict__ tw_sh, uint32_t* __restrict__ out, int radix, long long B,
-                          long long P, uint32_t q, long long tiles_per_row) {
+                          const uint32_t* __restrict__ tw_sh, uint32_t* __restrict__ out, long long out_stride,
+                          int radix, long long B, long long P, uint32_t q, long long tiles_per_row) {
     __shared__ const uint32_t* s_row[kMaxSources];  // X_r's row for this tile's output row
     __shared__ uint32_t s_c[kMaxSources], s_cp[kMaxSources];
     const int tid = threadIdx.x;
     const long long tiles = B * tiles_per_row;
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
         const long long b = t % B, j = t / B;  // column-tile-major
-        uint32_t* orow = out + b * P;
+        uint32_t* orow = out + b * out_stride;
         const RowSplit split = split_row(orow, P);
         __syncthreads();  // the last tile's readers are done with the staged row
         if (tid < radix) {
@@ -219,20 +221,23 @@ int slots_of(int dev, cudaError_t* err) {
 
 // sources: n_sources base pointers (1, or radix), with each one's row stride
 // (elements) and row count, host arrays read before this returns. idx: the
-// device's (radix, B) int32 row table, or null. device: the index of the
+// device's (radix, B) int32 row table, or null. out_stride: elements between
+// two output rows (at least P; any value when B is 1). device: the index of the
 // current device, on which every operand lies. Launches on `stream`, does not
 // synchronise, allocates nothing. Returns cudaGetLastError() (0 on success),
 // the error of the occupancy calls of the first launch on a device, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int butterfly_mac_rows_launch(const void* const* bases, const long long* strides, const long long* rows,
                                          int n_sources, const void* idx, const void* tw, const void* tw_sh,
-                                         void* out, int radix, long long B, long long P, unsigned int q, int device,
-                                         void* stream) {
+                                         void* out, long long out_stride, int radix, long long B, long long P,
+                                         unsigned int q, int device, void* stream) {
     if (radix < 1 || radix > kMaxSources || B < 1 || P < 1 || q < 3 || q >= 0x80000000u)
         return (int)cudaErrorInvalidValue;
     if (n_sources != 1 && n_sources != radix) return (int)cudaErrorInvalidValue;
     if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (reinterpret_cast<uintptr_t>(out) % 4 != 0) return (int)cudaErrorInvalidValue;
+    if (B == 1) out_stride = P;  // one row: its stride is never read
+    if (out_stride < P) return (int)cudaErrorInvalidValue;
     Sources src = {};
     for (int i = 0; i < n_sources; ++i) {
         if (bases[i] == nullptr || strides[i] < P || rows[i] < 1 || reinterpret_cast<uintptr_t>(bases[i]) % 4 != 0)
@@ -251,6 +256,6 @@ extern "C" int butterfly_mac_rows_launch(const void* const* bases, const long lo
     butterfly_mac_rows_kernel<<<(unsigned int)(tiles < slots ? tiles : slots), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         src, n_sources, static_cast<const int*>(idx), static_cast<const uint32_t*>(tw),
-        static_cast<const uint32_t*>(tw_sh), static_cast<uint32_t*>(out), radix, B, P, q, per_row);
+        static_cast<const uint32_t*>(tw_sh), static_cast<uint32_t*>(out), out_stride, radix, B, P, q, per_row);
     return (int)cudaGetLastError();
 }

@@ -10,11 +10,16 @@ buffer is read where it lies). ``sources`` holds one tensor a ρ, or one tensor
 that every ρ reads (a DFT round over one vector). ``idx`` is an optional
 ``(radix, B)`` ``int32`` table of row indices; without it the row is ``b``.
 
+``out`` is a new dense ``(B, P)`` tensor, or the caller's: any ``(B, P)``
+``int32`` tensor on the operands' device whose columns are contiguous and
+whose rows may be any stride apart (a block of columns of a wider output is
+written where it lies, and nothing else of it is touched). It must not
+overlap a source.
+
 ``butterfly_mac_rows_cuda`` is the only door to the kernel: operands on one
-CUDA device in, a new dense ``(B, P)`` tensor out, launched on PyTorch's
-current stream without synchronising; it raises if the launch is refused and
-adds one to ``butterfly_mac_rows_cuda.launches`` where it launches and
-nowhere else. ``butterfly_mac_rows_plain`` is the same function through
+CUDA device in, ``out`` written, launched on PyTorch's current stream without
+synchronising; it raises if the launch is refused and adds one to
+``butterfly_mac_rows_cuda.launches`` where it launches and nowhere else. ``butterfly_mac_rows_plain`` is the same function through
 ``core.field``'s Shoup multiply on any device: torch gathers the rows, then
 folds them as ``butterfly_mac_plain`` does; the CPU takes it, and the on-card
 checks hold the kernel against it bit for bit.
@@ -47,6 +52,7 @@ def _library():
             ctypes.c_void_p,  # tw
             ctypes.c_void_p,  # tw_sh
             ctypes.c_void_p,  # out
+            ctypes.c_longlong,  # out's row stride (elements)
             ctypes.c_int,  # radix
             ctypes.c_longlong,  # B
             ctypes.c_longlong,  # P
@@ -58,11 +64,11 @@ def _library():
     return fn
 
 
-def _check_rows(sources, tw, tw_sh, idx, q: int) -> tuple[int, int, int]:
+def _check_rows(sources, tw, tw_sh, idx, q: int, out=None) -> tuple[int, int, int]:
     """(radix, B, P) of a call, after every check that needs no value of a
     device tensor. Every operand lies on one device: neither door moves one."""
     sources = tuple(sources)
-    operands = (*sources, tw, tw_sh) + (() if idx is None else (idx,))
+    operands = (*sources, tw, tw_sh) + (() if idx is None else (idx,)) + (() if out is None else (out,))
     if len({t.device for t in operands}) > 1:
         raise ValueError(f"butterfly_mac_rows needs every operand on one device, got "
                          f"{sorted({str(t.device) for t in operands})}")
@@ -89,12 +95,19 @@ def _check_rows(sources, tw, tw_sh, idx, q: int) -> tuple[int, int, int]:
         raise ValueError(f"idx must be ({radix}, {B}), got {tuple(idx.shape)}")
     if not (2 < q < (1 << 31)):
         raise ValueError(f"q={q} out of supported range (3, 2^31)")
+    if out is not None:
+        if tuple(out.shape) != (B, max(P, 0)):
+            raise ValueError(f"out must be ({B}, {P}), got {tuple(out.shape)}")
+        if B > 1 and P > 0 and out.stride(0) < P or P > 1 and out.stride(1) != 1:
+            raise ValueError(f"out's columns must be contiguous and its rows at least {P} apart, "
+                             f"got strides {tuple(out.stride())}")
     return radix, B, P
 
 
-def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None):
-    """``(launch, out)``: every check, the output ``out`` (a dense (B, P)
-    tensor) and the C arguments made once; each ``launch()`` enqueues one pass
+def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None, out=None):
+    """``(launch, out)``: every check, the output ``out`` (a new dense (B, P)
+    tensor, or the caller's ``out``, see the module's docstring) and the C
+    arguments made once; each ``launch()`` enqueues one pass
     of the kernel into ``out`` on PyTorch's current stream and counts it.
     ``butterfly_mac_rows_cuda`` is one launch of a fresh launcher; a timing
     loop calls ``launch`` alone, so that its events see the device and not
@@ -102,7 +115,7 @@ def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None):
     int32; every operand on one CUDA device. The kernel traps on a row index outside its source (the
     next synchronise raises)."""
     sources = tuple(sources)
-    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q)
+    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q, out)
     dev = tw.device
     index = tw.get_device()  # -1 off the card
     tables = (tw, tw_sh) if idx is None else (tw, tw_sh, idx)
@@ -117,9 +130,10 @@ def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None):
     strides = (ctypes.c_longlong * n)(*(x.stride(0) if x.shape[0] > 1 else P for x in sources))
     rows = (ctypes.c_longlong * n)(*(x.shape[0] for x in sources))
     fn = _library()
-    out = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((B, P), dtype=torch.int32, device=dev)
     args = (bases, strides, rows, n, None if idx is None else idx.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
-            out.data_ptr(), radix, B, P, q, index)
+            out.data_ptr(), out.stride(0) if B > 1 else P, radix, B, P, q, index)
 
     def launch():
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -136,10 +150,11 @@ def butterfly_mac_rows_launcher(sources, tw, tw_sh, q: int, *, idx=None):
     return launch, out
 
 
-def butterfly_mac_rows_cuda(sources, tw, tw_sh, q: int, *, idx=None) -> torch.Tensor:
+def butterfly_mac_rows_cuda(sources, tw, tw_sh, q: int, *, idx=None, out=None) -> torch.Tensor:
     """One pass of the CUDA kernel over the rows that ``idx`` names (see the
-    module's docstring and ``butterfly_mac_rows_launcher``): a new (B, P)."""
-    launch, out = butterfly_mac_rows_launcher(sources, tw, tw_sh, q, idx=idx)
+    module's docstring and ``butterfly_mac_rows_launcher``): returns ``out``,
+    a new (B, P) when ``None``."""
+    launch, out = butterfly_mac_rows_launcher(sources, tw, tw_sh, q, idx=idx, out=out)
     launch()
     return out
 
@@ -148,16 +163,19 @@ butterfly_mac_rows_cuda.launches = 0
 
 
 def butterfly_mac_rows_plain(
-    sources, tw, tw_sh, q: int, *, idx=None, chunk_bytes: int = 1 << 28
+    sources, tw, tw_sh, q: int, *, idx=None, out=None, chunk_bytes: int = 1 << 28
 ) -> torch.Tensor:
     """The same function in plain PyTorch: the rows gathered by torch, then
     ``radix`` Shoup multiplies folded by modular adds in ``int64``, over
-    column chunks sized so the temporaries stay near ``chunk_bytes``. Refuses
-    a row index outside its source."""
+    column chunks sized so the temporaries stay near ``chunk_bytes``, each
+    chunk narrowed into its columns of ``out`` (a new dense (B, P) when
+    ``None``). Refuses a row index outside its source (a meta tensor has no
+    index to read)."""
     sources = tuple(sources)
-    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q)
+    radix, B, P = _check_rows(sources, tw, tw_sh, idx, q, out)
     dev = tw.device
-    out = torch.zeros((B, max(P, 0)), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.zeros((B, max(P, 0)), dtype=torch.int32, device=dev)
     if B < 1 or P < 1:
         return out
     source = (lambda r: sources[r]) if len(sources) > 1 else (lambda r: sources[0])
@@ -165,7 +183,7 @@ def butterfly_mac_rows_plain(
         rows = torch.arange(B, device=dev).expand(radix, B)
     else:
         rows = idx.to(torch.int64)
-        for r in range(radix):
+        for r in range(radix) if dev.type != "meta" else ():  # a meta tensor has no index to read
             if int(rows[r].min()) < 0 or int(rows[r].max()) >= source(r).shape[0]:
                 raise ValueError(f"idx[{r}] names a row outside its source of {source(r).shape[0]} rows")
     c = _wide(tw)
@@ -178,7 +196,7 @@ def butterfly_mac_rows_plain(
             part = x[:, n0 : n0 + step].index_select(0, rows[r])
             term = _shoup_wide(_wide(part), c[:, r : r + 1], c_pre[:, r : r + 1], q)
             acc = term if acc is None else _csub_wide(acc + term, q)
-        out[:, n0 : n0 + step] = _narrow(acc)
+        _narrow(acc, out=out[:, n0 : n0 + step])
     return out
 
 

@@ -15,17 +15,20 @@ from .kernel import butterfly_mac_rows_cuda, butterfly_mac_rows_plain
 from .ref import butterfly_mac_ref
 
 
-def butterfly_mac_rows(sources, tw: torch.Tensor, tw_sh: torch.Tensor, *, q: int, idx=None) -> torch.Tensor:
-    """out[b, n] = Σ_ρ tw[b, ρ] · X_ρ[idx[ρ, b], n] (mod q), a new dense (B, P)
-    tensor. ``sources``: one 2-D ``(rows_ρ, P)`` tensor a ρ, or one that every
-    ρ reads, columns contiguous; ``idx``: ``(radix, B)`` int32 row indices, or
-    ``None`` for row ``b``; tw, tw_sh: (B, radix). Every operand lies on one
-    device, or the call raises: the work runs where the operands lie and is
-    never moved. See ``kernel``."""
+def butterfly_mac_rows(sources, tw: torch.Tensor, tw_sh: torch.Tensor, *, q: int, idx=None,
+                       out=None) -> torch.Tensor:
+    """out[b, n] = Σ_ρ tw[b, ρ] · X_ρ[idx[ρ, b], n] (mod q), into ``out`` (a
+    (B, P) ``int32`` tensor, columns contiguous, rows any stride apart, not
+    overlapping a source) or a new dense (B, P) tensor. ``sources``: one 2-D
+    ``(rows_ρ, P)`` tensor a ρ, or one that every ρ reads, columns
+    contiguous; ``idx``: ``(radix, B)`` int32 row indices, or ``None`` for row
+    ``b``; tw, tw_sh: (B, radix). Every operand lies on one device, or the
+    call raises: the work runs where the operands lie and is never moved. See
+    ``kernel``."""
     sources = tuple(sources)
     if tw.is_cuda:
-        return butterfly_mac_rows_cuda(sources, tw, tw_sh, q, idx=idx)
-    return butterfly_mac_rows_plain(sources, tw, tw_sh, q, idx=idx)
+        return butterfly_mac_rows_cuda(sources, tw, tw_sh, q, idx=idx, out=out)
+    return butterfly_mac_rows_plain(sources, tw, tw_sh, q, idx=idx, out=out)
 
 
 def butterfly_mac(

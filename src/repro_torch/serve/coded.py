@@ -405,36 +405,42 @@ class CodedServeGuard:
         K shards → N coded shards) and hand shard j to host j. Every leaf
         is read by its bytes: bf16 slabs, int32 counters and seeds, the
         bool mask as one byte a flag; a ``DTensor`` leaf by its global
-        value."""
+        value. The guard takes the new snapshot's metadata and tick, and the
+        hosts their rows, only once the encode has returned: a snapshot that
+        raises leaves the last one whole (on a mesh it raises on every
+        rank)."""
         whole = (cache, state)
+        meta = state_meta(whole)
         if self._ranks is not None:
-            coded = self._encode_on_ranks(whole)
+            mesh, coded = self._mesh, self._encode_on_ranks(whole)
         else:
-            self._mesh = mesh_group(whole)
-            if self._mesh is not None:
-                self._meta = state_meta(whole)
-                whole = gather_state(whole, keep=self._is_root())
-            coded = None
-            if whole is not None:
-                if self._collective is None:
-                    encode = functools.partial(lcc_encode, self.plan)
-                else:  # the round schedule runs over all N hosts: pad to N rows
-                    encode = lambda x: self._collective(lcc_pad(self.plan, x))  # noqa: E731
-                _, coded, self._meta = encode_state(whole, self.K, self.device, encode, keep_limbs=False,
-                                                    rows=self.plan.N)
-        self._tick = tick
+            mesh = mesh_group(whole)
+            if mesh is None:
+                coded = self._encode(whole)
+            else:
+                group, root = mesh
+                whole = gather_state(whole, keep=dist.get_rank() == root)
+                coded = on_root(lambda: self._encode(whole), group, root, what="the coded snapshot")
+        self._mesh, self._meta, self._tick = mesh, meta, tick
         if coded is not None:
             self.group.store(coded)
         self.snapshots += 1
         if self._metrics is not None:
             self._metrics.counter("serve.snapshots").inc()
 
+    def _encode(self, whole) -> np.ndarray:
+        """The N coded rows of a whole plain state, as a host array."""
+        if self._collective is None:
+            encode = functools.partial(lcc_encode, self.plan)
+        else:  # the round schedule runs over all N hosts: pad to N rows
+            encode = lambda x: self._collective(lcc_pad(self.plan, x))  # noqa: E731
+        return encode_state(whole, self.K, self.device, encode, keep_limbs=False, rows=self.plan.N)[1]
+
     def _encode_on_ranks(self, whole):
         """This rank's row encoded on the ranks; the N coded rows gathered
         (on the host) to the axis's first rank, which gets them as an
         (N, S) numpy array; ``None`` on every other rank."""
         group, root = self._mesh
-        self._meta = state_meta(whole)
         row = state_limb_row(whole, self.K, self._host, self.device)
         out = self._ranks(row[None])[0]
         host = out.cpu() if out.is_cuda else out.contiguous()

@@ -29,10 +29,11 @@ sends it to every rank, which places it back on the mesh with
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
-
+import torch
 import torch.distributed as dist
 
 from ..coded.rs_checkpoint import (
@@ -50,6 +51,27 @@ from ..coded.rs_checkpoint import (
 )
 from ..core.field import resolve_device, to_tensor
 from .train_loop import place
+
+#: host bytes a snapshot leaves free beside its new arrays and the last
+#: snapshot's, for the rest of the process while it copies
+HOST_MARGIN = 4 << 30
+#: where the host's available memory is read
+MEMINFO = "/proc/meminfo"
+
+
+def host_holds_both(new_bytes: int) -> tuple[bool, int | None]:
+    """``(keep, available)``: whether the host can make a snapshot's new
+    arrays (``new_bytes``) while the last snapshot's arrays stay, read as
+    ``MemAvailable`` from ``MEMINFO`` (``available``, bytes) less
+    ``HOST_MARGIN``. Where it cannot be read, ``(True, None)``: the last
+    snapshot is kept, as the reference keeps it."""
+    try:
+        with open(MEMINFO) as f:
+            line = next(line for line in f if line.startswith("MemAvailable:"))
+        available = int(line.split()[1]) * 1024
+    except (OSError, StopIteration, ValueError, IndexError):
+        return True, None
+    return new_bytes <= available - HOST_MARGIN, available
 
 
 @dataclass
@@ -72,6 +94,8 @@ class CodedStateGuard:
     step: int = -1
     #: (process group, encoding rank) of the last snapshot's mesh, or None
     _mesh: tuple | None = None
+    #: whether the guard has warned that it drops the last snapshot first
+    _warned: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -81,22 +105,54 @@ class CodedStateGuard:
     def snapshot(self, state, step: int):
         """Encode parity of the current state (call every coded_every steps).
         On a state on a mesh of ranks every rank of the mesh calls it. The
-        last snapshot's host copies go before the new ones are made (two
-        copies of a full-width state need not fit in host memory): a snapshot
-        that raises leaves no recovery point (``step`` -1)."""
-        self._shards = self._parity = None
-        self.step = -1
-        self._mesh = mesh_group(state)
-        if self._mesh is not None:
-            root = self._mesh[1]
-            self._meta = state_meta(state)
-            state = gather_state(state, keep=dist.get_rank() == root)
-            if state is None:
-                self.step = step
-                return
-        self._shards, self._parity, self._meta = encode_state(
-            state, self.K, self.device, lambda x: encode_parity(x, self.plan), keep_limbs=True)
-        self.step = step
+        guard takes the new snapshot once its encode has returned, so a
+        snapshot that raises keeps the last one (on a mesh it raises on every
+        rank, and every rank keeps it). Only where the host cannot hold the
+        new host arrays beside the last ones (:func:`host_holds_both`, asked
+        on the encoding rank and told to every rank) are the last ones
+        dropped first, with a ``RuntimeWarning`` once a guard: a snapshot
+        that raises then leaves no recovery point (``step`` -1 on every
+        rank)."""
+        mesh = mesh_group(state)
+        meta = state_meta(state)
+        root = None if mesh is None else mesh[1]
+        if self.step >= 0 and not self._keep_last(meta, mesh):
+            self._shards = self._parity = None
+            self.step = -1
+
+        def encode(whole):
+            return encode_state(whole, self.K, self.device, lambda x: encode_parity(x, self.plan), keep_limbs=True)
+
+        if mesh is None:
+            shards, parity, meta = encode(state)
+        else:
+            whole = gather_state(state, keep=dist.get_rank() == root)
+            done = on_root(lambda: encode(whole), mesh[0], root, what="the coded snapshot")
+            del whole
+            shards, parity = (None, None) if done is None else done[:2]
+        self._shards, self._parity, self._meta, self._mesh, self.step = shards, parity, meta, mesh, step
+
+    def _keep_last(self, meta, mesh) -> bool:
+        """Whether the last snapshot stays while the new one is made: the
+        encoding rank's :func:`host_holds_both` on the new arrays' bytes (the
+        limbs and the parity, 2 × K × S ``uint32``), told to every rank of
+        ``mesh``. Warns once a guard where it does not."""
+        K = self.K
+        need = 2 * K * (-(-meta.total // K)) * 4
+        keep, available = True, None
+        if mesh is None or dist.get_rank() == mesh[1]:
+            keep, available = host_holds_both(need)
+        if mesh is not None:
+            told = torch.tensor([int(keep), -1 if available is None else available], dtype=torch.int64)
+            dist.broadcast(told, src=mesh[1], group=mesh[0])
+            keep, available = bool(told[0]), None if told[1] < 0 else int(told[1])
+        if not keep and not self._warned:
+            self._warned = True
+            where = "" if available is None else f" beside {available:,} bytes available"
+            warnings.warn(f"CodedStateGuard: the host cannot hold a snapshot's new {need:,} bytes{where} "
+                          f"while keeping the last one: it is dropped first, and a snapshot that raises "
+                          f"leaves no recovery point", RuntimeWarning, stacklevel=3)
+        return keep
 
     def fail_and_recover(self, lost: list[int]):
         """Simulate losing `lost` replicas (their x AND parity shards) and

@@ -50,10 +50,10 @@ def calls(monkeypatch):
     seen = []
     real = bops.butterfly_mac_rows
 
-    def spy(sources, tw, tw_sh, *, q, idx=None):
+    def spy(sources, tw, tw_sh, *, q, idx=None, out=None):
         sources = tuple(sources)
         seen.append((sources, idx, tw))
-        return real(sources, tw, tw_sh, q=q, idx=idx)
+        return real(sources, tw, tw_sh, q=q, idx=idx, out=out)
 
     monkeypatch.setattr(bops, "butterfly_mac_rows", spy)
     return seen

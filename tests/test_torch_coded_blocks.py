@@ -22,6 +22,7 @@ The bound: ``encode_parity`` over meta limbs of (8, 2^27) under
 
 import functools
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -172,22 +173,31 @@ def test_the_reference_encodes_equal_the_blocked_port(blocks, kind):
 
 def test_block_edges_and_output_allocated_once(blocks):
     """The blocks tile the columns in order, the last one ragged, each a
-    view of the input; an input of one block is encoded as it is; the output
-    is one tensor."""
+    view of the input handed over with its columns of the one output (rows
+    a whole output row apart), into which the encode writes; a result that
+    is not that view is stored into it; an input of one block is encoded as
+    it is, with no output view."""
     blocks("8", S)
     assert prs.column_blocks(S, 2) == [(0, 8), (8, 16), (16, 21)]
     assert prs.column_blocks(0, 2) == [(0, 0)]
-    seen = []
+    seen, outs = [], []
 
-    def enc(x):
+    def enc(x, out):
         seen.append(tuple(x.shape))
         assert x.untyped_storage().data_ptr() == base.untyped_storage().data_ptr()
-        return x + 1
+        if out is None:
+            return x + 1
+        outs.append(out)
+        assert out.shape == x.shape and out.stride() == (S, 1)
+        return torch.add(x, 1, out=out)
 
     x = base = torch.arange(2 * S, dtype=torch.int32).reshape(2, 3, 7)
     out = prs.encode_columns(enc, x)
     assert seen == [(2, 8), (2, 8), (2, 5)]
     assert torch.equal(out, x + 1)
+    assert {o.untyped_storage().data_ptr() for o in outs} == {out.untyped_storage().data_ptr()}
+    assert [o.storage_offset() for o in outs] == [0, 8, 16]
+    assert torch.equal(prs.encode_columns(lambda x, out: x + 1, x), x + 1)  # stored
     blocks("S", S)
     seen.clear()
     assert torch.equal(prs.encode_columns(enc, x), x + 1) and seen == [(2, 3, 7)]
@@ -357,22 +367,109 @@ def test_encode_parity_peak_is_its_input_and_output_and_one_block():
     assert len(prs.column_blocks(cols, K)) == math.ceil(cols / 1_398_100) == 97
 
 
-def test_a_snapshot_that_raises_leaves_no_recovery_point(monkeypatch):
-    """A failed snapshot has dropped the last one's host copies: the guard
-    says so (``step`` -1) and recovery raises, rather than decoding the new
-    state's metadata against nothing."""
-    guard = CodedStateGuard(K=8, device="cpu")
-    st = state_from_reference(train_state(9), "cpu")
-    guard.snapshot(st, step=3)
-    assert guard.step == 3 and guard.fail_and_recover([1])[1] == 3
+@pytest.mark.parametrize("host", ["holds-both", "holds-one"])
+def test_a_snapshot_that_raises_keeps_the_last_one_where_the_host_holds_both(monkeypatch, host):
+    """The second snapshot raises in the port's guard and in the
+    reference's (made to raise through its instance's ``_encode_jit``).
+    Where the host holds both snapshots' arrays (the decision,
+    ``elastic.host_holds_both``, patched), the port keeps step 3 and
+    ``fail_and_recover([1, 4, 6])`` gives the reference's state and step,
+    bit for bit. Where it does not, the port drops the last snapshot first,
+    says so once with a ``RuntimeWarning`` naming both byte counts, and a
+    raise leaves no recovery point (``step`` -1)."""
+    from repro_torch.train import elastic
+
+    K, lost = 8, [1, 4, 6]
+    first, second = train_state(9), train_state(10)
+    monkeypatch.setattr(elastic, "host_holds_both", lambda need: (host == "holds-both", 12_345))
+    guard = CodedStateGuard(K=K, device="cpu")
+    guard.snapshot(state_from_reference(first, "cpu"), step=3)
+    ref = RStateGuard(K=K)
+    ref.snapshot(first, step=3)
 
     def fail(*args, **kwargs):
         raise MemoryError("no room for the block")
 
-    monkeypatch.setattr(prs, "encode_parity", fail)
-    monkeypatch.setattr("repro_torch.train.elastic.encode_parity", fail)
+    monkeypatch.setattr(elastic, "encode_parity", fail)
+    ref._encode_jit = fail
     with pytest.raises(MemoryError):
-        guard.snapshot(st, step=5)
+        ref.snapshot(second, step=5)
+    r_rec, r_at = ref.fail_and_recover(lost)
+    assert r_at == 3
+    need = 2 * K * ref._shards.shape[1] * 4
+    if host == "holds-both":
+        with pytest.raises(MemoryError):
+            guard.snapshot(state_from_reference(second, "cpu"), step=5)
+        rec, at = guard.fail_and_recover(lost)
+        assert at == r_at == 3
+        assert_same_state(rec, r_rec)
+        assert_same_state(rec, first)
+        return
+    with pytest.warns(RuntimeWarning, match=f"{need:,} bytes beside 12,345 bytes"):
+        with pytest.raises(MemoryError):
+            guard.snapshot(state_from_reference(second, "cpu"), step=5)
     assert guard.step == -1 and guard._shards is None and guard._parity is None
     with pytest.raises(RuntimeError, match="no snapshot taken"):
-        guard.fail_and_recover([1])
+        guard.fail_and_recover(lost)
+    monkeypatch.undo()
+    monkeypatch.setattr(elastic, "host_holds_both", lambda need: (False, 12_345))
+    guard.snapshot(state_from_reference(second, "cpu"), step=5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # once a guard
+        guard.snapshot(state_from_reference(first, "cpu"), step=6)
+    rec, at = guard.fail_and_recover(lost)
+    assert at == 6
+    assert_same_state(rec, r_rec)
+
+
+def test_the_keep_or_drop_decision_reads_mem_available(monkeypatch, tmp_path):
+    """``host_holds_both`` keeps the last snapshot where the new arrays and
+    ``HOST_MARGIN`` fit in ``MemAvailable``, drops it where they do not, and
+    keeps it (the reference's semantics) where the file cannot be read."""
+    from repro_torch.train import elastic
+
+    info = tmp_path / "meminfo"
+    info.write_text("MemTotal:       105906176 kB\nMemFree:  1 kB\nMemAvailable:   20971520 kB\n")
+    monkeypatch.setattr(elastic, "MEMINFO", str(info))
+    avail = 20971520 * 1024
+    assert elastic.host_holds_both(avail - elastic.HOST_MARGIN) == (True, avail)
+    assert elastic.host_holds_both(avail - elastic.HOST_MARGIN + 1) == (False, avail)
+    monkeypatch.setattr(elastic, "MEMINFO", str(tmp_path / "absent"))
+    assert elastic.host_holds_both(1 << 60) == (True, None)
+    info.write_text("MemTotal:       105906176 kB\n")
+    monkeypatch.setattr(elastic, "MEMINFO", str(info))
+    assert elastic.host_holds_both(1 << 60) == (True, None)
+
+
+def test_a_serving_snapshot_that_raises_keeps_the_last_one(monkeypatch):
+    """The serving guard's second snapshot, of a state of other shapes,
+    raises in its encode: the guard keeps the first snapshot's metadata and
+    tick and the hosts their rows (equal to the reference guard's), and a
+    recovery after two kills gives the first state bit for bit."""
+    import repro_torch.serve.coded as psc
+
+    K, R = 8, 2
+    cache, state = serve_state(3)
+    ref = RServeGuard(K=K, R=R)
+    ref.snapshot(cache, state, tick=4)
+    guard = CodedServeGuard(K=K, R=R, device="cpu")
+    guard.snapshot(state_from_reference(cache, "cpu"), state_from_reference(state, "cpu"), tick=4)
+    meta, rows = guard._meta, {j: v.copy() for j, v in guard.group._mem.items()}
+
+    def fail(*args, **kwargs):
+        raise MemoryError("no room for the block")
+
+    monkeypatch.setattr(psc, "lcc_encode", fail)
+    other = state_from_reference(serve_state(4), "cpu")
+    other[1]["extra"] = torch.arange(5, dtype=torch.int32)
+    with pytest.raises(MemoryError):
+        guard.snapshot(*other, tick=9)
+    assert guard._tick == 4 and guard._meta is meta and guard._mesh is None and guard.snapshots == 1
+    assert sorted(guard.group._mem) == list(range(K + R))
+    for j in range(K + R):
+        assert np.array_equal(guard.group._mem[j], rows[j]) and np.array_equal(rows[j], np.asarray(ref.group._mem[j]))
+    guard.group.kill(0)
+    guard.group.kill(7)
+    got_cache, got_state = guard.recover([0, 7])
+    assert_same_state(got_cache, cache)
+    assert_same_state(got_state, state)

@@ -381,3 +381,90 @@ def port_hosts(rank: int, world: int, out_dir: str) -> dict:
             res.update(pool_alive=[pool.alive(h) for h in range(8)], limbs=first["extra"], rows=first["rows"],
                        single=to_numpy(lcc_encode(build_lcc(HOSTS_K, R=HOSTS_R), to_tensor(first["extra"], "cpu"))))
     return res
+
+
+RAISE_SEED = 41  # the two train states of port_raise
+
+
+def port_raise(rank: int, world: int) -> dict:
+    """A raise in the root's encode on a 2x2 mesh, on this rank. Two float32
+    smoke-config parameter states (seeds ``RAISE_SEED`` and + 1) placed on
+    the mesh; for each guard the first is snapshotted (step 3, tick 4), then
+    the second with rank 0's encode made to raise: ``"keep"`` the train guard
+    as it stands, ``"drop"`` with rank 0's ``host_holds_both`` saying no,
+    ``"serve"`` the single-program ``CodedServeGuard(K=3, R=2)`` over the
+    state as its cache. Returns each case's error, step or tick and recovery
+    (leaves as numpy arrays); rank 0 also the first state whole, as nested
+    dicts of numpy arrays."""
+    import warnings
+
+    import torch
+
+    import repro_torch.serve.coded as psc
+    from repro_torch import tree
+    from repro_torch.coded.rs_checkpoint import gather_state
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.profiles import BASELINE, rules_for
+    from repro_torch.models import build_model
+    from repro_torch.serve import CodedServeGuard
+    from repro_torch.train import CodedStateGuard, elastic
+    from repro_torch.train.train_loop import param_shardings, place
+
+    mesh = make_mesh(*MESH, device="cpu")
+    cfg = smoke_config(ARCH).replace(dtype="float32")
+    model = build_model(cfg)
+    shard = param_shardings(model, mesh, rules_for(cfg, ShapeSpec("t", "train", TRAIN_BATCH[1], TRAIN_BATCH[0]),
+                                                  BASELINE))
+    placed = [place(model.init(torch.Generator().manual_seed(RAISE_SEED + i)), shard) for i in range(2)]
+
+    def fail(*args, **kwargs):
+        raise MemoryError("the root's encode")
+
+    def attempt(fn) -> str | None:
+        try:
+            fn()
+        except Exception as e:  # every rank's error, reported
+            return f"{type(e).__name__}: {e}"
+        return None
+
+    def leaves(state) -> list:
+        return [t.numpy().copy() for t in tree.leaves(state)]
+
+    res: dict = {}
+    for case in ("keep", "drop"):
+        guard = CodedStateGuard(K=TRAIN_K, device="cpu")
+        guard.snapshot(placed[0], 3)
+        patched = {"encode_parity": fail} if case == "keep" else {
+            "encode_parity": fail, "host_holds_both": lambda need: (False, 1)}
+        saved = {k: getattr(elastic, k) for k in patched}
+        if rank == 0:
+            for k, v in patched.items():
+                setattr(elastic, k, v)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            raised = attempt(lambda: guard.snapshot(placed[1], 5))
+        for k, v in saved.items():
+            setattr(elastic, k, v)
+        rec = {"raised": raised, "step": guard.step, "held": guard._shards is not None,
+               "warned": [str(w.message) for w in seen if issubclass(w.category, RuntimeWarning)]}
+        got = {}
+        rec["recover_raised"] = attempt(lambda: got.update(zip(("state", "step"), guard.fail_and_recover(TRAIN_LOST))))
+        if "state" in got:
+            rec.update(recovered_step=got["step"], leaves=leaves(got["state"]))
+        res[case] = rec
+
+    guard = CodedServeGuard(K=K, R=R, device="cpu")
+    guard.snapshot(placed[0], {}, tick=4)
+    real = psc.lcc_encode
+    if rank == 0:
+        psc.lcc_encode = fail
+    raised = attempt(lambda: guard.snapshot(placed[1], {}, tick=9))
+    psc.lcc_encode = real
+    cache, _ = guard.recover([])
+    res["serve"] = {"raised": raised, "tick": guard._tick, "snapshots": guard.snapshots, "leaves": leaves(cache)}
+    first = gather_state(placed[0], keep=rank == 0)
+    if rank == 0:
+        res["first"] = tree.map(lambda t: t.numpy().copy(), first)
+    return res
